@@ -1,0 +1,145 @@
+"""DINOv2 ViT feature extractor (port of `no_time_to_train_tpu/models/dino.py`).
+
+Parameter names are those of HF `transformers.Dinov2Model`, so its
+state_dict loads unchanged. Input is NHWC; the patch embedding runs on the
+NCHW view.
+"""
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from no_time_to_train_tpu_torch.models.sam2.common import LayerNorm, _gelu_act
+from no_time_to_train_tpu_torch.ops.attention import sdpa_bnhd
+from no_time_to_train_tpu_torch.ops.resize import resize
+
+__all__ = ["DinoV2"]
+
+
+class _PatchEmbeddings(nn.Module):
+    def __init__(self, patch, dim):
+        super().__init__()
+        self.projection = nn.Conv2d(3, dim, patch, stride=patch)
+
+
+class _Embeddings(nn.Module):
+    def __init__(self, cfg):
+        super().__init__()
+        d = cfg.feat_dim
+        self.cls_token = nn.Parameter(torch.zeros(1, 1, d))
+        self.mask_token = nn.Parameter(torch.zeros(1, d))   # checkpoint only
+        self.position_embeddings = nn.Parameter(
+            torch.zeros(1, 1 + cfg.grid_size ** 2, d))
+        self.patch_embeddings = _PatchEmbeddings(cfg.patch_size, d)
+
+
+class _SelfAttention(nn.Module):
+    def __init__(self, d):
+        super().__init__()
+        self.query = nn.Linear(d, d)
+        self.key = nn.Linear(d, d)
+        self.value = nn.Linear(d, d)
+
+
+class _SelfOutput(nn.Module):
+    def __init__(self, d):
+        super().__init__()
+        self.dense = nn.Linear(d, d)
+
+
+class _Attention(nn.Module):
+    def __init__(self, d, heads):
+        super().__init__()
+        self.attention = _SelfAttention(d)
+        self.output = _SelfOutput(d)
+        self.heads = heads
+
+    def forward(self, x):
+        b, n, c = x.shape
+        a = self.attention
+
+        def split(t):
+            return t.reshape(b, n, self.heads, -1)
+
+        out = sdpa_bnhd(split(a.query(x)), split(a.key(x)), split(a.value(x)))
+        return self.output.dense(out.reshape(b, n, c))
+
+
+class _LayerScale(nn.Module):
+    def __init__(self, d):
+        super().__init__()
+        self.lambda1 = nn.Parameter(torch.ones(d))
+
+
+class _MLP(nn.Module):
+    def __init__(self, d, hidden):
+        super().__init__()
+        self.fc1 = nn.Linear(d, hidden)
+        self.fc2 = nn.Linear(hidden, d)
+
+    def forward(self, x):
+        return self.fc2(_gelu_act(self.fc1(x)))
+
+
+class _Layer(nn.Module):
+    def __init__(self, d, heads, mlp_ratio=4):
+        super().__init__()
+        self.norm1 = LayerNorm(d, eps=1e-6)
+        self.attention = _Attention(d, heads)
+        self.layer_scale1 = _LayerScale(d)
+        self.norm2 = LayerNorm(d, eps=1e-6)
+        self.mlp = _MLP(d, mlp_ratio * d)
+        self.layer_scale2 = _LayerScale(d)
+
+    def forward(self, x):
+        h = self.attention(self.norm1(x)) * self.layer_scale1.lambda1
+        x = x + h
+        h = self.mlp(self.norm2(x)) * self.layer_scale2.lambda1
+        return x + h
+
+
+class _Encoder(nn.Module):
+    def __init__(self, cfg):
+        super().__init__()
+        self.layer = nn.ModuleList(
+            _Layer(cfg.feat_dim, cfg.num_heads) for _ in range(cfg.depth))
+
+
+class DinoV2(nn.Module):
+    """DINOv2 with the MLP feed-forward and layer scale (small to large)."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        if cfg.ffn_layer != "mlp" or cfg.init_values is None \
+                or cfg.family != "dinov2":
+            raise NotImplementedError(
+                f"{cfg.name}: only DINOv2 with MLP blocks and layer scale is "
+                "ported")
+        self.cfg = cfg
+        self.embeddings = _Embeddings(cfg)
+        self.encoder = _Encoder(cfg)
+        self.layernorm = LayerNorm(cfg.feat_dim, eps=1e-6)
+
+    def forward(self, imgs, drop_prefix_tokens=True):
+        """imgs: [B, S, S, 3] normalized. Returns patch features
+        [B, grid*grid, D] (the CLS token dropped when asked)."""
+        c = self.cfg
+        emb = self.embeddings
+        b, s = imgs.shape[:2]
+        grid = s // c.patch_size
+        proj = emb.patch_embeddings.projection
+        x = F.conv2d(imgs.permute(0, 3, 1, 2).to(proj.weight.dtype),
+                     proj.weight, proj.bias, stride=c.patch_size)
+        x = x.flatten(2).transpose(1, 2)                 # [B, grid^2, D]
+        pos = emb.position_embeddings[0]
+        if grid != c.grid_size:
+            patch_pos = pos[1:].reshape(c.grid_size, c.grid_size, -1)
+            patch_pos = resize(patch_pos[None].float(), (grid, grid),
+                               mode="bicubic", antialias=True)[0]
+            pos = torch.cat([pos[:1], patch_pos.reshape(grid * grid, -1)
+                             .to(pos.dtype)], dim=0)
+        x = torch.cat([emb.cls_token.expand(b, 1, -1), x], dim=1)
+        x = x + pos[None].to(x.dtype)
+        for layer in self.encoder.layer:
+            x = layer(x)
+        x = self.layernorm(x)
+        return x[:, 1 + c.num_register_tokens:] if drop_prefix_tokens else x

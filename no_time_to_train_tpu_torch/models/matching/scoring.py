@@ -1,0 +1,51 @@
+"""Matching math (port of `no_time_to_train_tpu/models/matching/scoring.py`;
+reference matching_baseline_utils.py:831-941): cosine similarity against the
+class prototypes and the semantic intersection-over-self decay, with fixed
+shapes and validity masks."""
+import torch
+
+__all__ = ["masked_avg_feats", "sim_global_avg", "semantic_ios"]
+
+
+def _l2n(x):
+    return x / x.norm(dim=-1, keepdim=True).clamp(min=1e-12)
+
+
+def masked_avg_feats(tar_feat, masks_bool):
+    """tar_feat [P, D]; masks_bool [M, P] -> L2-normalized pooled features
+    [M, D] float32. Zero-area masks divide by 1. The pooling product takes
+    tar_feat's values (0/1 masks are exact) with float32 accumulation."""
+    masks = masks_bool.float()
+    msum = masks.sum(dim=-1, keepdim=True)
+    msum = torch.where(msum == 0, torch.ones_like(msum), msum)
+    pooled = masks @ tar_feat.float()
+    return _l2n(pooled / msum)
+
+
+def sim_global_avg(tar_feat, masks_bool, mem_feats_ins_avg):
+    """Cosine of the masked-average target features with each class
+    prototype (mean of the instance prototypes). Returns (sim [M, C],
+    obj_feats [M, D])."""
+    obj_feats = masked_avg_feats(tar_feat, masks_bool)
+    mem_avg = _l2n(mem_feats_ins_avg.float().mean(dim=1))
+    return obj_feats @ mem_avg.T, obj_feats
+
+
+def semantic_ios(masks_bool, labels, obj_sim, valid=None):
+    """Per mask, the maximum over the other valid masks of its class of
+    intersection * obj_sim / own_area * obj_sim (reference per-class loop,
+    as one masked pairwise computation)."""
+    masks = masks_bool.float()
+    if valid is not None:
+        masks = masks * valid[:, None].float()
+    pos_num = masks.sum(dim=-1)
+    inter = masks @ masks.T
+    m = masks.shape[0]
+    same = (labels[:, None] == labels[None, :]) & ~torch.eye(
+        m, dtype=torch.bool, device=masks.device)
+    if valid is not None:
+        same = same & valid[:, None] & valid[None, :]
+    zero = torch.zeros_like(inter)
+    inter = torch.where(same, inter, zero) * obj_sim
+    ios = inter / pos_num[:, None].clamp(min=1.0) * obj_sim
+    return torch.where(same, ios, zero).amax(dim=-1)

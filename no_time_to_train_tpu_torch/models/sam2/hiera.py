@@ -1,0 +1,173 @@
+"""Hiera image trunk (port of `no_time_to_train_tpu/models/sam2/hiera.py`;
+reference sam2/modeling/backbones/hieradet.py), NHWC.
+
+This is the spatial path: every block partitions into windows, attends and
+unpartitions on its own. The JAX package's window-major stage flow is a TPU
+layout device with the same numbers and is not ported.
+"""
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from no_time_to_train_tpu_torch.models.sam2.common import LayerNorm, MLP
+from no_time_to_train_tpu_torch.ops.attention import sdpa_bnhd
+from no_time_to_train_tpu_torch.ops.resize import resize
+
+__all__ = ["Hiera", "window_partition", "window_unpartition"]
+
+
+def window_partition(x, ws):
+    """[B, H, W, C] -> ([B*nw, ws, ws, C], (Hp, Wp)) with zero padding."""
+    b, h, w, c = x.shape
+    pad_h = (ws - h % ws) % ws
+    pad_w = (ws - w % ws) % ws
+    if pad_h or pad_w:
+        x = F.pad(x, (0, 0, 0, pad_w, 0, pad_h))
+    hp, wp = h + pad_h, w + pad_w
+    x = x.reshape(b, hp // ws, ws, wp // ws, ws, c)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(-1, ws, ws, c), (hp, wp)
+
+
+def window_unpartition(windows, ws, pad_hw, hw):
+    hp, wp = pad_hw
+    h, w = hw
+    b = windows.shape[0] // (hp * wp // ws // ws)
+    x = windows.reshape(b, hp // ws, wp // ws, ws, ws, -1)
+    x = x.permute(0, 1, 3, 2, 4, 5).reshape(b, hp, wp, -1)
+    return x[:, :h, :w, :]
+
+
+def _max_pool_2x2(x):
+    b, h, w, c = x.shape
+    return x.reshape(b, h // 2, 2, w // 2, 2, c).amax(dim=(2, 4))
+
+
+class PatchEmbed(nn.Module):
+    """The 7x7, stride 4, pad 3 patch embedding (reference PatchEmbed)."""
+
+    def __init__(self, dim):
+        super().__init__()
+        self.proj = nn.Conv2d(3, dim, 7, stride=4, padding=3)
+
+    def forward(self, x):
+        y = F.conv2d(x.permute(0, 3, 1, 2).to(self.proj.weight.dtype),
+                     self.proj.weight, self.proj.bias, stride=4, padding=3)
+        return y.permute(0, 2, 3, 1)
+
+
+class MultiScaleAttention(nn.Module):
+    def __init__(self, dim, dim_out, num_heads, q_pool=False):
+        super().__init__()
+        self.dim_out = dim_out
+        self.num_heads = num_heads
+        self.q_pool = q_pool
+        self.qkv = nn.Linear(dim, 3 * dim_out)
+        self.proj = nn.Linear(dim_out, dim_out)
+
+    def forward(self, x):
+        """x: [B, H, W, C] -> [B, H', W', dim_out] (H' = H/2 with q-pool)."""
+        b, h, w, _ = x.shape
+        d, nh = self.dim_out, self.num_heads
+        qkv = self.qkv(x).reshape(b, h * w, 3, nh, d // nh)
+        q, k, v = qkv.unbind(2)
+        if self.q_pool:
+            q = _max_pool_2x2(q.reshape(b, h, w, d))
+            h, w = q.shape[1:3]
+            q = q.reshape(b, h * w, nh, d // nh)
+        out = sdpa_bnhd(q, k, v).reshape(b, h, w, d)
+        return self.proj(out)
+
+
+class MultiScaleBlock(nn.Module):
+    def __init__(self, dim, dim_out, num_heads, mlp_ratio=4.0, q_stride=False,
+                 window_size=0):
+        super().__init__()
+        self.dim, self.dim_out = dim, dim_out
+        self.q_stride = q_stride
+        self.window_size = window_size
+        self.norm1 = LayerNorm(dim, eps=1e-6)
+        self.attn = MultiScaleAttention(dim, dim_out, num_heads,
+                                        q_pool=q_stride)
+        self.norm2 = LayerNorm(dim_out, eps=1e-6)
+        self.mlp = MLP(dim_out, int(dim_out * mlp_ratio), dim_out, 2,
+                       activation="gelu")
+        if dim != dim_out:
+            self.proj = nn.Linear(dim, dim_out)
+
+    def forward(self, x):
+        shortcut = x
+        xn = self.norm1(x)
+        if self.dim != self.dim_out:
+            shortcut = self.proj(xn)
+            if self.q_stride:
+                shortcut = _max_pool_2x2(shortcut)
+        ws = self.window_size
+        h, w = xn.shape[1], xn.shape[2]
+        if ws > 0:
+            xw, pad_hw = window_partition(xn, ws)
+        else:
+            xw = xn
+        xw = self.attn(xw)
+        if self.q_stride:
+            ws = self.window_size // 2
+            h, w = shortcut.shape[1:3]
+            pad_h = (ws - h % ws) % ws if ws > 0 else 0
+            pad_w = (ws - w % ws) % ws if ws > 0 else 0
+            pad_hw = (h + pad_h, w + pad_w)
+        if self.window_size > 0:
+            xw = window_unpartition(xw, ws, pad_hw, (h, w))
+        x = shortcut + xw
+        return x + self.mlp(self.norm2(x))
+
+
+class Hiera(nn.Module):
+    """Returns the stage outputs [B, H_s, W_s, C_s], highest resolution
+    first."""
+
+    def __init__(self, embed_dim=96, num_heads=1, stages=(2, 3, 16, 3),
+                 q_pool=3, dim_mul=2.0, head_mul=2.0,
+                 window_pos_embed_bkg_spatial_size=(14, 14),
+                 window_spec=(8, 4, 14, 7), global_att_blocks=(12, 16, 20)):
+        super().__init__()
+        depth = sum(stages)
+        self.stage_ends = [sum(stages[:i]) - 1 for i in range(1, len(stages) + 1)]
+        q_pool_blocks = [x + 1 for x in self.stage_ends[:-1]][:q_pool]
+        self.patch_embed = PatchEmbed(embed_dim)
+        bh, bw = window_pos_embed_bkg_spatial_size
+        self.pos_embed = nn.Parameter(torch.zeros(1, embed_dim, bh, bw))
+        ws0 = window_spec[0]
+        self.pos_embed_window = nn.Parameter(
+            torch.zeros(1, embed_dim, ws0, ws0))
+        blocks = []
+        cur_stage = 1
+        for i in range(depth):
+            dim_out = embed_dim
+            window_size = window_spec[cur_stage - 1]
+            if global_att_blocks is not None and i in global_att_blocks:
+                window_size = 0
+            if i - 1 in self.stage_ends:
+                dim_out = int(embed_dim * dim_mul)
+                num_heads = int(num_heads * head_mul)
+                cur_stage += 1
+            blocks.append(MultiScaleBlock(
+                embed_dim, dim_out, num_heads, q_stride=i in q_pool_blocks,
+                window_size=window_size))
+            embed_dim = dim_out
+        self.blocks = nn.ModuleList(blocks)
+
+    def _pos_embed_for(self, h, w, dtype):
+        pe = resize(self.pos_embed[0].permute(1, 2, 0).float()[None], (h, w),
+                    mode="bicubic")[0]
+        win = self.pos_embed_window[0].permute(1, 2, 0)
+        reps = (h // win.shape[0], w // win.shape[1], 1)
+        return (pe + win.float().repeat(*reps)).to(dtype)
+
+    def forward(self, x):
+        x = self.patch_embed(x)
+        x = x + self._pos_embed_for(x.shape[1], x.shape[2], x.dtype)
+        outputs = []
+        for i, blk in enumerate(self.blocks):
+            x = blk(x)
+            if i in self.stage_ends:
+                outputs.append(x)
+        return outputs

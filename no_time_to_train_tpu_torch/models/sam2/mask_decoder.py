@@ -1,0 +1,121 @@
+"""SAM2 mask decoder, best-of-multimask grid path (port of
+`no_time_to_train_tpu/models/sam2/mask_decoder.py`; reference
+sam2/modeling/sam/mask_decoder.py).
+
+Only the path the grid decode runs is ported: `predict_best_of_multimask`
+and the upscale chain in the unshuffled product layout, which goes through
+kernel K4 (ops/upscale_product.fused_post_t1). The vendored reference keeps
+the object-score head dead and returns a constant score of 10, so the
+best-of path never reads it; its parameters are held for checkpoint
+compatibility.
+"""
+import torch
+import torch.nn as nn
+
+from no_time_to_train_tpu_torch.models.sam2.common import LayerNorm2d, MLP
+from no_time_to_train_tpu_torch.models.sam2.transformer import TwoWayTransformer
+from no_time_to_train_tpu_torch.ops.upscale_product import (
+    fold_skips, fused_post_t1)
+
+__all__ = ["MaskDecoder", "OBJECT_SCORE_LOGIT"]
+
+OBJECT_SCORE_LOGIT = 10.0
+
+
+class MaskDecoder(nn.Module):
+    def __init__(self, transformer_dim=256, num_multimask_outputs=3,
+                 iou_head_depth=3, iou_head_hidden_dim=256,
+                 use_high_res_features=True, iou_prediction_use_sigmoid=True,
+                 pred_obj_scores=True, pred_obj_scores_mlp=True,
+                 transformer_depth=2, transformer_mlp_dim=2048,
+                 transformer_num_heads=8):
+        super().__init__()
+        d = transformer_dim
+        self.transformer_dim = d
+        self.num_mask_tokens = num_multimask_outputs + 1
+        self.pred_obj_scores = pred_obj_scores
+        self.use_high_res_features = use_high_res_features
+        self.transformer = TwoWayTransformer(
+            transformer_depth, d, transformer_num_heads, transformer_mlp_dim)
+        self.iou_token = nn.Embedding(1, d)
+        self.mask_tokens = nn.Embedding(self.num_mask_tokens, d)
+        if pred_obj_scores:
+            self.obj_score_token = nn.Embedding(1, d)
+        self.output_upscaling = nn.Sequential(
+            nn.ConvTranspose2d(d, d // 4, 2, stride=2), LayerNorm2d(d // 4),
+            nn.GELU(), nn.ConvTranspose2d(d // 4, d // 8, 2, stride=2),
+            nn.GELU())
+        if use_high_res_features:
+            self.conv_s0 = nn.Conv2d(d, d // 8, 1)
+            self.conv_s1 = nn.Conv2d(d, d // 4, 1)
+        self.output_hypernetworks_mlps = nn.ModuleList(
+            MLP(d, d, d // 8, 3) for _ in range(self.num_mask_tokens))
+        self.iou_prediction_head = MLP(
+            d, iou_head_hidden_dim, self.num_mask_tokens, iou_head_depth,
+            sigmoid_output=iou_prediction_use_sigmoid)
+        if pred_obj_scores:
+            self.pred_obj_score_head = (MLP(d, d, 1, 3) if pred_obj_scores_mlp
+                                        else nn.Linear(d, 1))
+
+    def predict_best_of_multimask(self, image_embeddings, image_pe,
+                                  sparse_prompt_embeddings,
+                                  dense_prompt_embeddings,
+                                  high_res_features=None):
+        """image_embeddings, dense: [1, h, w, C]; image_pe [h, w, C]; sparse
+        [B, N, C]. Runs the transformer, picks the best of the multimask
+        outputs (channels 1..3) by predicted IoU and computes only that
+        mask. Returns (mask [B, 4h, 4w], iou [B])."""
+        s = 1 if self.pred_obj_scores else 0
+        toks = [self.iou_token.weight, self.mask_tokens.weight]
+        if self.pred_obj_scores:
+            toks = [self.obj_score_token.weight] + toks
+        bs = sparse_prompt_embeddings.shape[0]
+        output_tokens = torch.cat(toks, dim=0)
+        tokens = torch.cat([output_tokens[None].expand(bs, -1, -1),
+                            sparse_prompt_embeddings], dim=1)
+        # the image side keeps batch 1: the prompt-independent projections of
+        # layer 0 are computed once until the keys diverge per prompt
+        src = image_embeddings + dense_prompt_embeddings
+        h, w = src.shape[1:3]
+        hs, src_out = self.transformer(src, image_pe[None], tokens)
+        iou_pred = self.iou_prediction_head(hs[:, s])
+        mask_tokens_out = hs[:, s + 1: s + 1 + self.num_mask_tokens]
+        best = torch.argmax(iou_pred[:, 1:], dim=-1) + 1
+        bi = torch.arange(bs, device=best.device)
+        hyper_all = torch.stack(
+            [self.output_hypernetworks_mlps[i](mask_tokens_out[:, i])
+             for i in range(self.num_mask_tokens)], dim=1)
+        mask = self._upscale_product_unshuffled(
+            src_out, hyper_all[bi, best], h, w, high_res_features)
+        return mask, iou_pred[bi, best]
+
+    def _upscale_product_unshuffled(self, src_flat, hyper, h, w,
+                                    high_res_features):
+        """Output upscaling and hypernetwork product in the deconvolutions'
+        unshuffled layout: rows (y, x), cols (phase, channel). Only the final
+        [B, 4h, 4w] mask is re-ordered."""
+        b = src_flat.shape[0]
+        d = self.transformer_dim
+        c1, c2 = d // 4, d // 8
+        hw = h * w
+        dc1, ln, dc2 = (self.output_upscaling[0], self.output_upscaling[1],
+                        self.output_upscaling[3])
+        k1 = dc1.weight.permute(0, 2, 3, 1).reshape(d, 4 * c1)
+        k2 = dc2.weight.permute(0, 2, 3, 1).reshape(c1, 4 * c2)
+        if high_res_features is not None:
+            feat_s0, feat_s1 = high_res_features
+            # [1, 2h, 2w, c1] -> rows (y, x), cols (dy1, dx1, c1)
+            s1f = feat_s1.reshape(h, 2, w, 2, c1).permute(0, 2, 1, 3, 4) \
+                .reshape(hw, 4 * c1)
+            # [1, 4h, 4w, c2] -> rows (y, x), cols (dy1, dx1, dy2, dx2, c2)
+            s0f16 = feat_s0.reshape(h, 2, 2, w, 2, 2, c2) \
+                .permute(0, 3, 1, 4, 2, 5, 6).reshape(hw, 16 * c2)
+        else:
+            s1f = src_flat.new_zeros(hw, 4 * c1)
+            s0f16 = src_flat.new_zeros(hw, 16 * c2)
+        s1p, s0p = fold_skips(dc1.bias.repeat(4), s1f, dc2.bias, s0f16)
+        m16 = fused_post_t1(src_flat.reshape(b, hw, d).contiguous(), k1, s1p,
+                            ln.weight, ln.bias, k2, s0p, hyper, eps=ln.eps)
+        # [b, (dy1, dx1, dy2, dx2), (y, x)] -> [b, 4h, 4w]
+        return (m16.reshape(b, 2, 2, 2, 2, h, w)
+                .permute(0, 5, 1, 3, 6, 2, 4).reshape(b, 4 * h, 4 * w))

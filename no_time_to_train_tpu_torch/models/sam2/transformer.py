@@ -1,0 +1,169 @@
+"""Two-way transformer of the SAM2 mask decoder (port of
+`no_time_to_train_tpu/models/sam2/transformer.py`; reference
+sam2/modeling/sam/transformer.py).
+
+The image-side cross-attentions route to the fused kernels
+(ops/decoder_attention.py) when `i2t_fusible` holds: the token -> image
+attention to K2, the image <- token attention with its residual and norm4
+to K3. Otherwise they run the classic unfused formulation.
+"""
+import torch
+import torch.nn as nn
+
+from no_time_to_train_tpu_torch.models.sam2.common import MLP, LayerNorm
+from no_time_to_train_tpu_torch.ops.attention import sdpa
+from no_time_to_train_tpu_torch.ops.decoder_attention import (
+    fused_i2t_norm, fused_t2i_attn)
+from no_time_to_train_tpu_torch.ops.upscale_product import fusion_disabled
+
+__all__ = ["Attention", "TwoWayAttentionBlock", "TwoWayTransformer"]
+
+
+def _skip_mask(n_q, n_k, skip_last_n_keys, is_cross_skip, device):
+    if skip_last_n_keys <= 0:
+        return None
+    m = torch.ones((n_q, n_k), dtype=torch.bool, device=device)
+    if is_cross_skip:
+        m[:, n_k - skip_last_n_keys:] = False
+    else:
+        m[: n_q - skip_last_n_keys, n_k - skip_last_n_keys:] = False
+    return m
+
+
+class Attention(nn.Module):
+    def __init__(self, embedding_dim, num_heads, downsample_rate=1):
+        super().__init__()
+        self.internal_dim = embedding_dim // downsample_rate
+        self.num_heads = num_heads
+        self.q_proj = nn.Linear(embedding_dim, self.internal_dim)
+        self.k_proj = nn.Linear(embedding_dim, self.internal_dim)
+        self.v_proj = nn.Linear(embedding_dim, self.internal_dim)
+        self.out_proj = nn.Linear(self.internal_dim, embedding_dim)
+
+    def _split(self, x):
+        b, n, c = x.shape
+        return x.reshape(b, n, self.num_heads, c // self.num_heads
+                         ).transpose(1, 2)
+
+    def forward(self, q, k, v, skip_last_n_keys=0, is_cross_skip=False):
+        qh = self._split(self.q_proj(q))
+        kh = self._split(self.k_proj(k))
+        vh = self._split(self.v_proj(v))
+        mask = _skip_mask(qh.shape[-2], kh.shape[-2], skip_last_n_keys,
+                          is_cross_skip, q.device)
+        out = sdpa(qh, kh, vh, mask=mask)
+        b, h, n, d = out.shape
+        return self.out_proj(out.transpose(1, 2).reshape(b, n, h * d))
+
+    def i2t_fusible(self, keys, key_pe, tok_q_in, skip_last_n_keys):
+        """True when the fused image-side passes apply: no key masking,
+        outside no_fusion(), <= 16 tokens, a positional encoding shared by
+        every prompt, and the decoder's head geometry (H * 16 == internal
+        width, widths multiples of 128)."""
+        i = self.internal_dim
+        return (skip_last_n_keys == 0 and not fusion_disabled()
+                and tok_q_in.shape[1] <= 16 and key_pe.shape[0] == 1
+                and self.num_heads * 16 == i and i % 128 == 0
+                and keys.shape[-1] % 128 == 0 and keys.shape[-2] % 8 == 0)
+
+    def i2t_fused_with_norm(self, keys, key_pe, tok_q_in, tok_v_in, norm):
+        """norm(keys + self(keys + key_pe, tok_q_in, tok_v_in)) through K3."""
+        wq = self.q_proj.weight.t()
+        pe_q = key_pe[0] @ wq.to(key_pe.dtype)
+        return fused_i2t_norm(
+            keys, pe_q, self.k_proj(tok_q_in), self.v_proj(tok_v_in), wq,
+            self.q_proj.bias, self.out_proj.weight.t(), self.out_proj.bias,
+            norm.weight, norm.bias, num_heads=self.num_heads, eps=norm.eps)
+
+    def t2i_fused(self, keys, key_pe, tok_q_in):
+        """self(tok_q_in, keys + key_pe, keys) through K2."""
+        wk = self.k_proj.weight.t()
+        pe_k = key_pe[0] @ wk.to(key_pe.dtype)
+        o = fused_t2i_attn(keys, pe_k, self.q_proj(tok_q_in), wk,
+                           self.k_proj.bias, self.v_proj.weight.t(),
+                           self.v_proj.bias, num_heads=self.num_heads)
+        return self.out_proj(o)
+
+
+class TwoWayAttentionBlock(nn.Module):
+    def __init__(self, embedding_dim, num_heads, mlp_dim=2048,
+                 attention_downsample_rate=2, skip_first_layer_pe=False):
+        super().__init__()
+        self.self_attn = Attention(embedding_dim, num_heads)
+        self.norm1 = LayerNorm(embedding_dim)
+        self.cross_attn_token_to_image = Attention(
+            embedding_dim, num_heads, attention_downsample_rate)
+        self.norm2 = LayerNorm(embedding_dim)
+        self.mlp = MLP(embedding_dim, mlp_dim, embedding_dim, 2)
+        self.norm3 = LayerNorm(embedding_dim)
+        self.cross_attn_image_to_token = Attention(
+            embedding_dim, num_heads, attention_downsample_rate)
+        self.norm4 = LayerNorm(embedding_dim)
+        self.skip_first_layer_pe = skip_first_layer_pe
+
+    def forward(self, queries, keys, query_pe, key_pe, skip_last_n_keys=0):
+        if self.skip_first_layer_pe:
+            queries = self.self_attn(queries, queries, queries,
+                                     skip_last_n_keys=skip_last_n_keys)
+        else:
+            q = queries + query_pe
+            queries = queries + self.self_attn(
+                q, q, queries, skip_last_n_keys=skip_last_n_keys)
+        queries = self.norm1(queries)
+
+        # token -> image never carries the skip mask (reference)
+        q = queries + query_pe
+        t2i = self.cross_attn_token_to_image
+        if t2i.i2t_fusible(keys, key_pe, q, 0):
+            attn_out = t2i.t2i_fused(keys, key_pe, q)
+        else:
+            attn_out = t2i(q, keys + key_pe, keys)
+        queries = self.norm2(queries + attn_out)
+        queries = self.norm3(queries + self.mlp(queries))
+
+        q = queries + query_pe
+        i2t = self.cross_attn_image_to_token
+        if i2t.i2t_fusible(keys, key_pe, q, skip_last_n_keys):
+            keys = i2t.i2t_fused_with_norm(keys, key_pe, q, queries,
+                                           self.norm4)
+        else:
+            attn_out = i2t(keys + key_pe, q, queries,
+                           skip_last_n_keys=skip_last_n_keys,
+                           is_cross_skip=True)
+            keys = self.norm4(keys + attn_out)
+        return queries, keys
+
+
+class TwoWayTransformer(nn.Module):
+    def __init__(self, depth, embedding_dim, num_heads, mlp_dim,
+                 attention_downsample_rate=2):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            TwoWayAttentionBlock(embedding_dim, num_heads, mlp_dim,
+                                 attention_downsample_rate,
+                                 skip_first_layer_pe=(i == 0))
+            for i in range(depth))
+        self.final_attn_token_to_image = Attention(
+            embedding_dim, num_heads, attention_downsample_rate)
+        self.norm_final_attn = LayerNorm(embedding_dim)
+
+    def forward(self, image_embedding, image_pe, point_embedding,
+                skip_last_n_keys=0):
+        """image_embedding [B, h, w, C] (B may be 1, shared by every prompt),
+        image_pe [1 or B, h, w, C]; point_embedding [P, N, C]. Returns
+        (queries [P, N, C], keys [P, hw, C])."""
+        bi, h, w, c = image_embedding.shape
+        keys = image_embedding.reshape(bi, h * w, c)
+        key_pe = image_pe.reshape(image_pe.shape[0], h * w, c)
+        queries = point_embedding
+        for layer in self.layers:
+            queries, keys = layer(queries, keys, point_embedding, key_pe,
+                                  skip_last_n_keys=skip_last_n_keys)
+        q = queries + point_embedding
+        fa = self.final_attn_token_to_image
+        if fa.i2t_fusible(keys, key_pe, q, skip_last_n_keys):
+            attn_out = fa.t2i_fused(keys, key_pe, q)
+        else:
+            attn_out = fa(q, keys + key_pe, keys,
+                          skip_last_n_keys=skip_last_n_keys)
+        return self.norm_final_attn(queries + attn_out), keys

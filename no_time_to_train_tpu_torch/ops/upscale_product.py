@@ -1,0 +1,125 @@
+"""Fused mask-decoder upscale chain (port of
+`no_time_to_train_tpu/ops/upscale_product.py`), and the fusion switch.
+
+`fused_post_t1` runs, for the transformer's src_out [B, hw, d]:
+first deconv product + bias + s1 skip -> LayerNorm per 64-wide segment ->
+GELU -> second deconv as four K=64 products + bias + s0 skip -> GELU ->
+hypernetwork product, and returns the [B, 16, hw] subpixel mask phases
+(cols (dy1, dx1, dy2, dx2)). On a CUDA tensor it launches the kernel in
+`csrc/upscale_product.cu`; on a CPU tensor it runs `fused_post_t1_plain`,
+the same function in plain torch with the kernel's cast points (tanh GELU in
+bf16, erf GELU in float32).
+
+`no_fusion()` routes every fused path of the port to its plain formulation
+for the code run inside it; it is the only way a CUDA tensor reaches a plain
+version.
+"""
+import contextlib
+import contextvars
+
+import torch
+import torch.nn.functional as F
+
+from no_time_to_train_tpu_torch.ops import _cuda
+
+__all__ = ["no_fusion", "fusion_disabled", "fused_post_t1",
+           "fused_post_t1_plain", "fold_skips", "LAUNCHES"]
+
+# a contextvar, not a module global, so that a no_fusion() region in one
+# thread does not change dispatch in another
+_NO_FUSION_DEPTH = contextvars.ContextVar("nttt_torch_no_fusion_depth",
+                                          default=0)
+
+LAUNCHES = {"fused_post_t1": 0}
+
+
+@contextlib.contextmanager
+def no_fusion():
+    """Run the code inside on the plain formulations of every fused kernel."""
+    tok = _NO_FUSION_DEPTH.set(_NO_FUSION_DEPTH.get() + 1)
+    try:
+        yield
+    finally:
+        _NO_FUSION_DEPTH.reset(tok)
+
+
+def fusion_disabled():
+    return _NO_FUSION_DEPTH.get() > 0
+
+
+def _gelu(x, bf16):
+    return F.gelu(x, approximate="tanh" if bf16 else "none")
+
+
+def fold_skips(bias1_4, s1f, bias2, s0f16):
+    """The deconv biases added into the float32 skip operands, as the Pallas
+    kernel's caller does: s1p [hw, 4*c1], s0p [hw, 16*c2]."""
+    s1p = s1f.float() + bias1_4.float()[None]
+    s0p = s0f16.float() + bias2.float().repeat(16)[None]
+    return s1p.contiguous(), s0p.contiguous()
+
+
+def fused_post_t1_plain(src, k1mat, s1p, ln_w, ln_b, k2mat, s0p, hyper, *,
+                        eps=1e-6):
+    """Plain torch version of the kernel, with its cast points. src
+    [B, hw, d] (compute dtype), k1mat [d, 4*c1], s1p [hw, 4*c1] float,
+    ln_w/ln_b [c1], k2mat [c1, 4*c2], s0p [hw, 16*c2] float, hyper [B, c2].
+    Returns [B, 16, hw] in src's dtype."""
+    dt = src.dtype
+    bf16 = dt == torch.bfloat16
+    b, hw, _ = src.shape
+    c1 = k1mat.shape[1] // 4
+    c2 = k2mat.shape[1] // 4
+    t1 = src.float() @ k1mat.to(dt).float()
+    z = (t1 + s1p.float()[None]).reshape(b, hw, 4, c1)
+    mu = z.mean(-1, keepdim=True)
+    var = (z - mu).square().mean(-1, keepdim=True)
+    zn = (z - mu) * torch.rsqrt(var + eps) * ln_w.float() + ln_b.float()
+    u = _gelu(zn, bf16).to(dt).float()                  # [b, hw, 4, c1]
+    t2 = (u @ k2mat.to(dt).float()).reshape(b, hw, 16 * c2)
+    g = _gelu(t2 + s0p.float()[None], bf16).to(dt).float()
+    h = hyper.to(dt).float()                             # [b, c2]
+    mask = torch.einsum("bpkc,bc->bkp", g.reshape(b, hw, 16, c2), h)
+    return mask.to(dt)
+
+
+def fused_post_t1(src, k1mat, s1p, ln_w, ln_b, k2mat, s0p, hyper, *,
+                  eps=1e-6):
+    """Kernel K4, shapes as `fused_post_t1_plain`. A CPU tensor, or code
+    inside no_fusion(), takes the plain version; a CUDA tensor takes the
+    kernel or raises."""
+    if src.device.type == "cpu" or fusion_disabled():
+        return fused_post_t1_plain(src, k1mat, s1p, ln_w, ln_b, k2mat, s0p,
+                                   hyper, eps=eps)
+    return _launch(src, k1mat, s1p, ln_w, ln_b, k2mat, s0p, hyper, eps)
+
+
+def _launch(src, k1mat, s1p, ln_w, ln_b, k2mat, s0p, hyper, eps):
+    req = _cuda.require
+    dt = src.dtype
+    dev = src.device
+    b, hw, d = src.shape
+    req(src.is_cuda and src.is_contiguous(), "src must be contiguous CUDA")
+    req((d, k1mat.shape[1], k2mat.shape[0], k2mat.shape[1])
+        == (256, 256, 64, 128), "kernel takes d=256, c1=64, c2=32")
+    req(hw % 16 == 0, f"hw={hw} must be a multiple of 16")
+    req(tuple(s1p.shape) == (hw, 256) and tuple(s0p.shape) == (hw, 512),
+        "skip shapes")
+    req(tuple(hyper.shape) == (b, 32), "hyper shape")
+    k1 = k1mat.to(device=dev, dtype=dt).contiguous()
+    k2 = k2mat.to(device=dev, dtype=dt).contiguous()
+    f32 = dict(device=dev, dtype=torch.float32)
+    s1 = s1p.to(**f32).contiguous()
+    s0 = s0p.to(**f32).contiguous()
+    lw = ln_w.to(**f32).contiguous()
+    lb = ln_b.to(**f32).contiguous()
+    hy = hyper.to(**f32).contiguous()
+    out = torch.empty((b, 16, hw), device=dev, dtype=dt)
+    err = _cuda.lib().nttt_upscale_product(
+        src.data_ptr(), k1.data_ptr(), s1.data_ptr(), lw.data_ptr(),
+        lb.data_ptr(), k2.data_ptr(), s0.data_ptr(), hy.data_ptr(),
+        out.data_ptr(), b, hw, 32, float(eps), _cuda.dtype_code(dt),
+        _cuda.stream_ptr(dev))
+    _cuda.check(err, "nttt_upscale_product")
+    LAUNCHES["fused_post_t1"] += 1
+    return out

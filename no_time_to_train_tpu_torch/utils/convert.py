@@ -1,0 +1,169 @@
+"""JAX package parameter trees -> the port's state_dicts.
+
+The inverse of `no_time_to_train_tpu/utils/torch_convert.py`
+(`convert_image_encoder`, `convert_prompt_encoder`, `convert_mask_decoder`)
+and `no_time_to_train_tpu/models/dino.convert_hf_dinov2`: given the numpy
+leaves of `NoAMGMatcher.sam2_params` / `.dino_params`, build reference-named
+state_dicts so that the port computes what the JAX package computes. The
+SAM2 video-memory subtrees are skipped; the port does not hold them.
+
+Layout rules (inverse of the JAX converters): Dense kernel [in, out] ->
+Linear weight [out, in]; Conv HWIO -> OIHW; spatial embeddings HWC -> NCHW.
+"""
+import numpy as np
+
+__all__ = ["sam2_state_dict", "dino_state_dict"]
+
+
+def _a(x):
+    return np.ascontiguousarray(np.asarray(x, dtype=np.float32))
+
+
+def _lin(sd, p, t):
+    sd[f"{p}.weight"] = _a(np.asarray(t["kernel"]).T)
+    if "bias" in t:
+        sd[f"{p}.bias"] = _a(t["bias"])
+
+
+def _conv(sd, p, t):
+    sd[f"{p}.weight"] = _a(np.asarray(t["kernel"]).transpose(3, 2, 0, 1))
+    if "bias" in t:
+        sd[f"{p}.bias"] = _a(t["bias"])
+
+
+def _ln(sd, p, t):
+    sd[f"{p}.weight"] = _a(t["weight"])
+    sd[f"{p}.bias"] = _a(t["bias"])
+
+
+def _mlp(sd, p, t):
+    for name, sub in t.items():                     # layers_{i}
+        _lin(sd, f"{p}.layers.{name.split('_')[1]}", sub)
+
+
+def _image_encoder(sd, t):
+    tr = t["trunk"]
+    _conv(sd, "image_encoder.trunk.patch_embed.proj", tr["patch_embed"])
+    sd["image_encoder.trunk.pos_embed"] = _a(
+        np.asarray(tr["pos_embed"]).transpose(2, 0, 1)[None])
+    sd["image_encoder.trunk.pos_embed_window"] = _a(
+        np.asarray(tr["pos_embed_window"]).transpose(2, 0, 1)[None])
+    for name, blk in tr.items():
+        if not name.startswith("blocks_"):
+            continue
+        b = f"image_encoder.trunk.blocks.{name.split('_')[1]}"
+        _ln(sd, f"{b}.norm1", blk["norm1"])
+        _ln(sd, f"{b}.norm2", blk["norm2"])
+        _lin(sd, f"{b}.attn.qkv", blk["attn"]["qkv"])
+        _lin(sd, f"{b}.attn.proj", blk["attn"]["proj"])
+        _mlp(sd, f"{b}.mlp", blk["mlp"])
+        if "proj" in blk:
+            _lin(sd, f"{b}.proj", blk["proj"])
+    for name, conv in t["neck"].items():            # convs_{i}
+        _conv(sd, f"image_encoder.neck.convs.{name.split('_')[1]}.conv", conv)
+
+
+def _prompt_encoder(sd, t):
+    p = "sam_prompt_encoder"
+    sd[f"{p}.pe_layer.positional_encoding_gaussian_matrix"] = _a(t["pe_gaussian"])
+    pts = np.asarray(t["point_embeddings"])
+    for i in range(pts.shape[0]):
+        sd[f"{p}.point_embeddings.{i}.weight"] = _a(pts[i:i + 1])
+    sd[f"{p}.not_a_point_embed.weight"] = _a(t["not_a_point_embed"])
+    sd[f"{p}.no_mask_embed.weight"] = _a(t["no_mask_embed"])
+    for i in (0, 3, 6):
+        _conv(sd, f"{p}.mask_downscaling.{i}", t[f"mask_downscaling_{i}"])
+    for i in (1, 4):
+        _ln(sd, f"{p}.mask_downscaling.{i}", t[f"mask_downscaling_{i}"])
+
+
+def _attn(sd, p, t):
+    for k in ("q_proj", "k_proj", "v_proj", "out_proj"):
+        _lin(sd, f"{p}.{k}", t[k])
+
+
+def _mask_decoder(sd, t):
+    p = "sam_mask_decoder"
+    tr = t["transformer"]
+    for name, lt in tr.items():
+        if name.startswith("layers_"):
+            lp = f"{p}.transformer.layers.{name.split('_')[1]}"
+            for a in ("self_attn", "cross_attn_token_to_image",
+                      "cross_attn_image_to_token"):
+                _attn(sd, f"{lp}.{a}", lt[a])
+            _mlp(sd, f"{lp}.mlp", lt["mlp"])
+            for nrm in ("norm1", "norm2", "norm3", "norm4"):
+                _ln(sd, f"{lp}.{nrm}", lt[nrm])
+    _attn(sd, f"{p}.transformer.final_attn_token_to_image",
+          tr["final_attn_token_to_image"])
+    _ln(sd, f"{p}.transformer.norm_final_attn", tr["norm_final_attn"])
+    sd[f"{p}.iou_token.weight"] = _a(t["iou_token"])
+    sd[f"{p}.mask_tokens.weight"] = _a(t["mask_tokens"])
+    sd[f"{p}.output_upscaling.0.weight"] = _a(t["output_upscaling_0_weight"])
+    sd[f"{p}.output_upscaling.0.bias"] = _a(t["output_upscaling_0_bias"])
+    _ln(sd, f"{p}.output_upscaling.1", t["output_upscaling_1"])
+    sd[f"{p}.output_upscaling.3.weight"] = _a(t["output_upscaling_3_weight"])
+    sd[f"{p}.output_upscaling.3.bias"] = _a(t["output_upscaling_3_bias"])
+    _mlp(sd, f"{p}.iou_prediction_head", t["iou_prediction_head"])
+    for name, sub in t.items():
+        if name.startswith("output_hypernetworks_mlps_"):
+            _mlp(sd, f"{p}.output_hypernetworks_mlps.{name.rsplit('_', 1)[1]}",
+                 sub)
+    if "obj_score_token" in t:
+        sd[f"{p}.obj_score_token.weight"] = _a(t["obj_score_token"])
+    if "pred_obj_score_head" in t:
+        head = t["pred_obj_score_head"]
+        if "kernel" in head:
+            _lin(sd, f"{p}.pred_obj_score_head", head)
+        else:
+            _mlp(sd, f"{p}.pred_obj_score_head", head)
+    elif "obj_score_token" in t:
+        # the JAX decoder never calls its (dead, reference-faithful) object
+        # score head, so its init creates no parameters for it; the port
+        # holds the MLP head of the reference checkpoints, here as zeros
+        d = np.asarray(t["iou_token"]).shape[-1]
+        for i, (o, n) in enumerate(((d, d), (d, d), (1, d))):
+            sd[f"{p}.pred_obj_score_head.layers.{i}.weight"] = np.zeros((o, n), np.float32)
+            sd[f"{p}.pred_obj_score_head.layers.{i}.bias"] = np.zeros(o, np.float32)
+    for k in ("conv_s0", "conv_s1"):
+        if k in t:
+            _conv(sd, f"{p}.{k}", t[k])
+
+
+def sam2_state_dict(params):
+    """SAM2 flax params -> state_dict of the port's `SAM2` (image encoder,
+    prompt encoder, mask decoder)."""
+    sd = {}
+    _image_encoder(sd, params["image_encoder"])
+    _prompt_encoder(sd, params["sam_prompt_encoder"])
+    _mask_decoder(sd, params["sam_mask_decoder"])
+    return sd
+
+
+def dino_state_dict(params, cfg):
+    """DinoV2 flax params -> HF `Dinov2Model` state_dict (the unused
+    mask_token is zero)."""
+    d = cfg.feat_dim
+    sd = {
+        "embeddings.cls_token": _a(np.asarray(params["cls_token"])[None]),
+        "embeddings.mask_token": np.zeros((1, d), np.float32),
+        "embeddings.position_embeddings":
+            _a(np.asarray(params["position_embeddings"])[None]),
+    }
+    _conv(sd, "embeddings.patch_embeddings.projection",
+          params["patch_embeddings"])
+    _ln(sd, "layernorm", params["layernorm"])
+    for i in range(cfg.depth):
+        t = params[f"layer_{i}"]
+        p = f"encoder.layer.{i}"
+        _ln(sd, f"{p}.norm1", t["norm1"])
+        _ln(sd, f"{p}.norm2", t["norm2"])
+        a = t["attention"]
+        for k in ("query", "key", "value"):
+            _lin(sd, f"{p}.attention.attention.{k}", a[k])
+        _lin(sd, f"{p}.attention.output.dense", a["output"])
+        sd[f"{p}.layer_scale1.lambda1"] = _a(t["layer_scale1"])
+        sd[f"{p}.layer_scale2.lambda1"] = _a(t["layer_scale2"])
+        _lin(sd, f"{p}.mlp.fc1", t["mlp"]["fc1"])
+        _lin(sd, f"{p}.mlp.fc2", t["mlp"]["fc2"])
+    return sd

@@ -1,0 +1,78 @@
+"""Port encoders vs the JAX package at tiny widths (float32, CPU): DINOv2,
+and Hiera + FPN."""
+import numpy as np
+import pytest
+import jax
+import jax.numpy as jnp
+import torch
+
+from no_time_to_train_tpu.config.presets import EncoderConfig, Sam2Config
+from no_time_to_train_tpu.models.dino import DinoV2 as JDino
+from no_time_to_train_tpu.models.sam2.model import Sam2ImageEncoder as JEnc
+from no_time_to_train_tpu_torch.models.dino import DinoV2
+from no_time_to_train_tpu_torch.models.sam2.neck import Sam2ImageEncoder
+from no_time_to_train_tpu_torch.utils.convert import (
+    _image_encoder, dino_state_dict)
+
+
+def randomize(params, seed):
+    """Every leaf drawn from numpy: norm scales near 1, the rest
+    normal / sqrt(fan_in), so that biases and norms are exercised."""
+    rng = np.random.default_rng(seed)
+
+    def leaf(path, x):
+        names = [str(getattr(k, "key", k)) for k in path]
+        shape = np.shape(x)
+        if names[-1] == "weight" and len(shape) == 1:
+            return rng.standard_normal(shape).astype(np.float32) * 0.1 + 1
+        fan_in = int(np.prod(shape[:-1])) if len(shape) > 1 else shape[0]
+        return (rng.standard_normal(shape) / np.sqrt(max(fan_in, 1))
+                ).astype(np.float32)
+    return jax.tree_util.tree_map_with_path(leaf, params)
+
+
+TINY_DINO = EncoderConfig("tiny", 28, 14, 32, 2, 2, "local")
+TINY_SAM = Sam2Config(
+    embed_dim=32, num_heads=1, stages=(1, 2, 2, 1), global_att_blocks=(3,),
+    window_pos_embed_bkg_spatial_size=(2, 2), window_spec=(4, 2, 4, 2),
+    backbone_channel_list=(256, 128, 64, 32), image_size=128)
+
+
+@pytest.mark.parametrize("img_size", [28, 42])
+def test_dino_matches_jax(img_size):
+    """42 px exercises the bicubic-antialias position interpolation."""
+    jm = JDino(TINY_DINO)
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((2, img_size, img_size, 3)).astype(np.float32)
+    params = randomize(jm.init(jax.random.PRNGKey(0),
+                               jnp.zeros((1, 28, 28, 3)))["params"], 1)
+    ref = np.asarray(jm.apply({"params": params}, jnp.asarray(x)))
+    tm = DinoV2(TINY_DINO)
+    tm.load_state_dict({k: torch.as_tensor(v) for k, v in
+                        dino_state_dict(params, TINY_DINO).items()})
+    with torch.no_grad():
+        got = tm(torch.as_tensor(x)).numpy()
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4)
+
+
+def test_hiera_fpn_matches_jax():
+    jm = JEnc(TINY_SAM)
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((1, 128, 128, 3)).astype(np.float32)
+    params = randomize(jm.init(jax.random.PRNGKey(0),
+                               jnp.zeros((1, 128, 128, 3)))["params"], 3)
+    ref = jm.apply({"params": params}, jnp.asarray(x))["backbone_fpn"]
+    sd = {}
+    _image_encoder(sd, params)
+    pre = "image_encoder."
+    tm = Sam2ImageEncoder(TINY_SAM)
+    tm.load_state_dict({k[len(pre):]: torch.as_tensor(v)
+                        for k, v in sd.items()})
+    with torch.no_grad():
+        got = tm(torch.as_tensor(x))["backbone_fpn"]
+    assert len(got) == len(ref) == 3
+    for g, r in zip(got, ref):
+        assert tuple(g.shape) == r.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=2e-4,
+                                   atol=2e-4)

@@ -6,13 +6,16 @@
 Run from the root of a checkout. Phases, each of which raises on failure:
   1. device: name, count and `nvidia-smi` power limit; TF32 off;
   2. build the CUDA kernels from `no_time_to_train_tpu_torch/csrc`;
-  3. each kernel against its plain PyTorch version at the slice's shapes,
-     bf16 and float32, with CUDA-event times;
-  4. the 10-shot test step: SAM2 Hiera-L + DINOv2-L in bf16 with
-     attention_impl="xla" and seeded random weights: fill_memory with 10
-     synthetic references for each of 20 classes, postprocess_memory, then
-     `test` on 3 seeded 1024^2 images, counting kernel launches;
-  5. one image decoded with the kernels and under no_fusion(), compared;
+  3. each kernel against its plain PyTorch version at the slice's shapes
+     and at edge shapes, bf16 and float32, with CUDA-event times;
+  4. the 10-shot test step on three paths, each a SAM2 Hiera-L matcher in
+     bf16 with seeded random weights: DINOv2-L under attention_impl="xla",
+     DINOv2-L under "pallas" and DINOv3-L under "pallas". Each fills the
+     bank with 10 synthetic references for each of 20 classes, runs
+     postprocess_memory, then `test` on seeded 1024^2 images; the launch
+     counts are set to 0 before each path and read after it;
+  5. for each path one image decoded with the kernels and under
+     no_fusion(), compared, and under "pallas" the encoder features too;
   6. one image's output finalized on the host.
 The last lines are the kernel table, the card's name and power limit, and
 {"ok": true, "device": {...}}. Without a GPU, or outside a checkout, it
@@ -38,7 +41,15 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 #    shares every cast point with its plain version, so only the order of
 #    the float32 statistics differs and a bf16 output moves by at most two
 #    units in the last place below |y| = 8: 0.0625.
+#  * the encoder flash attention: float32 as the JAX package's interpret
+#    anchors for the same kernels (tests/test_flash_attention.py: single-pass
+#    5e-5 / 1e-4, window 2e-5 / 2e-5); bf16 the JAX package's band for its
+#    flash kernels against XLA (tests/test_flash_attention.py:274, 2e-2).
 TOL = {
+    ("flash_sdpa_bnhd", "float32"): (5e-5, 1e-4),
+    ("flash_sdpa_bnhd", "bfloat16"): (2e-2, 2e-2),
+    ("flash_sdpa_window_qkv", "float32"): (2e-5, 2e-5),
+    ("flash_sdpa_window_qkv", "bfloat16"): (2e-2, 2e-2),
     ("layer_norm", "float32"): (1e-5, 1e-5),
     ("layer_norm", "bfloat16"): (0.0625, 0.0),
     ("fused_t2i_attn", "float32"): (2e-4, 2e-4),
@@ -55,10 +66,25 @@ TOL = {
 # that noise of zero, so at least 98 % of the mask pixels agree in sign.
 DECODE_IOU_BAND = 0.05
 DECODE_SIGN_AGREE = 0.98
+# encoder features (24 DINO layers) with the kernels vs under no_fusion(),
+# which runs the "xla" formula: that rounds the logits to bf16 before the
+# softmax, a relative error of 2^-9 on logits of unit size, i.e. < 1 % on a
+# weight, and both sides round every layer's output to bf16; carried
+# through 24 residual layers with LayerNorm, the features stay within 5 %
+# in relative L2 norm.
+FEAT_REL_BAND = 0.05
 
-# the slice: SAM2 Hiera-L + DINOv2-L at 1024^2, 20 classes x 10 shots
-SAM2_CFG, ENC_CFG, TARGET_SIZE, MATCHING = (
-    "sam2_hiera_l.yaml", "dinov2_large", 1024, {})
+# the slice: SAM2 Hiera-L at 1024^2 with DINOv2-L or DINOv3-L, 20 classes x
+# 10 shots; each path is (label, encoder, attention_impl, test images)
+SAM2_CFG, TARGET_SIZE, MATCHING = "sam2_hiera_l.yaml", 1024, {}
+PATHS = [("dinov2_l xla", "dinov2_large", "xla", 3),
+         ("dinov2_l pallas", "dinov2_large", "pallas", 3),
+         ("dinov3_l pallas", "dinov3_large", "pallas", 3)]
+# launches of the encoder flash kernels per 1024^2 test image under
+# "pallas": 24 DINO layers + Hiera-L's 3 global blocks; Hiera-L's windowed
+# blocks 0-1, 3-7 and 9-43 but 23 / 33 (stage 4 and the q-pool blocks stay
+# under the gates)
+FLASH_PER_IMAGE = {"flash_sdpa_bnhd": 27, "flash_sdpa_window_qkv": 39}
 
 KERNELS = [
     dict(name="layer_norm", route="cuda",
@@ -73,7 +99,34 @@ KERNELS = [
     dict(name="fused_post_t1", route="cuda",
          source="no_time_to_train_tpu_torch/csrc/upscale_product.cu",
          replaces="no_time_to_train_tpu/ops/upscale_product.py:338"),
+    dict(name="flash_sdpa_bnhd", route="cuda",
+         source="no_time_to_train_tpu_torch/csrc/onepass_attn.cu",
+         replaces="no_time_to_train_tpu/ops/flash_attention.py:179"),
+    dict(name="flash_sdpa_window_qkv", route="cuda",
+         source="no_time_to_train_tpu_torch/csrc/window_attn.cu",
+         replaces="no_time_to_train_tpu/ops/flash_attention.py:267"),
 ]
+
+# kernel 9 at the slice's shapes: (label, B, Nq, Nk, heads, D, q / k / v as
+# views of one packed qkv); DINOv2-L / DINOv3-L at the test's batch of 1 and
+# the fill's 10 references, the Hiera-L global blocks
+ONEPASS_SHAPES = [("dinov2_l test", 1, 1370, 1370, 16, 64, False),
+                  ("dinov2_l fill", 10, 1370, 1370, 16, 64, False),
+                  ("dinov3_l test", 1, 1374, 1374, 16, 64, False),
+                  ("dinov3_l fill", 10, 1374, 1374, 16, 64, False),
+                  ("hiera_l global", 1, 4096, 4096, 8, 72, True)]
+ONEPASS_EDGE = [("n 513", 1, 513, 513, 16, 64, False),
+                ("nq 1000 nk 513", 10, 1000, 513, 2, 72, False),
+                ("nq 513 nk 1000", 2, 513, 1000, 4, 64, False),
+                ("packed n 1000", 3, 1000, 1000, 2, 72, True)]
+# kernel 10: (label, B, heads, D, window tokens, windows)
+WINDOW_SHAPES = [("hiera_l stage 1", 1, 2, 72, 64, 1024),
+                 ("hiera_l stage 2", 1, 4, 72, 16, 1024),
+                 ("hiera_l stage 3", 1, 8, 72, 256, 16)]
+WINDOW_EDGE = [("T 16 x 3 windows", 1, 4, 72, 16, 3),
+               ("B 2, T 64", 2, 2, 72, 64, 3),
+               ("T 256 x 1 window", 1, 8, 72, 256, 1),
+               ("D 64, T 49", 1, 2, 64, 49, 5)]
 
 
 def log(*a):
@@ -111,7 +164,7 @@ def compare(name, dt, got, ref):
     excess = float((err - rtol * r.abs()).max())
     max_err = float(err.max())
     ok = excess <= atol
-    log(f"  {name:15s} {str(dt):15s} shape {tuple(got.shape)} "
+    log(f"  {name:21s} {str(dt):15s} shape {tuple(got.shape)} "
         f"max_abs_err {max_err:.3e} (atol {atol}, rtol {rtol}) "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
@@ -202,11 +255,55 @@ def kernel_phase(dev):
                 plain_ms=cuda_ms(lambda: up.fused_post_t1_plain(*args)))
         del src
         torch.cuda.empty_cache()
+        attention_kernels(rn, dt, ONEPASS_SHAPES, WINDOW_SHAPES, results)
     edge_shapes(rn)
     for k, v in results.items():
-        log(f"  time {k:15s} kernel {v['ms']:.3f} ms, plain {v['plain_ms']:.3f} ms"
+        log(f"  time {k:21s} kernel {v['ms']:.3f} ms, plain {v['plain_ms']:.3f} ms"
             " (bf16, median of 10 after 3 warm-up)")
     return results
+
+
+def attention_kernels(rn, dt, onepass_shapes, window_shapes, results=None):
+    """Kernels 9 and 10 against their plain versions; with `results`, the
+    bf16 times at every shape are logged too (and beside them the "xla"
+    formula's, which the kernels replace on the pallas path), and the first
+    shape of each kernel is kept for the kernel table."""
+    import torch
+    from no_time_to_train_tpu_torch.ops import attention as att
+    from no_time_to_train_tpu_torch.ops import flash_attention as fa
+    timed = results is not None and dt == torch.bfloat16
+
+    def report(name, label, err, fn, plain, xla):
+        ms, plain_ms, xla_ms = cuda_ms(fn), cuda_ms(plain), cuda_ms(xla)
+        log(f"  time {name} {label}: kernel {ms:.3f} ms, plain {plain_ms:.3f}"
+            f" ms, xla formula {xla_ms:.3f} ms")
+        results.setdefault(name, dict(max_abs_err=err, ms=ms,
+                                      plain_ms=plain_ms))
+
+    for label, b, nq, nk, h, d, packed in onepass_shapes:
+        if packed:
+            q, k, v = rn(b, nq, 3, h, d, dtype=dt).unbind(2)
+        else:
+            q, k, v = (rn(b, n, h, d, dtype=dt) for n in (nq, nk, nk))
+        err = compare("flash_sdpa_bnhd", dt, fa.flash_sdpa_bnhd(q, k, v),
+                      fa.onepass_bnhd_plain(q, k, v))
+        if timed:
+            report("flash_sdpa_bnhd", label, err,
+                   lambda: fa.flash_sdpa_bnhd(q, k, v),
+                   lambda: fa.onepass_bnhd_plain(q, k, v),
+                   lambda: att.sdpa_bnhd(q, k, v, "xla"))
+    for label, b, h, d, win, nw in window_shapes:
+        qkv = rn(b, nw * win, 3 * h * d, dtype=dt)
+        err = compare("flash_sdpa_window_qkv", dt,
+                      fa.flash_sdpa_window_qkv(qkv, h, win),
+                      fa.window_qkv_plain(qkv, h, win))
+        if timed:
+            split = qkv.reshape(b * nw, win, 3, h, d).unbind(2)
+            report("flash_sdpa_window_qkv", label, err,
+                   lambda: fa.flash_sdpa_window_qkv(qkv, h, win),
+                   lambda: fa.window_qkv_plain(qkv, h, win),
+                   lambda: att.sdpa_bnhd(*split, "xla"))
+    torch.cuda.empty_cache()
 
 
 def edge_shapes(rn):
@@ -243,20 +340,23 @@ def edge_shapes(rn):
              rn(64, 128, scale=0.1), rn(32, 512, scale=0.3), rn(37, 32))
         compare("fused_post_t1", dt, up.fused_post_t1(*a),
                 up.fused_post_t1_plain(*a))
+        attention_kernels(rn, dt, ONEPASS_EDGE, WINDOW_EDGE)
+
+
+def _counters():
+    from no_time_to_train_tpu_torch.ops import decoder_attention as da
+    from no_time_to_train_tpu_torch.ops import flash_attention as fa
+    from no_time_to_train_tpu_torch.ops import fused_ln as fl
+    from no_time_to_train_tpu_torch.ops import upscale_product as up
+    return (fl.LAUNCHES, da.LAUNCHES, up.LAUNCHES, fa.LAUNCHES)
 
 
 def launch_counts():
-    from no_time_to_train_tpu_torch.ops import decoder_attention as da
-    from no_time_to_train_tpu_torch.ops import fused_ln as fl
-    from no_time_to_train_tpu_torch.ops import upscale_product as up
-    return {**fl.LAUNCHES, **da.LAUNCHES, **up.LAUNCHES}
+    return {k: v for d in _counters() for k, v in d.items()}
 
 
 def reset_counts():
-    from no_time_to_train_tpu_torch.ops import decoder_attention as da
-    from no_time_to_train_tpu_torch.ops import fused_ln as fl
-    from no_time_to_train_tpu_torch.ops import upscale_product as up
-    for d in (fl.LAUNCHES, da.LAUNCHES, up.LAUNCHES):
+    for d in _counters():
         for k in d:
             d[k] = 0
 
@@ -292,26 +392,29 @@ def synthetic_target(rng, size=1024, n_obj=6):
     return img
 
 
-def pipeline_phase(dev):
+def run_path(dev, label, encoder, impl, n_test):
+    """One path of phase 4, then its phases 5 and 6. Returns the warm
+    fenced ms/img, n_valid per image and the path's launch counts."""
     import numpy as np
     import torch
     from no_time_to_train_tpu_torch.models.matching.pipeline import (
         MatchingConfig, NoAMGMatcher, finalize_results)
+    from no_time_to_train_tpu_torch.ops.resize import resize
     from no_time_to_train_tpu_torch.ops.upscale_product import no_fusion
 
     n_classes, shots = 20, 10
     t0 = time.perf_counter()
     matcher = NoAMGMatcher(
-        SAM2_CFG, ENC_CFG,
-        MatchingConfig(compute_dtype="bfloat16", attention_impl="xla",
+        SAM2_CFG, encoder,
+        MatchingConfig(compute_dtype="bfloat16", attention_impl=impl,
                        **MATCHING),
         n_classes=n_classes, memory_length=shots, seed=0, device=dev)
     torch.cuda.synchronize()
-    log(f"  matcher built (bf16, random weights "
-        f"seed 0) in {time.perf_counter() - t0:.1f} s")
+    log(f"  [{label}] matcher built (bf16, random weights seed 0) in "
+        f"{time.perf_counter() - t0:.1f} s")
 
     rng = np.random.default_rng(0)
-    reset_counts()                       # the main path starts here
+    reset_counts()                       # the path starts here
     t0 = time.perf_counter()
     for cls in range(n_classes):
         imgs, masks = synthetic_refs(rng, cls, shots)
@@ -330,7 +433,7 @@ def pipeline_phase(dev):
         f"{time.perf_counter() - t0:.1f} s")
 
     targets = [synthetic_target(np.random.default_rng(100 + k), TARGET_SIZE)
-               for k in range(3)]
+               for k in range(n_test)]
     before = launch_counts()
     outs, times = [], []
     for img in targets:
@@ -339,14 +442,25 @@ def pipeline_phase(dev):
         out = matcher.test(img)          # fenced: ends with scores on host
         times.append((time.perf_counter() - t0) * 1e3)
         outs.append(out)
-    counts = launch_counts()             # the main path ends here
+    counts = launch_counts()             # the path ends here
     log(f"  test: per-image fenced ms {[round(t, 1) for t in times]} "
         f"(first includes warm-up); warm mean "
         f"{statistics.mean(times[1:]):.1f} ms/img")
-    log(f"  kernel launches: fill + test {counts}, before test {before}")
-    missing = [k for k, v in counts.items() if v <= before[k]]
+    in_test = {k: v - before[k] for k, v in counts.items()}
+    log(f"  kernel launches: fill + test {counts}, in test {in_test}")
+    flash_on = impl == "pallas"
+    missing = [k for k, v in in_test.items()
+               if v == 0 and (flash_on or k not in FLASH_PER_IMAGE)]
     if missing:
         fail(f"kernels not launched during test: {missing}")
+    for k, per_image in FLASH_PER_IMAGE.items():
+        want = per_image * n_test if flash_on else 0
+        if in_test[k] != want or (not flash_on and counts[k]):
+            fail(f"{k}: {in_test[k]} launches in {n_test} test images "
+                 f"under {impl}, expected {want}")
+    if flash_on:
+        log(f"  flash launches per test image: "
+            f"{ {k: in_test[k] // n_test for k in FLASH_PER_IMAGE} }")
 
     m = matcher.matching
     for k, out in enumerate(outs):
@@ -369,8 +483,31 @@ def pipeline_phase(dev):
             f"{sorted(set(out['labels'][:n_valid].tolist()))}, top score "
             f"{float(sv[0]) if n_valid else 0.0:.4f}")
 
-    # phase 5: kernels vs no_fusion() decode of one image
+    # the encoders alone, synchronised at their boundaries
     img = torch.as_tensor(targets[0], device=dev)
+    e = matcher.enc_cfg.img_size
+    enc_in = matcher._normalize(resize(img[None], (e, e), mode="bicubic")
+                                ).to(matcher.dtype)
+    sam_in = matcher._normalize(img)[None].to(matcher.dtype)
+    with torch.no_grad():
+        layers = {"dino": lambda: matcher.dino(enc_in),
+                  "hiera+fpn": lambda: matcher.sam2.forward_image(sam_in)}
+        layer_ms = {}
+        for name, fn in layers.items():
+            fn()
+            ts = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                ts.append((time.perf_counter() - t0) * 1e3)
+            layer_ms[name] = statistics.median(ts)
+    log(f"  encoders, fenced, median of 5: "
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in layer_ms.items()))
+
+    # phase 5: kernels vs no_fusion() decode of one image, and under
+    # "pallas" the DINO features
     with torch.no_grad():
         lr_k, iou_k, _ = matcher._decode_grid(img)
         with no_fusion():
@@ -382,6 +519,20 @@ def pipeline_phase(dev):
         f"(band {DECODE_SIGN_AGREE})")
     if not (d_iou <= DECODE_IOU_BAND and agree >= DECODE_SIGN_AGREE):
         fail("kernel decode disagrees with the no_fusion() decode")
+    if flash_on:
+        with torch.no_grad():
+            f_k = matcher.dino(enc_in).float()
+            with no_fusion():
+                f_p = matcher.dino(enc_in).float()
+        if not torch.isfinite(f_k).all():
+            fail("DINO features with the kernels are not finite")
+        rel = float((f_k - f_p).norm() / f_p.norm())
+        cos = float(torch.nn.functional.cosine_similarity(f_k, f_p, dim=-1)
+                    .min())
+        log(f"  {encoder} features kernels vs no_fusion: relative L2 "
+            f"{rel:.4f} (band {FEAT_REL_BAND}), least token cosine {cos:.5f}")
+        if not rel <= FEAT_REL_BAND:
+            fail("encoder features with the kernels disagree with no_fusion()")
 
     # phase 6: host finalize at an original size of 480 x 640
     fin = finalize_results(outs[0], 480, 640, exact_resize=True)
@@ -390,6 +541,8 @@ def pipeline_phase(dev):
             or fin["bboxes"].shape != (n_valid, 4):
         fail("finalize_results shapes")
     log(f"  finalize_results: {n_valid} masks at 480x640, boxes ok")
+    del matcher
+    torch.cuda.empty_cache()
     return (statistics.mean(times[1:]), [int(o["valid"].sum()) for o in outs],
             counts)
 
@@ -421,24 +574,39 @@ def main():
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     from no_time_to_train_tpu_torch.ops import _cuda
+    t_phase = time.perf_counter()
     _cuda.lib()
     log(f"[2] kernels built from no_time_to_train_tpu_torch/csrc in "
         f"{_cuda.build_seconds():.1f} s")
 
+    def phase_done(name):
+        nonlocal t_phase
+        now = time.perf_counter()
+        log(f"  phase {name}: {now - t_phase:.1f} s")
+        t_phase = now
+
     log("[3] kernels vs plain versions at the slice's shapes")
     kres = kernel_phase(dev)
+    phase_done("3")
 
-    log("[4-6] 10-shot test step, SAM2-L + DINOv2-L, bf16, attention_impl=xla")
-    ms_img, n_valid, counts = pipeline_phase(dev)
+    totals = {}
+    summary = []
+    for label, encoder, impl, n_test in PATHS:
+        log(f"[4-6] 10-shot test step, SAM2-L + {encoder}, bf16, "
+            f"attention_impl={impl}")
+        ms_img, n_valid, counts = run_path(dev, label, encoder, impl, n_test)
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        summary.append(f"{label} {ms_img:.1f} ms/img (n_valid {n_valid})")
+        phase_done(f"4-6 {label}")
 
     kernels = []
     for k in KERNELS:
         r = kres[k["name"]]
-        kernels.append(dict(k, launches=counts[k["name"]],
+        kernels.append(dict(k, launches=totals[k["name"]],
                             max_abs_err=r["max_abs_err"], ms=r["ms"],
                             plain_ms=r["plain_ms"]))
-    log(f"summary: warm fenced {ms_img:.1f} ms/img, n_valid {n_valid}, "
-        f"on {smi}")
+    log(f"summary: warm fenced {'; '.join(summary)}; on {smi}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

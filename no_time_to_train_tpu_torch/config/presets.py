@@ -3,7 +3,7 @@
 the JAX package; tests/test_torch_convert.py holds the two equal).
 
 `SAM2_PRESETS` is keyed by the reference's YAML names; `ENCODER_PRESETS`
-holds the DINOv2 encoders the port runs.
+holds the DINOv2 and DINOv3 encoders.
 """
 from dataclasses import dataclass
 from typing import Optional, Tuple
@@ -137,4 +137,16 @@ ENCODER_PRESETS = {
                                   "facebook/dinov2-large"),
     "dinov2_giant": EncoderConfig("dinov2_giant", 518, 14, 1536, 40, 24,
                                   "facebook/dinov2-giant", ffn_layer="swiglu"),
+    "dinov3_small": EncoderConfig("dinov3_small", 592, 16, 384, 12, 6,
+                                  "facebook/dinov3-vits16-pretrain-lvd1689m",
+                                  num_register_tokens=4, family="dinov3"),
+    "dinov3_base": EncoderConfig("dinov3_base", 592, 16, 768, 12, 12,
+                                 "facebook/dinov3-vitb16-pretrain-lvd1689m",
+                                 num_register_tokens=4, family="dinov3"),
+    "dinov3_large": EncoderConfig("dinov3_large", 592, 16, 1024, 24, 16,
+                                  "facebook/dinov3-vitl16-pretrain-lvd1689m",
+                                  num_register_tokens=4, family="dinov3"),
+    "dinov3_huge": EncoderConfig("dinov3_huge", 592, 16, 1280, 32, 20,
+                                 "facebook/dinov3-vith16plus-pretrain-lvd1689m",
+                                 num_register_tokens=4, family="dinov3"),
 }

@@ -52,6 +52,7 @@ class _Attention(nn.Module):
         self.attention = _SelfAttention(d)
         self.output = _SelfOutput(d)
         self.heads = heads
+        self.attention_impl = "pallas"
 
     def forward(self, x):
         b, n, c = x.shape
@@ -60,7 +61,8 @@ class _Attention(nn.Module):
         def split(t):
             return t.reshape(b, n, self.heads, -1)
 
-        out = sdpa_bnhd(split(a.query(x)), split(a.key(x)), split(a.value(x)))
+        out = sdpa_bnhd(split(a.query(x)), split(a.key(x)), split(a.value(x)),
+                        self.attention_impl)
         return self.output.dense(out.reshape(b, n, c))
 
 

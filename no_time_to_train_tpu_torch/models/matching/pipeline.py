@@ -3,7 +3,7 @@
 Sam2MatchingBaseline_noAMG.py), phases fill_memory -> postprocess_memory ->
 test.
 
-The test step: DINOv2 features of the target, Hiera + FPN once, the point
+The test step: DINOv2 or DINOv3 features of the target, Hiera + FPN once, the point
 grid decoded in chunks with the best of the multimask outputs kept, masked
 average features scored against the bank, class-aware NMS, semantic-IoS
 decay and top-K, all on the model's device with fixed shapes. The winning
@@ -11,16 +11,19 @@ low-resolution logits go to the host, where `finalize_results` resizes them
 to the original image size.
 """
 from dataclasses import dataclass
+from functools import partial
 
 import numpy as np
 import torch
 
 from no_time_to_train_tpu_torch.config.presets import ENCODER_PRESETS, SAM2_PRESETS
 from no_time_to_train_tpu_torch.models.dino import DinoV2
+from no_time_to_train_tpu_torch.models.dino_v3 import DinoV3, uses_gated_mlp
 from no_time_to_train_tpu_torch.models.matching import memory_bank as mb
 from no_time_to_train_tpu_torch.models.matching import scoring
 from no_time_to_train_tpu_torch.models.sam2.model import SAM2
-from no_time_to_train_tpu_torch.ops.attention import check_attention_impl
+from no_time_to_train_tpu_torch.ops.attention import (
+    check_attention_impl, set_attention_impl)
 from no_time_to_train_tpu_torch.ops.masks import batched_mask_to_box
 from no_time_to_train_tpu_torch.ops.nms import batched_nms, take_first_kept
 from no_time_to_train_tpu_torch.ops.resize import (
@@ -38,7 +41,7 @@ IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
 class MatchingConfig:
     """sam2_infer_cfgs of the reference experiment YAMLs. The JAX package's
     negative references, factored decoder and int8 encoders are not
-    ported."""
+    ported. `attention_impl` is set on this matcher's two encoders only."""
     points_per_side: int = 32
     testing_point_bs: int = 256
     iou_thr: float = 0.4
@@ -65,7 +68,8 @@ class NoAMGMatcher:
     """Owns the two models, the bank and the phase functions, on `device`.
 
     sam2_state_dict / dino_state_dict: reference-named state_dicts (numpy or
-    torch values); without them the weights are drawn from `seed` (norm
+    torch values; HF Dinov2Model or DINOv3ViTModel names by the encoder's
+    family); without them the weights are drawn from `seed` (norm
     scales 1, biases 0, other weights normal / sqrt(fan_in))."""
 
     def __init__(self, sam2_cfg="sam2_hiera_l.yaml", encoder_cfg="dinov2_large",
@@ -73,7 +77,7 @@ class NoAMGMatcher:
                  sam2_state_dict=None, dino_state_dict=None, seed=0, *,
                  device):
         self.device = torch.device(device)
-        check_attention_impl(matching.attention_impl, self.device)
+        check_attention_impl(matching.attention_impl)
         self.sam2_cfg = (SAM2_PRESETS[sam2_cfg] if isinstance(sam2_cfg, str)
                          else sam2_cfg)
         self.enc_cfg = (ENCODER_PRESETS[encoder_cfg]
@@ -81,8 +85,12 @@ class NoAMGMatcher:
         self.matching = matching
         self.dtype = getattr(torch, matching.compute_dtype)
         self.sam2 = self._build(SAM2, self.sam2_cfg, sam2_state_dict, seed)
-        self.dino = self._build(DinoV2, self.enc_cfg, dino_state_dict,
+        dino_cls = (partial(DinoV3, use_gated_mlp=uses_gated_mlp(self.enc_cfg))
+                    if self.enc_cfg.family == "dinov3" else DinoV2)
+        self.dino = self._build(dino_cls, self.enc_cfg, dino_state_dict,
                                 seed + 1)
+        for model in (self.sam2, self.dino):
+            set_attention_impl(model, matching.attention_impl)
         gs = self.enc_cfg.grid_size
         self.bank = mb.create(n_classes, memory_length, gs * gs,
                               self.enc_cfg.feat_dim, matching.kmeans_k,

@@ -3,14 +3,16 @@ reference sam2/modeling/backbones/hieradet.py), NHWC.
 
 This is the spatial path: every block partitions into windows, attends and
 unpartitions on its own. The JAX package's window-major stage flow is a TPU
-layout device with the same numbers and is not ported.
+layout device with the same numbers and is not ported; the window partition
+already hands the window kernel the window-major [B * nw, T, 3C] qkv that
+the stage flow would.
 """
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from no_time_to_train_tpu_torch.models.sam2.common import LayerNorm, MLP
-from no_time_to_train_tpu_torch.ops.attention import sdpa_bnhd
+from no_time_to_train_tpu_torch.ops.attention import sdpa_bnhd, window_sdpa_qkv
 from no_time_to_train_tpu_torch.ops.resize import resize
 
 __all__ = ["Hiera", "window_partition", "window_unpartition"]
@@ -61,20 +63,28 @@ class MultiScaleAttention(nn.Module):
         self.dim_out = dim_out
         self.num_heads = num_heads
         self.q_pool = q_pool
+        self.attention_impl = "pallas"
         self.qkv = nn.Linear(dim, 3 * dim_out)
         self.proj = nn.Linear(dim_out, dim_out)
 
     def forward(self, x):
-        """x: [B, H, W, C] -> [B, H', W', dim_out] (H' = H/2 with q-pool)."""
+        """x: [B, H, W, C] -> [B, H', W', dim_out] (H' = H/2 with q-pool).
+        Windowed blocks (B = windows > 1) take the window kernel on the
+        packed qkv where its gate opens; the rest split the heads as strided
+        views of the packed qkv and call `sdpa_bnhd`."""
         b, h, w, _ = x.shape
-        d, nh = self.dim_out, self.num_heads
-        qkv = self.qkv(x).reshape(b, h * w, 3, nh, d // nh)
-        q, k, v = qkv.unbind(2)
+        d, nh, impl = self.dim_out, self.num_heads, self.attention_impl
+        qkv = self.qkv(x).reshape(b, h * w, 3 * d)
+        if not self.q_pool and b > 1:
+            out = window_sdpa_qkv(qkv, nh, h * w, impl)
+            if out is not None:
+                return self.proj(out.reshape(b, h, w, d))
+        q, k, v = qkv.reshape(b, h * w, 3, nh, d // nh).unbind(2)
         if self.q_pool:
             q = _max_pool_2x2(q.reshape(b, h, w, d))
             h, w = q.shape[1:3]
             q = q.reshape(b, h * w, nh, d // nh)
-        out = sdpa_bnhd(q, k, v).reshape(b, h, w, d)
+        out = sdpa_bnhd(q, k, v, impl).reshape(b, h, w, d)
         return self.proj(out)
 
 

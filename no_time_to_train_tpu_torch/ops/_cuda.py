@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 The sources in `no_time_to_train_tpu_torch/csrc/*.cu` are compiled at first
-use with `nvcc` into one shared library with a plain C interface, bound with
+use with `nvcc`, one process for each source, all started together, and
+linked into one shared library with a plain C interface, bound with
 `ctypes`. The library is written to `build/kernels/` at the repository root
 (listed in .gitignore) under a name that carries a hash of the sources, so an
 edited source never loads a stale build. Nothing here runs at import time.
@@ -34,7 +35,12 @@ _SIGNATURES = {
                       _I, _I, _I, _I, _F, _F, _I, _LL, _I, _VP],
     "nttt_upscale_product": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                              _I, _I, _I, _F, _I, _VP],
+    "nttt_onepass_attn": [_VP, _VP, _VP, _VP, _LL, _LL, _LL, _I, _I, _I,
+                          _I, _I, _I, _I, _I, _F, _I, _VP],
+    "nttt_window_attn": [_VP, _VP, _I, _I, _I, _I, _I, _F, _I, _VP],
 }
+_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-Xcompiler", "-fPIC"]
 
 
 def _nvcc():
@@ -47,6 +53,12 @@ def _nvcc():
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
+def _finish(cmd, stdout, stderr, returncode):
+    if returncode != 0:
+        raise RuntimeError(f"nvcc failed ({returncode}):\n"
+                           f"{' '.join(cmd)}\n{stdout}\n{stderr}")
+
+
 def _build():
     sources = sorted(_CSRC.glob("*.cu"))
     digest = hashlib.sha1()
@@ -57,15 +69,28 @@ def _build():
     t0 = time.perf_counter()
     if not out.exists():
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp_dir = _BUILD_DIR / f"obj.{os.getpid()}"
+        tmp_dir.mkdir(exist_ok=True)
+        nvcc = _nvcc()
+        jobs = []
+        for src in sources:
+            cmd = [nvcc, *_ARCH, "-c", "-o", str(tmp_dir / f"{src.stem}.o"),
+                   str(src)]
+            jobs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        # wait for every compile before reporting one that failed
+        done = [(cmd, *proc.communicate(), proc.returncode)
+                for cmd, proc in jobs]
+        for result in done:
+            _finish(*result)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-o", str(tmp)] + [str(s) for s in sources]
+        cmd = [nvcc, *_ARCH, "-shared", "-o", str(tmp)] + [
+            str(tmp_dir / f"{src.stem}.o") for src in sources]
         res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
+        _finish(cmd, res.stdout, res.stderr, res.returncode)
         os.replace(tmp, out)
+        shutil.rmtree(tmp_dir, ignore_errors=True)
     lib = ctypes.CDLL(str(out))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -1,8 +1,9 @@
 """JAX package parameter trees -> the port's state_dicts.
 
 The inverse of `no_time_to_train_tpu/utils/torch_convert.py`
-(`convert_image_encoder`, `convert_prompt_encoder`, `convert_mask_decoder`)
-and `no_time_to_train_tpu/models/dino.convert_hf_dinov2`: given the numpy
+(`convert_image_encoder`, `convert_prompt_encoder`, `convert_mask_decoder`),
+`no_time_to_train_tpu/models/dino.convert_hf_dinov2` and
+`no_time_to_train_tpu/models/dino_v3.convert_hf_dinov3`: given the numpy
 leaves of `NoAMGMatcher.sam2_params` / `.dino_params`, build reference-named
 state_dicts so that the port computes what the JAX package computes. The
 SAM2 video-memory subtrees are skipped; the port does not hold them.
@@ -12,7 +13,7 @@ Linear weight [out, in]; Conv HWIO -> OIHW; spatial embeddings HWC -> NCHW.
 """
 import numpy as np
 
-__all__ = ["sam2_state_dict", "dino_state_dict"]
+__all__ = ["sam2_state_dict", "dino_state_dict", "dino_v3_state_dict"]
 
 
 def _a(x):
@@ -166,4 +167,32 @@ def dino_state_dict(params, cfg):
         sd[f"{p}.layer_scale2.lambda1"] = _a(t["layer_scale2"])
         _lin(sd, f"{p}.mlp.fc1", t["mlp"]["fc1"])
         _lin(sd, f"{p}.mlp.fc2", t["mlp"]["fc2"])
+    return sd
+
+
+def dino_v3_state_dict(params, cfg):
+    """DinoV3 flax params -> HF `DINOv3ViTModel` state_dict (the unused
+    mask_token is zero); the gated MLP where the params hold `mlp_gate`."""
+    d = cfg.feat_dim
+    sd = {
+        "embeddings.cls_token": _a(np.asarray(params["cls_token"])[None]),
+        "embeddings.mask_token": np.zeros((1, 1, d), np.float32),
+        "embeddings.register_tokens":
+            _a(np.asarray(params["register_tokens"])[None]),
+    }
+    _conv(sd, "embeddings.patch_embeddings", params["patch_embeddings"])
+    _ln(sd, "norm", params["norm"])
+    for i in range(cfg.depth):
+        t = params[f"layer_{i}"]
+        p = f"layer.{i}"
+        _ln(sd, f"{p}.norm1", t["norm1"])
+        _ln(sd, f"{p}.norm2", t["norm2"])
+        for k in ("q_proj", "k_proj", "v_proj", "o_proj"):
+            _lin(sd, f"{p}.attention.{k}", t["attention"][k])
+        sd[f"{p}.layer_scale1.lambda1"] = _a(t["layer_scale1"])
+        sd[f"{p}.layer_scale2.lambda1"] = _a(t["layer_scale2"])
+        for ours, theirs in (("mlp_gate", "gate_proj"), ("mlp_up", "up_proj"),
+                             ("mlp_down", "down_proj")):
+            if ours in t:
+                _lin(sd, f"{p}.mlp.{theirs}", t[ours])
     return sd

@@ -15,7 +15,8 @@ from no_time_to_train_tpu.utils.torch_convert import (
 from no_time_to_train_tpu_torch.config import presets as tpresets
 from no_time_to_train_tpu_torch.models.dino import DinoV2
 from no_time_to_train_tpu_torch.models.sam2.model import SAM2
-from no_time_to_train_tpu_torch.ops.attention import check_attention_impl
+from no_time_to_train_tpu_torch.ops.attention import (
+    check_attention_impl, set_attention_impl)
 from no_time_to_train_tpu_torch.utils.convert import (
     dino_state_dict, sam2_state_dict)
 from no_time_to_train_tpu_torch.utils.init import init_random_
@@ -96,17 +97,29 @@ def test_presets_equal_the_jax_package():
 
 
 def test_attention_impl_pallas_refused_on_cuda_only():
-    check_attention_impl("pallas", "cpu")
-    check_attention_impl("xla", "cuda")
-    with pytest.raises(NotImplementedError, match="B.2"):
-        check_attention_impl("pallas", "cuda")
+    """Kept under its old name: "pallas" is now accepted whatever the
+    device (the check no longer takes one), bad names are refused, and
+    `set_attention_impl` reaches every attention module of a model and
+    nothing outside it."""
+    for impl in ("pallas", "xla"):
+        check_attention_impl(impl)
+    for bad in ("flash", "PALLAS", None):
+        with pytest.raises(ValueError):
+            check_attention_impl(bad)
+    a, b = SAM2(CFG), DinoV2(ENC)
+    set_attention_impl(a, "xla")
+    attn = [m for m in a.modules() if hasattr(m, "attention_impl")]
+    assert len(attn) == sum(CFG.stages)
+    assert all(m.attention_impl == "xla" for m in attn)
+    assert all(m.attention_impl == "pallas" for m in b.modules()
+               if hasattr(m, "attention_impl"))
     with pytest.raises(ValueError):
-        check_attention_impl("flash", "cpu")
+        set_attention_impl(b, "flash")
 
 
 _IMPORT_ALL = r"""
 import importlib, pkgutil, sys
-for name in ("jax", "jaxlib", "flax", "yaml"):
+for name in ("jax", "jaxlib", "flax", "yaml", "PIL"):
     sys.modules[name] = None          # any import of them now fails
 import no_time_to_train_tpu_torch as pkg
 mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
@@ -119,6 +132,7 @@ print(len(mods))
 
 
 def test_port_imports_without_jax_flax_yaml():
+    """Nor PIL: the machine with the card has none."""
     res = subprocess.run([sys.executable, "-c", _IMPORT_ALL],
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr

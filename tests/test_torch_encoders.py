@@ -1,5 +1,7 @@
 """Port encoders vs the JAX package at tiny widths (float32, CPU): DINOv2,
-and Hiera + FPN."""
+and Hiera + FPN, also at sizes where the flash-attention gates open."""
+import dataclasses
+
 import numpy as np
 import pytest
 import jax
@@ -11,8 +13,11 @@ from no_time_to_train_tpu.models.dino import DinoV2 as JDino
 from no_time_to_train_tpu.models.sam2.model import Sam2ImageEncoder as JEnc
 from no_time_to_train_tpu_torch.models.dino import DinoV2
 from no_time_to_train_tpu_torch.models.sam2.neck import Sam2ImageEncoder
+from no_time_to_train_tpu_torch.ops.attention import set_attention_impl
 from no_time_to_train_tpu_torch.utils.convert import (
     _image_encoder, dino_state_dict)
+
+from test_torch_flash_attention import port_calls  # noqa: F401 (fixture)
 
 
 def randomize(params, seed):
@@ -38,9 +43,18 @@ TINY_SAM = Sam2Config(
     backbone_channel_list=(256, 128, 64, 32), image_size=128)
 
 
-@pytest.mark.parametrize("img_size", [28, 42])
-def test_dino_matches_jax(img_size):
-    """42 px exercises the bicubic-antialias position interpolation."""
+# (image size, attention_impl, kernel 9 calls): at 322 px the sequence is
+# 23^2 + 1 = 530 tokens, past the 512-token gate
+DINO_CASES = [pytest.param(28, "pallas", 0, id="28"),
+              pytest.param(42, "pallas", 0, id="42"),
+              (322, "pallas", 2), (322, "xla", 0)]
+
+
+@pytest.mark.parametrize("img_size,impl,n_flash", DINO_CASES)
+def test_dino_matches_jax(img_size, impl, n_flash, port_calls):
+    """42 px exercises the bicubic-antialias position interpolation. Where
+    the gate opens under "pallas" each layer takes kernel 9's plain version;
+    the JAX package runs XLA on the CPU, so the tolerance stays."""
     jm = JDino(TINY_DINO)
     rng = np.random.default_rng(0)
     x = rng.standard_normal((2, img_size, img_size, 3)).astype(np.float32)
@@ -50,25 +64,54 @@ def test_dino_matches_jax(img_size):
     tm = DinoV2(TINY_DINO)
     tm.load_state_dict({k: torch.as_tensor(v) for k, v in
                         dino_state_dict(params, TINY_DINO).items()})
+    set_attention_impl(tm, impl)
     with torch.no_grad():
         got = tm(torch.as_tensor(x)).numpy()
     assert got.shape == ref.shape
+    n = (img_size // 14) ** 2 + 1
+    assert port_calls["bnhd"].shapes == [(2, n, 2, 16)] * n_flash
     np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4)
 
 
-def test_hiera_fpn_matches_jax():
-    jm = JEnc(TINY_SAM)
+# at 256^2, stage 1 holds 64^2 = 4096 tokens in 256 windows of 16 (the
+# window kernel's gate) and the global block 2 of stage 2 32^2 = 1024 tokens
+# (kernel 9's gate, 2 heads of 32)
+SAM_256 = dataclasses.replace(TINY_SAM, stages=(1, 2, 1, 1),
+                              global_att_blocks=(2,), image_size=256)
+
+
+def test_hiera_fpn_matches_jax(port_calls):
+    _check_hiera(TINY_SAM, "pallas")
+    assert port_calls["bnhd"].shapes == port_calls["window"].shapes == []
+
+
+@pytest.mark.parametrize("impl", ["pallas", "xla"])
+def test_hiera_fpn_flash_routes_match_jax(impl, port_calls):
+    """Where the gates open under "pallas", the windowed block takes the
+    window kernel's plain version on the packed qkv and the global block
+    kernel 9's on strided views of it; under "xla" neither. The JAX package
+    runs XLA on the CPU, so the tolerance stays."""
+    _check_hiera(SAM_256, impl)
+    on = impl == "pallas"
+    assert port_calls["bnhd"].shapes == [(1, 1024, 2, 32)] * on
+    assert port_calls["window"].shapes == [(1, 4096, 96)] * on
+
+
+def _check_hiera(cfg, impl):
+    s = cfg.image_size
+    jm = JEnc(cfg)
     rng = np.random.default_rng(2)
-    x = rng.standard_normal((1, 128, 128, 3)).astype(np.float32)
+    x = rng.standard_normal((1, s, s, 3)).astype(np.float32)
     params = randomize(jm.init(jax.random.PRNGKey(0),
-                               jnp.zeros((1, 128, 128, 3)))["params"], 3)
+                               jnp.zeros((1, s, s, 3)))["params"], 3)
     ref = jm.apply({"params": params}, jnp.asarray(x))["backbone_fpn"]
     sd = {}
     _image_encoder(sd, params)
     pre = "image_encoder."
-    tm = Sam2ImageEncoder(TINY_SAM)
+    tm = Sam2ImageEncoder(cfg)
     tm.load_state_dict({k[len(pre):]: torch.as_tensor(v)
                         for k, v in sd.items()})
+    set_attention_impl(tm, impl)
     with torch.no_grad():
         got = tm(torch.as_tensor(x))["backbone_fpn"]
     assert len(got) == len(ref) == 3

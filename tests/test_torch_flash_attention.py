@@ -1,0 +1,203 @@
+"""The port's encoder flash attention (ops/flash_attention.py) against the
+JAX package's Pallas kernels in interpret mode, and its routing
+(ops/attention.py) against the JAX package's gates, on the CPU."""
+import numpy as np
+import pytest
+import jax
+import jax.numpy as jnp
+import torch
+
+from no_time_to_train_tpu.ops import attention as jatt
+from no_time_to_train_tpu.ops import flash_attention as jfa
+from no_time_to_train_tpu_torch.ops import attention as att
+from no_time_to_train_tpu_torch.ops import flash_attention as fa
+from no_time_to_train_tpu_torch.ops.upscale_product import no_fusion
+
+# f32: the JAX package's anchors for these kernels in interpret mode
+# (tests/test_flash_attention.py: onepass 5e-5 / 1e-4, window 2e-5 / 2e-5).
+# bf16: both sides round the logits' softmax weights and the output to bf16
+# at the same points from float32 sums taken in another order, so an output
+# moves by at most a couple of units in bf16's last place (2**-8 relative):
+# atol 4e-3 for outputs below 0.5, rtol 1/64 above.
+F32_ONEPASS = dict(atol=5e-5, rtol=1e-4)
+F32_WINDOW = dict(atol=2e-5, rtol=2e-5)
+BF16_BAND = dict(atol=4e-3, rtol=1.0 / 64)
+
+
+def _np(x):
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+def _interp_onepass(q, k, v):
+    """JAX `_onepass_bnhd` in interpret mode, padded as `flash_sdpa_bnhd`
+    pads: queries to the query block, keys to 128 (masked)."""
+    n_q, n_k = q.shape[1], k.shape[1]
+    n_kp = (n_k + 127) // 128 * 128
+    bq = jfa._onepass_block_q(n_q, n_kp, jfa.ONEPASS_LOGITS_BYTES // 2)
+    pad_q = [(0, 0), (0, (-n_q) % bq), (0, 0), (0, 0)]
+    pad_k = [(0, 0), (0, n_kp - n_k), (0, 0), (0, 0)]
+    out = jfa._onepass_bnhd(jnp.pad(q, pad_q), jnp.pad(k, pad_k),
+                            jnp.pad(v, pad_k), bq, n_k, interpret=True)
+    return out[:, :n_q]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d,n_q,n_k", [(72, 256, 300), (64, 200, 384)])
+def test_onepass_plain_matches_pallas_interpret(dtype, d, n_q, n_k):
+    """D = 72 (Hiera) and 64 (DINO); 300 keys pad to 384 and are masked."""
+    rng = np.random.default_rng(d + n_k)
+    b, h = 2, 3
+    q, k, v = (rng.standard_normal((b, n, h, d)).astype(np.float32) * s
+               for n, s in ((n_q, 0.5), (n_k, 0.5), (n_k, 1.0)))
+    jd = getattr(jnp, dtype)
+    ref = _np(_interp_onepass(*(jnp.asarray(x, jd) for x in (q, k, v))))
+    td = getattr(torch, dtype)
+    got = fa.onepass_bnhd_plain(*(torch.as_tensor(x).to(td) for x in (q, k, v)))
+    assert got.dtype == td and tuple(got.shape) == (b, n_q, h, d)
+    tol = F32_ONEPASS if dtype == "float32" else BF16_BAND
+    np.testing.assert_allclose(got.float().numpy(), ref, **tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("heads,d,win,nw", [(2, 72, 64, 4), (4, 72, 16, 8),
+                                            (2, 72, 256, 2)])
+def test_window_plain_matches_pallas_interpret(dtype, heads, d, win, nw):
+    """The Hiera-L window shapes: 64 tokens x 2 heads, 16 x 4, 256 x 2."""
+    rng = np.random.default_rng(win)
+    c = heads * d
+    qkv = rng.standard_normal((1, nw * win, 3 * c)).astype(np.float32) * 0.5
+    ref = _np(jfa.flash_sdpa_window_qkv(jnp.asarray(qkv, getattr(jnp, dtype)),
+                                        heads=heads, win=win, interpret=True))
+    got = fa.window_qkv_plain(torch.as_tensor(qkv).to(getattr(torch, dtype)),
+                              heads, win)
+    tol = F32_WINDOW if dtype == "float32" else BF16_BAND
+    np.testing.assert_allclose(got.float().numpy(), ref, **tol)
+
+
+def test_wrappers_take_the_plain_versions_on_cpu():
+    """A CPU tensor runs the plain version and counts no launch; a window
+    count that does not divide the tokens is refused."""
+    before = dict(fa.LAUNCHES)
+    rng = np.random.default_rng(0)
+    q = torch.as_tensor(rng.standard_normal((1, 40, 2, 8)), dtype=torch.float32)
+    torch.testing.assert_close(fa.flash_sdpa_bnhd(q, q, q),
+                               fa.onepass_bnhd_plain(q, q, q), rtol=0, atol=0)
+    qkv = torch.as_tensor(rng.standard_normal((2, 32, 48)), dtype=torch.float32)
+    torch.testing.assert_close(fa.flash_sdpa_window_qkv(qkv, 2, 16),
+                               fa.window_qkv_plain(qkv, 2, 16), rtol=0, atol=0)
+    assert fa.LAUNCHES == before
+    with pytest.raises(ValueError):
+        fa.flash_sdpa_window_qkv(qkv, 2, 24)
+
+
+class _Calls:
+    """Wraps a plain version and records the shapes it is called with."""
+
+    def __init__(self, fn):
+        self.fn, self.shapes = fn, []
+
+    def __call__(self, x, *args, **kw):
+        self.shapes.append(tuple(x.shape))
+        return self.fn(x, *args, **kw)
+
+
+@pytest.fixture
+def port_calls(monkeypatch):
+    calls = {"bnhd": _Calls(fa.onepass_bnhd_plain),
+             "window": _Calls(fa.window_qkv_plain)}
+    monkeypatch.setattr(fa, "onepass_bnhd_plain", calls["bnhd"])
+    monkeypatch.setattr(fa, "window_qkv_plain", calls["window"])
+    return calls
+
+
+@pytest.fixture
+def jax_routes(monkeypatch):
+    """The JAX package's routing as it runs on a TPU, with every Pallas
+    kernel replaced by a recorder that returns zeros."""
+    taken = []
+
+    def record(name):
+        def kernel(q, *args, **kw):
+            taken.append(name)
+            return jnp.zeros(q.shape, q.dtype)
+        return kernel
+
+    for name in ("_onepass_bnhd", "_onepass_bh", "_flash_bh"):
+        monkeypatch.setattr(jfa, name, record(name))
+
+    def window(qkv, *, heads, win):
+        taken.append("window")
+        return qkv[..., :qkv.shape[-1] // 3]
+    monkeypatch.setattr(jfa, "flash_sdpa_window_qkv", window)
+    monkeypatch.setattr(jatt, "_default_device_is_cpu", lambda: False)
+    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    return taken
+
+
+# (n_q, n_k, 4-D): both gates of 512 tokens, the single-pass range of 4608
+# keys padded to 128, the resident range of 12288, and a 3-D operand
+BNHD_SHAPES = [(511, 600, True), (600, 511, True), (512, 512, True),
+               (530, 1370, True), (512, 4608, True), (520, 4609, True),
+               (512, 12288, True), (512, 12289, True), (600, 600, False)]
+
+
+@pytest.mark.parametrize("n_q,n_k,four_d", BNHD_SHAPES)
+def test_sdpa_bnhd_routes_as_jax(n_q, n_k, four_d, port_calls, jax_routes):
+    """Under "pallas" the port takes kernel 9 exactly where the JAX package
+    takes `_onepass_bnhd`, raises where it takes `_onepass_bh` / `_flash_bh`
+    (not ported, ROADMAP B.8), and runs the plain formula where it runs XLA.
+    Under "xla" and inside no_fusion() neither side takes a kernel."""
+    rng = np.random.default_rng(n_k)
+    lead = (1,) if four_d else ()
+    q = rng.standard_normal(lead + (n_q, 1, 8)).astype(np.float32)
+    k = rng.standard_normal(lead + (n_k, 1, 8)).astype(np.float32)
+    jatt.sdpa_bnhd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(k),
+                   impl="pallas")
+    tq, tk = torch.as_tensor(q), torch.as_tensor(k)
+    if jax_routes and jax_routes[0] != "_onepass_bnhd":
+        with pytest.raises(NotImplementedError, match="B.8"):
+            att.sdpa_bnhd(tq, tk, tk, "pallas")
+    else:
+        out = att.sdpa_bnhd(tq, tk, tk, "pallas")
+        assert tuple(out.shape) == q.shape
+    want = [q.shape] if jax_routes == ["_onepass_bnhd"] else []
+    assert port_calls["bnhd"].shapes == want
+    jax_routes.clear()
+    jatt.sdpa_bnhd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(k), impl="xla")
+    att.sdpa_bnhd(tq, tk, tk, "xla")
+    with no_fusion():
+        att.sdpa_bnhd(tq, tk, tk, "pallas")
+    assert jax_routes == [] and port_calls["bnhd"].shapes == want
+
+
+# (b, t, win, min_tokens, impl)
+WINDOW_CASES = [(8, 64, 64, 256, "pallas"), (8, 64, 64, 4096, "pallas"),
+                (64, 64, 64, 4096, "pallas"), (8, 64, 32, 256, "pallas"),
+                (256, 16, 16, 4096, "pallas"), (16, 256, 256, 4096, "pallas"),
+                (16, 64, 64, 4096, "pallas"), (8, 64, 64, 256, "xla")]
+
+
+@pytest.mark.parametrize("b,t,win,min_tokens,impl", WINDOW_CASES)
+def test_window_sdpa_qkv_routes_as_jax(b, t, win, min_tokens, impl,
+                                       port_calls, jax_routes):
+    """The window kernel is taken where the JAX gate opens (b * t >=
+    min_tokens, win == t, "pallas"), with the windows flattened to one
+    window-major stream, and declined elsewhere and inside no_fusion()."""
+    qkv = np.random.default_rng(b * t).standard_normal(
+        (b, t, 3 * 16)).astype(np.float32)
+    j = jatt.window_sdpa_qkv(jnp.asarray(qkv), heads=2, win=win, impl=impl,
+                             min_tokens=min_tokens)
+    tq = torch.as_tensor(qkv)
+    got = att.window_sdpa_qkv(tq, 2, win, impl, min_tokens=min_tokens)
+    assert (got is None) == (j is None)
+    if j is not None:
+        assert jax_routes == ["window"]
+        assert port_calls["window"].shapes == [(1, b * t, 48)]
+        assert tuple(got.shape) == (b, t, 16)
+        torch.testing.assert_close(got, fa.window_qkv_plain.fn(
+            tq.reshape(1, b * t, 48), 2, win).reshape(b, t, 16))
+    else:
+        assert jax_routes == [] and port_calls["window"].shapes == []
+    with no_fusion():
+        assert att.window_sdpa_qkv(tq, 2, win, impl,
+                                   min_tokens=min_tokens) is None

@@ -22,11 +22,17 @@ from no_time_to_train_tpu_torch.models.matching.pipeline import (
 from no_time_to_train_tpu_torch.utils.convert import (
     dino_state_dict, sam2_state_dict)
 
+from test_torch_flash_attention import port_calls  # noqa: F401 (fixture)
+
 SAM = Sam2Config(
     embed_dim=32, num_heads=1, stages=(1, 1, 1, 1), global_att_blocks=(2,),
     window_pos_embed_bkg_spatial_size=(2, 2), window_spec=(4, 2, 4, 2),
     backbone_channel_list=(256, 128, 64, 32), image_size=128)
 ENC = EncoderConfig("tiny", 28, 14, 32, 1, 2, "local")
+# sizes where the flash gates open: a 256^2 target puts 4096 tokens in
+# Hiera's stage 1 (256 windows of 16), a 322^2 DINO input 530 tokens
+SAM_256 = dataclasses.replace(SAM, image_size=256)
+ENC_322 = dataclasses.replace(ENC, img_size=322)
 
 
 def test_scoring_matches_jax():
@@ -82,22 +88,22 @@ def test_bank_fill_postprocess_matches_jax():
                  torch.as_tensor(masks[:4]))
 
 
-def _pair(refs=None, **kw):
+def _pair(refs=None, sam=SAM, enc=ENC, **kw):
     """The JAX tiny matcher and the port's, on the same weights and bank.
     refs: (images, masks, classes) to fill the bank with."""
     base = dict(points_per_side=4, testing_point_bs=8, iou_thr=0.0,
                 nms_thr=0.5, num_out_instance=5, analysis_res=128,
                 expand_ratio=2)
     jc = JConfig(**{**base, **kw})
-    jm = JMatcher(SAM, ENC, jc, n_classes=3, memory_length=2)
+    jm = JMatcher(sam, enc, jc, n_classes=3, memory_length=2)
     fields = {f.name for f in dataclasses.fields(MatchingConfig)}
     tc = MatchingConfig(**{k: v for k, v in dataclasses.asdict(jc).items()
                            if k in fields})
     sp = jax.tree.map(np.asarray, jm.sam2_params)
     dp = jax.tree.map(np.asarray, jm.dino_params)
-    tm = NoAMGMatcher(SAM, ENC, tc, n_classes=3, memory_length=2,
+    tm = NoAMGMatcher(sam, enc, tc, n_classes=3, memory_length=2,
                       sam2_state_dict=sam2_state_dict(sp),
-                      dino_state_dict=dino_state_dict(dp, ENC), device="cpu")
+                      dino_state_dict=dino_state_dict(dp, enc), device="cpu")
     if refs is None:
         rng = np.random.default_rng(0)
         refs = (rng.random((4, 64, 64, 3), np.float32),
@@ -142,6 +148,19 @@ def test_tiny_step_matches_jax():
     if rj is not None:
         assert [s["counts"] for s in rt["segs"]] == \
             [s["counts"] for s in rj["segs"]]
+
+
+def test_tiny_step_pallas_routes_match_jax(port_calls):
+    """The whole step under "pallas" at sizes where the gates open: the
+    port takes the kernels' plain versions (DINO in the fill of 4 images and
+    on the target, Hiera's windowed stage 1), the JAX package runs XLA on the
+    CPU, and the outputs agree with the same tolerances as above."""
+    jm, tm = _pair(sam=SAM_256, enc=ENC_322, attention_impl="pallas")
+    img = np.random.default_rng(6).random((256, 256, 3), np.float32)
+    oj, ot = jm.test(img), tm.test(img)
+    _assert_same_outputs(oj, ot)
+    assert port_calls["bnhd"].shapes == [(4, 530, 2, 16), (1, 530, 2, 16)]
+    assert port_calls["window"].shapes == [(1, 4096, 96)]
 
 
 def _blob_scene(n=48, side=32, seed=7):

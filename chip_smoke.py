@@ -8,6 +8,9 @@ Run from the root of a checkout. Phases, each of which raises on failure:
   2. build the CUDA kernels from `no_time_to_train_tpu_torch/csrc`;
   3. each kernel against its plain PyTorch version at the slice's shapes
      and at edge shapes, bf16 and float32, with CUDA-event times;
+     beside the plain version's and, where one PyTorch call computes the
+     same function, that call's (a yardstick only: the port never calls
+     it), and the least time the card could take for the same work;
   4. the 10-shot test step on three paths, each a SAM2 Hiera-L matcher in
      bf16 with seeded random weights: DINOv2-L under attention_impl="xla",
      DINOv2-L under "pallas" and DINOv3-L under "pallas". Each fills the
@@ -16,10 +19,18 @@ Run from the root of a checkout. Phases, each of which raises on failure:
      counts are set to 0 before each path and read after it;
   5. for each path one image decoded with the kernels and under
      no_fusion(), compared, and under "pallas" the encoder features too;
-  6. one image's output finalized on the host.
-The last lines are the kernel table, the card's name and power limit, and
-{"ok": true, "device": {...}}. Without a GPU, or outside a checkout, it
-exits non-zero before printing any result.
+  6. one image's output finalized on the host;
+  7. video tracking: SAM2 Hiera-L in bf16 under "pallas" with seeded random
+     weights on a synthetic 1024^2 clip (a moving square and a fixed
+     rectangle on noise), two objects prompted by a point on frame 0,
+     forward propagation; the launch counts per tracked frame, the memory
+     attention of the last frame with the kernels and under no_fusion(),
+     and the same run under no_fusion() beside it.
+`python3 chip_smoke.py --video-profile` runs phases 1, 2 and 7 only and
+prints the device's busy time over the tracked frames under torch.profiler
+(a stopgap until the port has a bench that measures it). The last lines are the kernel table, the card's name and
+power limit, and {"ok": true, "device": {...}}. Without a GPU, or outside a
+checkout, it exits non-zero before printing any result.
 """
 import json
 import os
@@ -45,7 +56,19 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 #    anchors for the same kernels (tests/test_flash_attention.py: single-pass
 #    5e-5 / 1e-4, window 2e-5 / 2e-5); bf16 the JAX package's band for its
 #    flash kernels against XLA (tests/test_flash_attention.py:274, 2e-2).
+#  * flash_sdpa and flash_sdpa_masked: the same anchors (the JAX package's
+#    masked kernel in interpret mode against XLA: 5e-5 / 1e-4; bf16 2e-2).
+#    The band only tells a right kernel from a wrong one on outputs of unit
+#    size, so these two are fed sharp logits (q, k at scale 1.5), values of
+#    unit scale around 0.5, and masked keys whose values lie 3 higher: the
+#    outputs are then of size 0.5 and a kernel that dropped a tile, ignored
+#    the mask or mis-scaled the logits is off by 0.1 or more (each compare
+#    logs the mean |plain| beside its error).
 TOL = {
+    ("flash_sdpa", "float32"): (5e-5, 1e-4),
+    ("flash_sdpa", "bfloat16"): (2e-2, 2e-2),
+    ("flash_sdpa_masked", "float32"): (5e-5, 1e-4),
+    ("flash_sdpa_masked", "bfloat16"): (2e-2, 2e-2),
     ("flash_sdpa_bnhd", "float32"): (5e-5, 1e-4),
     ("flash_sdpa_bnhd", "bfloat16"): (2e-2, 2e-2),
     ("flash_sdpa_window_qkv", "float32"): (2e-5, 2e-5),
@@ -85,6 +108,38 @@ PATHS = [("dinov2_l xla", "dinov2_large", "xla", 3),
 # blocks 0-1, 3-7 and 9-43 but 23 / 33 (stage 4 and the q-pool blocks stay
 # under the gates)
 FLASH_PER_IMAGE = {"flash_sdpa_bnhd": 27, "flash_sdpa_window_qkv": 39}
+# kernels that only the video path launches (SAM2 memory attention)
+VIDEO_ONLY = ("flash_sdpa", "flash_sdpa_masked")
+# the video path: frames of the clip, and launches per frame. Every frame
+# runs Hiera-L once (3 global blocks, 39 windowed blocks); a tracked frame
+# runs the 4 memory-attention layers (one self and one masked cross
+# attention each) and the SAM heads (3 token -> image, 2 image <- token)
+VIDEO_FRAMES = 12
+VIDEO_PER_FRAME = {"flash_sdpa_bnhd": 3, "flash_sdpa_window_qkv": 39}
+VIDEO_PER_TRACKED = {"flash_sdpa": 4, "flash_sdpa_masked": 4,
+                     "fused_t2i_attn": 3, "fused_i2t_norm": 2}
+# tracking with the kernels against tracking under no_fusion(), bf16 with
+# random weights, over the clip's tracked frames: the two runs differ by
+# the kernels' cast points (each within its band above) and feed their own
+# masks back through the memory, so single logits drift apart. With random
+# weights a mask covers nearly the whole frame, so the sign alone tells
+# little: the bands are set from the readings on an H100 (sign agreement
+# 0.9992 or more, mean |d logit| of a frame 0.34 % to 1.09 % of the mean
+# |logit| over several runs), about three times the largest gap read.
+VIDEO_SIGN_AGREE = 0.995
+VIDEO_REL_GAP = 0.03
+# the memory-conditioned features of the last tracked frame (4 layers of
+# self-attention and masked cross-attention on the kernel run's own memory
+# bank) with the kernels against no_fusion(), in relative L2 norm: 4 of
+# the residual layers that FEAT_REL_BAND allows 0.05 over 24. Beside it
+# the same features with the first half of the memory keys masked out, the
+# size of the error a kernel that dropped key tiles would make, which has
+# to lie outside the band.
+MEMORY_FEAT_REL_BAND = 0.02
+
+# published peaks of one H100 SXM (dense): device memory bytes / s, bf16
+# tensor-core and float32 CUDA-core operations / s
+PEAK_BYTES, PEAK_BF16, PEAK_F32 = 3.35e12, 989e12, 67e12
 
 KERNELS = [
     dict(name="layer_norm", route="cuda",
@@ -105,6 +160,13 @@ KERNELS = [
     dict(name="flash_sdpa_window_qkv", route="cuda",
          source="no_time_to_train_tpu_torch/csrc/window_attn.cu",
          replaces="no_time_to_train_tpu/ops/flash_attention.py:267"),
+    dict(name="flash_sdpa", route="cuda",
+         source="no_time_to_train_tpu_torch/csrc/flash_bh.cu",
+         replaces="no_time_to_train_tpu/ops/flash_attention.py:151",
+         also_replaces="no_time_to_train_tpu/ops/flash_attention.py:324"),
+    dict(name="flash_sdpa_masked", route="cuda",
+         source="no_time_to_train_tpu_torch/csrc/flash_masked.cu",
+         replaces="no_time_to_train_tpu/ops/flash_attention.py:395"),
 ]
 
 # kernel 9 at the slice's shapes: (label, B, Nq, Nk, heads, D, q / k / v as
@@ -118,7 +180,30 @@ ONEPASS_SHAPES = [("dinov2_l test", 1, 1370, 1370, 16, 64, False),
 ONEPASS_EDGE = [("n 513", 1, 513, 513, 16, 64, False),
                 ("nq 1000 nk 513", 10, 1000, 513, 2, 72, False),
                 ("nq 513 nk 1000", 2, 513, 1000, 4, 64, False),
-                ("packed n 1000", 3, 1000, 1000, 2, 72, True)]
+                ("packed n 1000", 3, 1000, 1000, 2, 72, True),
+                ("n 600, D 256", 1, 600, 600, 2, 256, False)]
+# flash_sdpa (rows 11 + 12): (label, B, H, Nq, Nk, D, strided views of a
+# [B, N, H, D] tensor); the memory attention's self-attention for 1 and 2
+# objects (row 11's range) and a key range that the TPU sends to row 12,
+# then ragged sequences and every padded head dim
+FLASH_SHAPES = [("memory self, 1 object", 1, 1, 4096, 4096, 256, False),
+                ("memory self, 2 objects", 2, 1, 4096, 4096, 256, False),
+                ("row 12: 8192 keys, D 72", 1, 8, 8192, 8192, 72, False)]
+FLASH_EDGE = [("5330 keys, D 64", 1, 16, 5330, 5330, 64, False),
+              ("ragged, D 128", 2, 3, 513, 1000, 128, False),
+              ("ragged, D 256", 2, 1, 1000, 333, 256, False),
+              ("strided, D 72", 2, 4, 600, 600, 72, True),
+              ("3-D operands, D 64", 0, 3, 130, 4700, 64, False)]
+# flash_sdpa_masked (row 13): (label, B, H, Nq, Nk, D, mask); the memory
+# cross-attention over 7 rows x 4096 tokens + 16 pointers x 4 tokens with a
+# partly filled ring; then a fully masked prefix of tiles, a batch element
+# with every key masked (its rows return the mean of v), ragged sequences
+MASKED_SHAPES = [("memory cross, 1 object", 1, 1, 4096, 28736, 256, "ring"),
+                 ("memory cross, 2 objects", 2, 1, 4096, 28736, 256, "ring")]
+MASKED_EDGE = [("masked prefix, D 64", 2, 2, 200, 5000, 64, "prefix"),
+               ("masked row, D 256", 2, 1, 130, 4700, 256, "row"),
+               ("ragged, D 72", 1, 3, 513, 4611, 72, "random"),
+               ("ragged, D 128", 2, 1, 77, 4999, 128, "random")]
 # kernel 10: (label, B, heads, D, window tokens, windows)
 WINDOW_SHAPES = [("hiera_l stage 1", 1, 2, 72, 64, 1024),
                  ("hiera_l stage 2", 1, 4, 72, 16, 1024),
@@ -126,7 +211,8 @@ WINDOW_SHAPES = [("hiera_l stage 1", 1, 2, 72, 64, 1024),
 WINDOW_EDGE = [("T 16 x 3 windows", 1, 4, 72, 16, 3),
                ("B 2, T 64", 2, 2, 72, 64, 3),
                ("T 256 x 1 window", 1, 8, 72, 256, 1),
-               ("D 64, T 49", 1, 2, 64, 49, 5)]
+               ("D 64, T 49", 1, 2, 64, 49, 5),
+               ("D 256, T 64", 1, 1, 256, 64, 3)]
 
 
 def log(*a):
@@ -154,6 +240,19 @@ def cuda_ms(fn, warmup=3, iters=10):
     return statistics.median(times)
 
 
+def bound(n_bytes, ops, peak):
+    """The least time (ms) the card could take for a call that must move
+    `n_bytes` (each input read once, each output written once) and do `ops`
+    operations at the peak rate `peak`, and which of the two bounds it."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES, ops / peak
+    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def compare(name, dt, got, ref):
     import torch
     atol, rtol = TOL[(name, str(dt).split(".")[-1])]
@@ -165,8 +264,8 @@ def compare(name, dt, got, ref):
     max_err = float(err.max())
     ok = excess <= atol
     log(f"  {name:21s} {str(dt):15s} shape {tuple(got.shape)} "
-        f"max_abs_err {max_err:.3e} (atol {atol}, rtol {rtol}) "
-        f"{'ok' if ok else 'FAIL'}")
+        f"max_abs_err {max_err:.3e} (atol {atol}, rtol {rtol}; mean |plain| "
+        f"{float(r.abs().mean()):.3f}) {'ok' if ok else 'FAIL'}")
     if not ok:
         fail(f"{name} {dt}: kernel disagrees with its plain version")
     return max_err
@@ -175,6 +274,7 @@ def compare(name, dt, got, ref):
 def kernel_phase(dev):
     """Each kernel and its plain version at the slice's shapes."""
     import torch
+    import torch.nn.functional as F
     from no_time_to_train_tpu_torch.ops import decoder_attention as da
     from no_time_to_train_tpu_torch.ops import fused_ln as fl
     from no_time_to_train_tpu_torch.ops import upscale_product as up
@@ -196,10 +296,17 @@ def kernel_phase(dev):
             err = compare("layer_norm", dt, fl.layer_norm(x, w, b, 1e-6),
                           fl.layer_norm_plain(x, w, b, 1e-6))
             if i == 0 and dt == torch.bfloat16:
+                wd, bd = w.to(dt), b.to(dt)
+                # per element: two statistics passes and the affine, ~8
+                # float32 operations
                 results["layer_norm"] = dict(
                     max_abs_err=err,
                     ms=cuda_ms(lambda: fl.layer_norm(x, w, b, 1e-6)),
-                    plain_ms=cuda_ms(lambda: fl.layer_norm_plain(x, w, b, 1e-6)))
+                    plain_ms=cuda_ms(lambda: fl.layer_norm_plain(x, w, b, 1e-6)),
+                    library_ms=cuda_ms(lambda: F.layer_norm(x, (c,), wd, bd,
+                                                            1e-6)),
+                    **bound(2 * nbytes(x) + nbytes(wd, bd), 8 * r * c,
+                            PEAK_F32))
 
         # K2 / K3: one decode chunk, P = 256 prompts, 64^2 image tokens,
         # C = 256, I = 128, 8 heads, T = 8 tokens; per-prompt keys (layers 1
@@ -216,11 +323,16 @@ def kernel_phase(dev):
                           da.fused_t2i_attn(*args, num_heads=8),
                           da.fused_t2i_attn_plain(*args, num_heads=8))
             if pk == p_ and dt == torch.bfloat16:
+                # k and v projections of every key, then logits and the
+                # value product against t tokens per prompt
                 results["fused_t2i_attn"] = dict(
                     max_abs_err=err,
                     ms=cuda_ms(lambda: da.fused_t2i_attn(*args, num_heads=8)),
                     plain_ms=cuda_ms(
-                        lambda: da.fused_t2i_attn_plain(*args, num_heads=8)))
+                        lambda: da.fused_t2i_attn_plain(*args, num_heads=8)),
+                    library_ms=None,
+                    **bound(nbytes(*args) + p_ * t * i * 2,
+                            2 * p_ * n * i * (2 * c + 2 * t), PEAK_BF16))
             tok_k = rn(p_, t, i, scale=0.5, dtype=dt)
             tok_v = rn(p_, t, i, scale=0.5, dtype=dt)
             wq, wout = rn(c, i, scale=0.05), rn(i, c, scale=0.05)
@@ -231,11 +343,17 @@ def kernel_phase(dev):
                           da.fused_i2t_norm(*args, num_heads=8),
                           da.fused_i2t_norm_plain(*args, num_heads=8))
             if pk == p_ and dt == torch.bfloat16:
+                # q projection, logits and value product against t tokens,
+                # output projection; the norm's ~8 operations per element
                 results["fused_i2t_norm"] = dict(
                     max_abs_err=err,
                     ms=cuda_ms(lambda: da.fused_i2t_norm(*args, num_heads=8)),
                     plain_ms=cuda_ms(
-                        lambda: da.fused_i2t_norm_plain(*args, num_heads=8)))
+                        lambda: da.fused_i2t_norm_plain(*args, num_heads=8)),
+                    library_ms=None,
+                    **bound(nbytes(*args) + nbytes(keys),
+                            2 * p_ * n * i * (2 * c + 2 * t) + 8 * p_ * n * c,
+                            PEAK_BF16))
             del keys
 
         # K4: one decode chunk, B = 256 prompts, 64^2 positions, d = 256
@@ -250,16 +368,28 @@ def kernel_phase(dev):
         err = compare("fused_post_t1", dt, up.fused_post_t1(*args),
                       up.fused_post_t1_plain(*args))
         if dt == torch.bfloat16:
+            # first deconvolution [hw, 256] x [256, 256], the second as four
+            # [hw, 64] x [64, 128] products, the hypernetwork product over
+            # 16 phases x 32 channels; the result is [b, 16, hw]
             results["fused_post_t1"] = dict(
                 max_abs_err=err, ms=cuda_ms(lambda: up.fused_post_t1(*args)),
-                plain_ms=cuda_ms(lambda: up.fused_post_t1_plain(*args)))
+                plain_ms=cuda_ms(lambda: up.fused_post_t1_plain(*args)),
+                library_ms=None,
+                **bound(nbytes(*args) + b * 16 * hw * src.element_size(),
+                        2 * b * hw * (256 * 256 + 4 * 64 * 128 + 16 * 32),
+                        PEAK_BF16))
         del src
         torch.cuda.empty_cache()
         attention_kernels(rn, dt, ONEPASS_SHAPES, WINDOW_SHAPES, results)
+        memory_kernels(rn, dt, FLASH_SHAPES, MASKED_SHAPES, results)
     edge_shapes(rn)
     for k, v in results.items():
-        log(f"  time {k:21s} kernel {v['ms']:.3f} ms, plain {v['plain_ms']:.3f} ms"
-            " (bf16, median of 10 after 3 warm-up)")
+        lib = ("none" if v["library_ms"] is None
+               else f"{v['library_ms']:.3f} ms")
+        log(f"  time {k:21s} kernel {v['ms']:.3f} ms, plain "
+            f"{v['plain_ms']:.3f} ms, library call {lib}, bound "
+            f"{v['bound_ms']:.4f} ms by {v['bound_by']} "
+            "(bf16, median of 10 after 3 warm-up)")
     return results
 
 
@@ -269,16 +399,21 @@ def attention_kernels(rn, dt, onepass_shapes, window_shapes, results=None):
     formula's, which the kernels replace on the pallas path), and the first
     shape of each kernel is kept for the kernel table."""
     import torch
+    import torch.nn.functional as F
     from no_time_to_train_tpu_torch.ops import attention as att
     from no_time_to_train_tpu_torch.ops import flash_attention as fa
     timed = results is not None and dt == torch.bfloat16
 
-    def report(name, label, err, fn, plain, xla):
+    def report(name, label, err, fn, plain, xla, lib, n_bytes, ops):
         ms, plain_ms, xla_ms = cuda_ms(fn), cuda_ms(plain), cuda_ms(xla)
+        lib_ms = cuda_ms(lib)
+        bnd = bound(n_bytes, ops, PEAK_BF16)
         log(f"  time {name} {label}: kernel {ms:.3f} ms, plain {plain_ms:.3f}"
-            f" ms, xla formula {xla_ms:.3f} ms")
+            f" ms, xla formula {xla_ms:.3f} ms, library call {lib_ms:.3f} ms,"
+            f" bound {bnd['bound_ms']:.4f} ms by {bnd['bound_by']}")
         results.setdefault(name, dict(max_abs_err=err, ms=ms,
-                                      plain_ms=plain_ms))
+                                      plain_ms=plain_ms, library_ms=lib_ms,
+                                      **bnd))
 
     for label, b, nq, nk, h, d, packed in onepass_shapes:
         if packed:
@@ -288,10 +423,13 @@ def attention_kernels(rn, dt, onepass_shapes, window_shapes, results=None):
         err = compare("flash_sdpa_bnhd", dt, fa.flash_sdpa_bnhd(q, k, v),
                       fa.onepass_bnhd_plain(q, k, v))
         if timed:
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             report("flash_sdpa_bnhd", label, err,
                    lambda: fa.flash_sdpa_bnhd(q, k, v),
                    lambda: fa.onepass_bnhd_plain(q, k, v),
-                   lambda: att.sdpa_bnhd(q, k, v, "xla"))
+                   lambda: att.sdpa_bnhd(q, k, v, "xla"),
+                   lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                   2 * nbytes(q) + 2 * nbytes(k), 4 * b * h * nq * nk * d)
     for label, b, h, d, win, nw in window_shapes:
         qkv = rn(b, nw * win, 3 * h * d, dtype=dt)
         err = compare("flash_sdpa_window_qkv", dt,
@@ -299,11 +437,110 @@ def attention_kernels(rn, dt, onepass_shapes, window_shapes, results=None):
                       fa.window_qkv_plain(qkv, h, win))
         if timed:
             split = qkv.reshape(b * nw, win, 3, h, d).unbind(2)
+            heads_first = [x.transpose(1, 2) for x in split]
             report("flash_sdpa_window_qkv", label, err,
                    lambda: fa.flash_sdpa_window_qkv(qkv, h, win),
                    lambda: fa.window_qkv_plain(qkv, h, win),
-                   lambda: att.sdpa_bnhd(*split, "xla"))
+                   lambda: att.sdpa_bnhd(*split, "xla"),
+                   lambda: F.scaled_dot_product_attention(*heads_first),
+                   nbytes(qkv) * 4 // 3, 4 * b * nw * win * win * h * d)
     torch.cuda.empty_cache()
+
+
+def key_mask(kind, b, nk, dev, gen):
+    """Key-column masks [b, nk] bool for flash_sdpa_masked. "ring": the
+    video memory bank (7 rows of 4096 tokens, then pointer tokens) with
+    rows 0, 2, 3 (first object) or 0, 1, 2, 4, 6 (second) and 24 pointer
+    tokens valid; "prefix": the first third of the keys masked for the
+    first batch element; "row": every key of the last batch element
+    masked; all but "ring" over 70 % random valid keys."""
+    import torch
+    if kind == "ring":
+        valid = torch.zeros((b, nk), dtype=torch.bool, device=dev)
+        for o in range(b):
+            for row in ((0, 2, 3), (0, 1, 2, 4, 6))[o % 2]:
+                valid[o, row * 4096:(row + 1) * 4096] = True
+        valid[:, 7 * 4096:7 * 4096 + 24] = True
+        return valid
+    valid = torch.rand((b, nk), generator=gen, device=dev) > 0.3
+    if kind == "prefix":
+        valid[0, :nk // 3] = False
+    elif kind == "row":
+        valid[-1, :] = False
+    return valid
+
+
+def memory_kernels(rn, dt, flash_shapes, masked_shapes, results=None):
+    """flash_sdpa (rows 11 + 12) and flash_sdpa_masked (row 13) against
+    their plain versions; with `results`, the bf16 times at every shape are
+    logged beside the plain version's and the library call's
+    (F.scaled_dot_product_attention), and the first shape of each kernel is
+    kept for the kernel table. The bound counts the valid keys only: a
+    masked key needs neither its bytes nor its products."""
+    import torch
+    import torch.nn.functional as F
+    from no_time_to_train_tpu_torch.ops import flash_attention as fa
+    timed = results is not None and dt == torch.bfloat16
+
+    def report(name, label, err, fn, plain, lib, n_bytes, ops):
+        ms, plain_ms, lib_ms = cuda_ms(fn), cuda_ms(plain), cuda_ms(lib)
+        bnd = bound(n_bytes, ops, PEAK_BF16)
+        log(f"  time {name} {label}: kernel {ms:.3f} ms, plain {plain_ms:.3f}"
+            f" ms, library call {lib_ms:.3f} ms, bound {bnd['bound_ms']:.4f}"
+            f" ms by {bnd['bound_by']} ({ops / ms / 1e9:.1f} TFLOP/s)")
+        results.setdefault(name, dict(max_abs_err=err, ms=ms,
+                                      plain_ms=plain_ms, library_ms=lib_ms,
+                                      **bnd))
+
+    def operands(shape_of, nq, nk):
+        """q and k at scale 1.5 (sharp logits), v of unit scale around 0.5."""
+        q, k = (rn(*shape_of(n), dtype=dt, scale=1.5) for n in (nq, nk))
+        return q, k, (rn(*shape_of(nk)) + 0.5).to(dt)
+
+    for label, b, h, nq, nk, d, strided in flash_shapes:
+        lead = (b,) if b else ()
+        if strided:
+            q, k, v = (x.transpose(1, 2)
+                       for x in operands(lambda n: (b, n, h, d), nq, nk))
+        else:
+            q, k, v = operands(lambda n: (*lead, h, n, d), nq, nk)
+        err = compare("flash_sdpa", dt, fa.flash_sdpa(q, k, v),
+                      fa.flash_bh_plain(q, k, v))
+        if timed:
+            report("flash_sdpa", label, err, lambda: fa.flash_sdpa(q, k, v),
+                   lambda: fa.flash_bh_plain(q, k, v),
+                   lambda: F.scaled_dot_product_attention(q, k, v),
+                   2 * nbytes(q) + 2 * nbytes(k),
+                   4 * max(b, 1) * h * nq * nk * d)
+    for label, b, h, nq, nk, d, kind in masked_shapes:
+        q, k, v = operands(lambda n: (b, h, n, d), nq, nk)
+        valid = key_mask(kind, b, nk, q.device, None if kind == "ring"
+                         else torch.Generator(q.device).manual_seed(nk))
+        # a masked key's value lies 3 above a valid key's
+        v = torch.where(valid[:, None, :, None], v, v + 3.0)
+        got = fa.flash_sdpa_masked(q, k, v, valid)
+        err = compare("flash_sdpa_masked", dt, got,
+                      fa.flash_masked_plain(q, k, v, valid))
+        if kind == "row":
+            mean = v[-1].float().mean(dim=-2, keepdim=True)
+            gap = float((got[-1].float() - mean).abs().max())
+            log(f"    fully masked rows vs mean(v): max_abs_err {gap:.3e}")
+            atol, rtol = TOL[("flash_sdpa_masked", str(dt).split(".")[-1])]
+            if gap > atol + rtol * float(mean.abs().max()):
+                fail("a fully masked row must return the mean of v")
+        if timed:
+            n_valid = int(valid.sum())
+            mask4 = valid[:, None, None, :]
+            report("flash_sdpa_masked", label, err,
+                   lambda: fa.flash_sdpa_masked(q, k, v, valid),
+                   lambda: fa.flash_masked_plain(q, k, v, valid),
+                   lambda: F.scaled_dot_product_attention(q, k, v,
+                                                          attn_mask=mask4),
+                   2 * nbytes(q) + nbytes(valid)
+                   + 2 * n_valid * h * d * q.element_size(),
+                   4 * h * nq * n_valid * d)
+        del q, k, v, got
+        torch.cuda.empty_cache()
 
 
 def edge_shapes(rn):
@@ -341,6 +578,7 @@ def edge_shapes(rn):
         compare("fused_post_t1", dt, up.fused_post_t1(*a),
                 up.fused_post_t1_plain(*a))
         attention_kernels(rn, dt, ONEPASS_EDGE, WINDOW_EDGE)
+        memory_kernels(rn, dt, FLASH_EDGE, MASKED_EDGE)
 
 
 def _counters():
@@ -450,9 +688,13 @@ def run_path(dev, label, encoder, impl, n_test):
     log(f"  kernel launches: fill + test {counts}, in test {in_test}")
     flash_on = impl == "pallas"
     missing = [k for k, v in in_test.items()
-               if v == 0 and (flash_on or k not in FLASH_PER_IMAGE)]
+               if v == 0 and k not in VIDEO_ONLY
+               and (flash_on or k not in FLASH_PER_IMAGE)]
     if missing:
         fail(f"kernels not launched during test: {missing}")
+    stray = [k for k in VIDEO_ONLY if counts[k]]
+    if stray:
+        fail(f"the image path launched the memory-attention kernels: {stray}")
     for k, per_image in FLASH_PER_IMAGE.items():
         want = per_image * n_test if flash_on else 0
         if in_test[k] != want or (not flash_on and counts[k]):
@@ -547,6 +789,204 @@ def run_path(dev, label, encoder, impl, n_test):
             counts)
 
 
+def synthetic_clip(n_frames, size=1024):
+    """A seeded clip: noise, a bright square that moves to the right by 24
+    pixels a frame, and a fixed dark rectangle. Returns the frames
+    [T, size, size, 3] in [0, 1] and one point on each object in frame 0."""
+    import numpy as np
+    rng = np.random.default_rng(3)
+    frames = rng.random((n_frames, size, size, 3), np.float32) * 0.3
+    for t in range(n_frames):
+        x0 = 80 + 24 * t
+        frames[t, 320:720, x0:x0 + 320] = 0.9
+        frames[t, 160:400, 640:920] = 0.05
+    return frames, ([240.0, 520.0], [780.0, 280.0])
+
+
+def build_video_predictor(dev):
+    import torch
+    from no_time_to_train_tpu_torch.config.presets import SAM2_PRESETS
+    from no_time_to_train_tpu_torch.models.sam2.model import SAM2
+    from no_time_to_train_tpu_torch.models.sam2.video import (
+        SAM2VideoPredictor)
+    from no_time_to_train_tpu_torch.ops.attention import set_attention_impl
+    from no_time_to_train_tpu_torch.utils.init import init_random_
+    with torch.device("meta"):
+        model = SAM2(SAM2_PRESETS[SAM2_CFG])
+    model = model.to_empty(device=dev)
+    init_random_(model, torch.Generator(dev).manual_seed(0))
+    model = set_attention_impl(model.to(torch.bfloat16), "pallas")
+    return SAM2VideoPredictor(model, device=dev)
+
+
+def track_clip(pred, frames, points, fenced=True):
+    """Prompt one point per object on frame 0 and propagate forward.
+    Returns the per-frame masks (on the device) and fenced ms per frame."""
+    import numpy as np
+    import torch
+    state = pred.init_state(frames)
+    for obj, xy in enumerate(points, start=1):
+        pred.add_new_points_or_box(state, 0, obj, points=[xy],
+                                   labels=np.array([1], np.int32))
+    masks, times = {}, []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t, _, m in pred.propagate_in_video(state):
+        if fenced:
+            torch.cuda.synchronize()
+        now = time.perf_counter()
+        times.append((now - t0) * 1e3)
+        t0 = now
+        masks[t] = m
+    torch.cuda.synchronize()
+    return masks, times, state
+
+
+def memory_features_check(pred, state, n_obj):
+    """The memory attention alone on the last tracked frame's operands, as
+    `_track_heads` calls it: with the kernels, under no_fusion(), and under
+    no_fusion() with the first half of the memory keys masked out."""
+    import torch
+    from no_time_to_train_tpu_torch.ops.upscale_product import no_fusion
+    c, t = pred.cfg, VIDEO_FRAMES - 1
+    fpn = pred._get_features(state, t)
+    memory, memory_pos, valid = pred._memory_operands(
+        state, t, range(n_obj), False)
+    flat = fpn[-1].reshape(1, -1, c.d_model).expand(n_obj, -1, -1)
+    pos = pred._feat_pos.expand(n_obj, -1, -1)
+    n_ptr = c.max_obj_ptrs_in_encoder * (c.hidden_dim // c.mem_dim)
+
+    def fused(memory_valid):
+        with torch.no_grad():
+            return pred.model.memory_conditioned_features(
+                flat, pos, memory, memory_pos, n_ptr, memory_valid).float()
+
+    before = launch_counts()
+    f_k = fused(valid)
+    ran = {k: launch_counts()[k] - before[k] for k in VIDEO_ONLY}
+    fewer = valid.clone()
+    fewer[:, :valid.shape[1] // 2] = False
+    with no_fusion():
+        f_p, f_few = fused(valid), fused(fewer)
+    if not torch.isfinite(f_k).all():
+        fail("memory-conditioned features with the kernels are not finite")
+    rel = float((f_k - f_p).norm() / f_p.norm())
+    wrong = float((f_few - f_p).norm() / f_p.norm())
+    log(f"  memory-conditioned features of frame {t}, kernels vs "
+        f"no_fusion(): relative L2 {rel:.5f} (band {MEMORY_FEAT_REL_BAND}); "
+        f"valid keys {valid.sum(dim=1).tolist()} of {valid.shape[1]}, "
+        f"dropping the first half moves them by {wrong:.4f}; launches {ran}")
+    if ran != {k: 4 for k in VIDEO_ONLY}:
+        fail(f"the memory attention launched {ran}, expected 4 of each")
+    if not rel <= MEMORY_FEAT_REL_BAND < wrong:
+        fail("memory-conditioned features with the kernels disagree with "
+             "no_fusion(), or the band would not catch dropped keys")
+
+
+def run_video(dev, profile=False):
+    """Phase 7. Returns (warm fenced ms per tracked frame, launch counts of
+    the path)."""
+    import torch
+    from no_time_to_train_tpu_torch.ops.upscale_product import no_fusion
+
+    t0 = time.perf_counter()
+    pred = build_video_predictor(dev)
+    frames, points = synthetic_clip(VIDEO_FRAMES)
+    torch.cuda.synchronize()
+    log(f"  predictor built (SAM2 Hiera-L, bf16, pallas, random weights seed "
+        f"0) and a {VIDEO_FRAMES}-frame 1024^2 clip made in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    reset_counts()                       # the path starts here
+    masks, times, state = track_clip(pred, frames, points)
+    counts = launch_counts()             # the path ends here
+    tracked = VIDEO_FRAMES - 1
+    warm = statistics.mean(times[2:])
+    log(f"  propagate: fenced ms per frame {[round(t, 1) for t in times]} "
+        f"(frame 0 is the prompted frame, frame 1 includes warm-up); warm "
+        f"mean over {len(times) - 2} tracked frames {warm:.1f} ms/frame, "
+        f"{len(points)} objects")
+    log(f"  kernel launches: {counts}")
+    for k, per in VIDEO_PER_FRAME.items():
+        if counts[k] != per * VIDEO_FRAMES:
+            fail(f"{k}: {counts[k]} launches over {VIDEO_FRAMES} frames, "
+                 f"expected {per} per frame")
+    for k, per in VIDEO_PER_TRACKED.items():
+        # the two prompted decodes on frame 0 also run the SAM heads
+        extra = (per * len(points)
+                 if k in ("fused_t2i_attn", "fused_i2t_norm") else 0)
+        if counts[k] != per * tracked + extra:
+            fail(f"{k}: {counts[k]} launches over {tracked} tracked frames, "
+                 f"expected {per} per tracked frame (+ {extra})")
+    if counts["layer_norm"] == 0 or counts["fused_post_t1"] != 0:
+        fail("the video path runs K1 and never the grid decode's K4")
+    log(f"  launches per tracked frame: "
+        f"{ {**VIDEO_PER_FRAME, **VIDEO_PER_TRACKED} }")
+
+    side = 4 * pred.cfg.sam_image_embedding_size
+    for t, m in masks.items():
+        if tuple(m.shape) != (len(points), side, side) \
+                or not torch.isfinite(m).all():
+            fail(f"frame {t}: masks {tuple(m.shape)} not finite or misshapen")
+    areas = torch.stack([(m > 0).float().mean(dim=(1, 2))
+                         for m in masks.values()])
+    log(f"  mask area share per object, least / most over the frames: "
+        f"{[round(float(x), 4) for x in areas.min(dim=0).values]} / "
+        f"{[round(float(x), 4) for x in areas.max(dim=0).values]}")
+    if not (areas > 0).all():
+        fail("an object's mask is empty on some frame")
+    kept = len(state["output_dict_per_obj"][0]["non_cond"])
+    log(f"  tracked frames kept in the state: {kept} (history window "
+        f"{pred.history_window})")
+
+    if not profile:
+        memory_features_check(pred, state, len(points))
+        counts_after = launch_counts()
+
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as prof
+        with prof(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as p:
+            t0 = time.perf_counter()
+            track_clip(pred, frames, points, fenced=False)
+            wall = (time.perf_counter() - t0) * 1e3
+        dev_rows = [e for e in p.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in dev_rows) / 1e3
+        n_kern = sum(e.count for e in dev_rows)
+        log(f"  profile, one unfenced run of {VIDEO_FRAMES} frames: wall "
+            f"{wall:.1f} ms, device busy {busy:.1f} ms, idle share "
+            f"{100 * (1 - busy / wall):.1f} %, {n_kern} kernels and copies "
+            f"({n_kern / VIDEO_FRAMES:.0f} per frame)")
+        for e in sorted(dev_rows, key=lambda e: -e.self_device_time_total)[:14]:
+            log(f"    {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d} x  "
+                f"{e.key[:90]}")
+        return warm, counts
+
+    # tracking with the kernels against tracking under no_fusion()
+    with no_fusion():
+        plain_masks, plain_times, _ = track_clip(pred, frames, points)
+    if launch_counts() != counts_after:
+        fail("a kernel was launched inside no_fusion()")
+    agree, gap, rel = [], [], []
+    for t in masks:
+        agree.append(float(((masks[t] > 0) == (plain_masks[t] > 0))
+                           .float().mean()))
+        gap.append(float((masks[t] - plain_masks[t]).abs().mean()))
+        rel.append(gap[-1] / float(plain_masks[t].abs().mean()))
+    log(f"  kernels vs no_fusion(): mask sign agreement per frame "
+        f"{[round(a, 4) for a in agree]} (band {VIDEO_SIGN_AGREE}), mean "
+        f"|d logit| per frame {[round(x, 3) for x in gap]}, relative to the "
+        f"mean |logit| {[round(x, 4) for x in rel]} (band {VIDEO_REL_GAP}); "
+        f"no_fusion() warm {statistics.mean(plain_times[2:]):.1f} ms/frame")
+    if min(agree) < VIDEO_SIGN_AGREE or max(rel) > VIDEO_REL_GAP:
+        fail("tracking with the kernels disagrees with tracking under "
+             "no_fusion()")
+    del pred
+    torch.cuda.empty_cache()
+    return warm, counts
+
+
 def main():
     try:
         import torch
@@ -585,6 +1025,12 @@ def main():
         log(f"  phase {name}: {now - t_phase:.1f} s")
         t_phase = now
 
+    if sys.argv[1:] == ["--video-profile"]:
+        log("[7] video tracking under torch.profiler")
+        run_video(dev, profile=True)
+        print(smi)
+        return 0
+
     log("[3] kernels vs plain versions at the slice's shapes")
     kres = kernel_phase(dev)
     phase_done("3")
@@ -600,12 +1046,16 @@ def main():
         summary.append(f"{label} {ms_img:.1f} ms/img (n_valid {n_valid})")
         phase_done(f"4-6 {label}")
 
-    kernels = []
-    for k in KERNELS:
-        r = kres[k["name"]]
-        kernels.append(dict(k, launches=totals[k["name"]],
-                            max_abs_err=r["max_abs_err"], ms=r["ms"],
-                            plain_ms=r["plain_ms"]))
+    log("[7] video tracking, SAM2-L, bf16, attention_impl=pallas, "
+        f"{VIDEO_FRAMES} frames, 2 objects")
+    ms_frame, counts = run_video(dev)
+    for k, v in counts.items():
+        totals[k] = totals.get(k, 0) + v
+    summary.append(f"video {ms_frame:.1f} ms/frame")
+    phase_done("7")
+
+    kernels = [dict(k, launches=totals[k["name"]], **kres[k["name"]])
+               for k in KERNELS]
     log(f"summary: warm fenced {'; '.join(summary)}; on {smi}")
     print(json.dumps({"kernels": kernels}))
     print(smi)

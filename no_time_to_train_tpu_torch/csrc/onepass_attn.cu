@@ -16,38 +16,18 @@
 // the caller never copies them apart.
 #include "attn_tile.cuh"
 
-namespace {
-
-template <typename T, int DP>
-__global__ void __launch_bounds__(attn::kThreads)
-onepass_kernel(attn::Params p) {
-  attn::attend_tile<T, DP>(p, blockIdx.x * attn::kBQ, 0, p.n_k);
-}
-
-template <typename T>
-int run(const attn::Params& p, int b, int heads, cudaStream_t s) {
-  const dim3 grid((p.n_q + attn::kBQ - 1) / attn::kBQ, heads, b);
-  NTTT_ATTN_DISPATCH_DP(
-      p.d, (attn::launch<T, DP>(onepass_kernel<T, DP>, grid, p, s)));
-}
-
-}  // namespace
-
 // q [B, Nq, H, D], k / v [B, Nk, H, D] with the given batch and row strides
 // (elements; each row's [H, D] block contiguous); out [B, Nq, H, D]
-// contiguous. D <= 128, a multiple of 16 bytes; pointers 16-byte aligned.
+// contiguous. D <= 256, a multiple of 16 bytes; pointers 16-byte aligned.
 extern "C" int nttt_onepass_attn(const void* q, const void* k, const void* v,
                                  void* out, long long q_bs, long long k_bs,
                                  long long v_bs, int q_rs, int k_rs, int v_rs,
                                  int b, int n_q, int n_k, int heads, int d,
                                  float scale, int dtype, void* stream) {
-  if (b < 1 || n_q < 1 || n_k < 1 || heads < 1 || d < 1 || d > 128 ||
-      heads > 65535 || b > 65535)
-    return (int)cudaErrorInvalidValue;
-  attn::Params p{q, k, v, out, q_bs, k_bs, v_bs,
-                 (long long)n_q * heads * d, q_rs, k_rs, v_rs, heads * d,
-                 n_q, n_k, d, 0, scale * 1.4426950408889634f};
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == NTTT_DTYPE_BF16) return run<__nv_bfloat16>(p, b, heads, s);
-  return run<float>(p, b, heads, s);
+  attn::Params p{q, k, v, out, nullptr,
+                 q_bs, k_bs, v_bs, (long long)n_q * heads * d,
+                 d, d, d, d,
+                 q_rs, k_rs, v_rs, heads * d,
+                 n_q, n_k, d, 0, scale * attn::kLog2e};
+  return attn::run<false>(p, b, heads, dtype, stream);
 }

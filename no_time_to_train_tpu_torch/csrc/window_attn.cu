@@ -17,44 +17,21 @@
 // the qkv once; the products run on the tensor cores in bf16.
 #include "attn_tile.cuh"
 
-namespace {
-
-template <typename T, int DP>
-__global__ void __launch_bounds__(attn::kThreads)
-window_kernel(attn::Params p) {
-  const int q0 = blockIdx.x * attn::kBQ;
-  const int q_last = min(q0 + attn::kBQ, p.n_q) - 1;
-  const int k_lo = q0 / p.win * p.win;
-  const int k_hi = (q_last / p.win + 1) * p.win;
-  attn::attend_tile<T, DP>(p, q0, k_lo, k_hi);
-}
-
-template <typename T>
-int run(const attn::Params& p, int b, int heads, cudaStream_t s) {
-  const dim3 grid((p.n_q + attn::kBQ - 1) / attn::kBQ, heads, b);
-  NTTT_ATTN_DISPATCH_DP(
-      p.d, (attn::launch<T, DP>(window_kernel<T, DP>, grid, p, s)));
-}
-
-}  // namespace
-
 // qkv [B, N, 3C] contiguous, N a multiple of win, C = heads * D with
-// D <= 128 a multiple of 16 bytes; out [B, N, C].
+// D <= 256 a multiple of 16 bytes; out [B, N, C].
 extern "C" int nttt_window_attn(const void* qkv, void* out, int b, int n,
                                 int c, int heads, int win, float scale,
                                 int dtype, void* stream) {
-  if (b < 1 || n < 1 || heads < 1 || win < 1 || n % win || c % heads ||
-      c / heads > 128 || heads > 65535 || b > 65535)
+  if (n < 1 || heads < 1 || win < 1 || n % win || c % heads)
     return (int)cudaErrorInvalidValue;
   const int d = c / heads;
   const size_t es = dtype == NTTT_DTYPE_BF16 ? 2 : 4;
   const char* base = (const char*)qkv;
   const long long bs = (long long)n * 3 * c;
-  attn::Params p{base, base + es * c, base + es * 2 * c, out,
+  attn::Params p{base, base + es * c, base + es * 2 * c, out, nullptr,
                  bs, bs, bs, (long long)n * c,
+                 d, d, d, d,
                  3 * c, 3 * c, 3 * c, c,
-                 n, n, d, win, scale * 1.4426950408889634f};
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == NTTT_DTYPE_BF16) return run<__nv_bfloat16>(p, b, heads, s);
-  return run<float>(p, b, heads, s);
+                 n, n, d, win, scale * attn::kLog2e};
+  return attn::run<false>(p, b, heads, dtype, stream);
 }

@@ -263,7 +263,7 @@ def finalize_records(out, ori_h, ori_w):
     bboxes, scores, labels), or None when the native library is missing or
     the image is smaller than the logits (callers then use
     finalize_results)."""
-    from no_time_to_train_tpu.utils import native
+    from no_time_to_train_tpu_torch.utils import native
     if not native.has_finalize():
         return None
     lr = out["lr_logits"].shape[-1]
@@ -302,7 +302,7 @@ def finalize_results(out, ori_h, ori_w, exact_resize=False):
         up = np.einsum("oh,nhw->now", wh, logits)
         masks = np.einsum("ow,nhw->nho", ww, up) > 0
     else:
-        from no_time_to_train_tpu.utils import native
+        from no_time_to_train_tpu_torch.utils import native
         masks = (native.upsample_binarize(logits, ori_h, ori_w)
                  if native.available() else None)
         if masks is None:

@@ -1,18 +1,21 @@
-"""SAM2 mask decoder, best-of-multimask grid path (port of
+"""SAM2 mask decoder (port of
 `no_time_to_train_tpu/models/sam2/mask_decoder.py`; reference
 sam2/modeling/sam/mask_decoder.py).
 
-Only the path the grid decode runs is ported: `predict_best_of_multimask`
-and the upscale chain in the unshuffled product layout, which goes through
-kernel K4 (ops/upscale_product.fused_post_t1). The vendored reference keeps
-the object-score head dead and returns a constant score of 10, so the
-best-of path never reads it; its parameters are held for checkpoint
-compatibility.
+Two paths: the grid decode's `predict_best_of_multimask`, whose upscale
+chain runs in the unshuffled product layout through kernel K4
+(ops/upscale_product.fused_post_t1), and the classic `predict_masks` /
+`forward` of the SAM heads (video tracking, prompts with a mask), whose
+upscale chain is plain. The vendored reference keeps the object-score head
+dead and returns a constant score of 10; its parameters are held for
+checkpoint compatibility. The NTTT extras of the JAX decoder
+(`skip_last_n_keys`, the custom IoU token) are not ported.
 """
 import torch
 import torch.nn as nn
 
-from no_time_to_train_tpu_torch.models.sam2.common import LayerNorm2d, MLP
+from no_time_to_train_tpu_torch.models.sam2.common import (
+    LayerNorm2d, MLP, _gelu_act, conv_transpose_2x2_s2)
 from no_time_to_train_tpu_torch.models.sam2.transformer import TwoWayTransformer
 from no_time_to_train_tpu_torch.ops.upscale_product import (
     fold_skips, fused_post_t1)
@@ -28,9 +31,19 @@ class MaskDecoder(nn.Module):
                  use_high_res_features=True, iou_prediction_use_sigmoid=True,
                  pred_obj_scores=True, pred_obj_scores_mlp=True,
                  transformer_depth=2, transformer_mlp_dim=2048,
-                 transformer_num_heads=8):
+                 transformer_num_heads=8,
+                 dynamic_multimask_via_stability=False,
+                 dynamic_multimask_stability_delta=0.05,
+                 dynamic_multimask_stability_thresh=0.98,
+                 use_multimask_token_for_obj_ptr=False):
         super().__init__()
         d = transformer_dim
+        self.dynamic_multimask_via_stability = dynamic_multimask_via_stability
+        self.dynamic_multimask_stability_delta = \
+            dynamic_multimask_stability_delta
+        self.dynamic_multimask_stability_thresh = \
+            dynamic_multimask_stability_thresh
+        self.use_multimask_token_for_obj_ptr = use_multimask_token_for_obj_ptr
         self.transformer_dim = d
         self.num_mask_tokens = num_multimask_outputs + 1
         self.pred_obj_scores = pred_obj_scores
@@ -57,6 +70,105 @@ class MaskDecoder(nn.Module):
             self.pred_obj_score_head = (MLP(d, d, 1, 3) if pred_obj_scores_mlp
                                         else nn.Linear(d, 1))
 
+    def _tokens(self, sparse_prompt_embeddings):
+        """Output tokens (object score, IoU, masks) in front of the sparse
+        prompt embeddings; returns (tokens [B, N, C], index of the IoU
+        token)."""
+        toks = [self.iou_token.weight, self.mask_tokens.weight]
+        if self.pred_obj_scores:
+            toks = [self.obj_score_token.weight] + toks
+        bs = sparse_prompt_embeddings.shape[0]
+        output_tokens = torch.cat(toks, dim=0)
+        tokens = torch.cat([output_tokens[None].expand(bs, -1, -1),
+                            sparse_prompt_embeddings], dim=1)
+        return tokens, (1 if self.pred_obj_scores else 0)
+
+    def predict_masks(self, image_embeddings, image_pe,
+                      sparse_prompt_embeddings, dense_prompt_embeddings,
+                      high_res_features=None):
+        """image_embeddings, dense: [B or 1, h, w, C]; image_pe [h, w, C];
+        sparse [B, N, C]. Returns (masks [B, M, 4h, 4w], iou [B, M], mask
+        tokens [B, M, C], object score logits [B, 1], the constant 10)."""
+        tokens, s = self._tokens(sparse_prompt_embeddings)
+        bs = tokens.shape[0]
+        # a batch of 1 on the image side stays 1 until the keys diverge
+        src = image_embeddings + dense_prompt_embeddings
+        b, (h, w, c) = bs, src.shape[1:]
+        hs, src_out = self.transformer(src, image_pe[None], tokens)
+        iou_token_out = hs[:, s]
+        mask_tokens_out = hs[:, s + 1: s + 1 + self.num_mask_tokens]
+
+        dc1, ln, dc2 = (self.output_upscaling[0], self.output_upscaling[1],
+                        self.output_upscaling[3])
+        up = conv_transpose_2x2_s2(src_out.reshape(b, h, w, c), dc1.weight,
+                                   dc1.bias)
+        if self.use_high_res_features:
+            feat_s0, feat_s1 = high_res_features
+            up = _gelu_act(ln(up + feat_s1))
+            up = conv_transpose_2x2_s2(up, dc2.weight, dc2.bias)
+            up = _gelu_act(up + feat_s0)
+        else:
+            up = _gelu_act(ln(up))
+            up = _gelu_act(conv_transpose_2x2_s2(up, dc2.weight, dc2.bias))
+        hyper_in = torch.stack(
+            [self.output_hypernetworks_mlps[i](mask_tokens_out[:, i])
+             for i in range(self.num_mask_tokens)], dim=1)
+        masks = torch.einsum("bmc,bhwc->bmhw", hyper_in, up)
+        iou_pred = self.iou_prediction_head(iou_token_out)
+        object_score_logits = iou_pred.new_full((bs, 1), OBJECT_SCORE_LOGIT)
+        return masks, iou_pred, mask_tokens_out, object_score_logits
+
+    def _get_stability_scores(self, mask_logits):
+        flat = mask_logits.flatten(-2)
+        d = self.dynamic_multimask_stability_delta
+        area_i = (flat > d).sum(dim=-1).float()
+        area_u = (flat > -d).sum(dim=-1).float()
+        return torch.where(area_u > 0, area_i / area_u,
+                           torch.ones_like(area_u))
+
+    def _dynamic_multimask_via_stability(self, all_mask_logits,
+                                         all_iou_scores):
+        """The single-mask output where it is stable, else the best of the
+        multimask outputs."""
+        multimask_logits = all_mask_logits[:, 1:]
+        multimask_iou = all_iou_scores[:, 1:]
+        best = torch.argmax(multimask_iou, dim=-1)
+        bi = torch.arange(best.shape[0], device=best.device)
+        best_logits = multimask_logits[bi, best][:, None]
+        best_scores = multimask_iou[bi, best][:, None]
+        single_logits = all_mask_logits[:, 0:1]
+        single_iou = all_iou_scores[:, 0:1]
+        stable = (self._get_stability_scores(single_logits)
+                  >= self.dynamic_multimask_stability_thresh)
+        return (torch.where(stable[..., None, None], single_logits,
+                            best_logits),
+                torch.where(stable, single_iou, best_scores))
+
+    def forward(self, image_embeddings, image_pe, sparse_prompt_embeddings,
+                dense_prompt_embeddings, multimask_output,
+                high_res_features=None, output_all_masks=False):
+        """Returns (masks, iou predictions, SAM output tokens, object score
+        logits): all four mask channels with `output_all_masks`, channels
+        1..3 with `multimask_output`, else one mask."""
+        masks, iou_pred, mask_tokens_out, object_score_logits = (
+            self.predict_masks(image_embeddings, image_pe,
+                               sparse_prompt_embeddings,
+                               dense_prompt_embeddings, high_res_features))
+        if output_all_masks:
+            return masks, iou_pred, mask_tokens_out, object_score_logits
+        if multimask_output:
+            masks, iou_pred = masks[:, 1:], iou_pred[:, 1:]
+        elif self.dynamic_multimask_via_stability:
+            masks, iou_pred = self._dynamic_multimask_via_stability(
+                masks, iou_pred)
+        else:
+            masks, iou_pred = masks[:, 0:1], iou_pred[:, 0:1]
+        if multimask_output and self.use_multimask_token_for_obj_ptr:
+            sam_tokens_out = mask_tokens_out[:, 1:]
+        else:
+            sam_tokens_out = mask_tokens_out[:, 0:1]
+        return masks, iou_pred, sam_tokens_out, object_score_logits
+
     def predict_best_of_multimask(self, image_embeddings, image_pe,
                                   sparse_prompt_embeddings,
                                   dense_prompt_embeddings,
@@ -65,14 +177,8 @@ class MaskDecoder(nn.Module):
         [B, N, C]. Runs the transformer, picks the best of the multimask
         outputs (channels 1..3) by predicted IoU and computes only that
         mask. Returns (mask [B, 4h, 4w], iou [B])."""
-        s = 1 if self.pred_obj_scores else 0
-        toks = [self.iou_token.weight, self.mask_tokens.weight]
-        if self.pred_obj_scores:
-            toks = [self.obj_score_token.weight] + toks
-        bs = sparse_prompt_embeddings.shape[0]
-        output_tokens = torch.cat(toks, dim=0)
-        tokens = torch.cat([output_tokens[None].expand(bs, -1, -1),
-                            sparse_prompt_embeddings], dim=1)
+        tokens, s = self._tokens(sparse_prompt_embeddings)
+        bs = tokens.shape[0]
         # the image side keeps batch 1: the prompt-independent projections of
         # layer 0 are computed once until the keys diverge per prompt
         src = image_embeddings + dense_prompt_embeddings

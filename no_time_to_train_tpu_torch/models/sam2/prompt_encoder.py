@@ -1,14 +1,17 @@
-"""Prompt encoder, points path (port of
+"""Prompt encoder (port of
 `no_time_to_train_tpu/models/sam2/prompt_encoder.py`; reference
 sam2/modeling/sam/prompt_encoder.py), NHWC.
 
-The mask-prompt convolutions are held for checkpoint compatibility; the
-slice prompts with points only.
+Points carry labels 1 / 0 (positive / negative click), 2 / 3 (the two
+corners of a box) and -1 (the padding point); a mask prompt goes through
+the `mask_downscaling` convolutions.
 """
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
-from no_time_to_train_tpu_torch.models.sam2.common import LayerNorm2d
+from no_time_to_train_tpu_torch.models.sam2.common import (
+    LayerNorm2d, _gelu_act, conv1x1)
 from no_time_to_train_tpu_torch.models.sam2.pos_enc import (
     random_pe_coords, random_pe_grid)
 
@@ -77,3 +80,29 @@ class PromptEncoder(nn.Module):
         pe = pe + onehot @ point_w
         pe = pe + not_a_point * self.not_a_point_embed.weight[0].to(pe.dtype)
         return pe.to(dt)
+
+    def embed_masks(self, masks):
+        """masks [B, 4h, 4w, 1] -> dense embeddings [B, h, w, C]."""
+        seq = self.mask_downscaling
+        x = masks.to(seq[0].weight.dtype).permute(0, 3, 1, 2)
+        for conv, norm in ((seq[0], seq[1]), (seq[3], seq[4])):
+            x = F.conv2d(x, conv.weight, conv.bias, stride=conv.stride)
+            x = _gelu_act(norm(x.permute(0, 2, 3, 1))).permute(0, 3, 1, 2)
+        return conv1x1(seq[6], x.permute(0, 2, 3, 1))
+
+    def forward(self, points=None, masks=None):
+        """points: (coords [B, P, 2], labels [B, P]); masks [B, 4h, 4w, 1].
+        Returns (sparse [B, N, C], dense [B, h, w, C])."""
+        if points is not None:
+            bs = points[0].shape[0]
+            sparse = self.embed_points(*points)
+        else:
+            bs = masks.shape[0] if masks is not None else 1
+            w = self.no_mask_embed.weight
+            sparse = w.new_zeros((bs, 0, self.embed_dim))
+        if masks is not None:
+            dense = self.embed_masks(masks)
+        else:
+            h, w = self.image_embedding_size
+            dense = self.no_mask_dense().expand(bs, h, w, self.embed_dim)
+        return sparse, dense

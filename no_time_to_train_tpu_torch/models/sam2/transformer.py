@@ -6,17 +6,26 @@ The image-side cross-attentions route to the fused kernels
 (ops/decoder_attention.py) when `i2t_fusible` holds: the token -> image
 attention to K2, the image <- token attention with its residual and norm4
 to K3. Otherwise they run the classic unfused formulation.
+
+`RoPEAttention` is the attention of the video memory path (self-attention
+and memory cross-attention); under `attention_impl="pallas"` its long
+sequences take `flash_sdpa` and `flash_sdpa_masked` through `sdpa`.
 """
+import math
+
 import torch
 import torch.nn as nn
 
 from no_time_to_train_tpu_torch.models.sam2.common import MLP, LayerNorm
+from no_time_to_train_tpu_torch.models.sam2.pos_enc import (
+    apply_rotary, axial_rope_cos_sin)
 from no_time_to_train_tpu_torch.ops.attention import sdpa
 from no_time_to_train_tpu_torch.ops.decoder_attention import (
     fused_i2t_norm, fused_t2i_attn)
 from no_time_to_train_tpu_torch.ops.upscale_product import fusion_disabled
 
-__all__ = ["Attention", "TwoWayAttentionBlock", "TwoWayTransformer"]
+__all__ = ["Attention", "RoPEAttention", "TwoWayAttentionBlock",
+           "TwoWayTransformer"]
 
 
 def _skip_mask(n_q, n_k, skip_last_n_keys, is_cross_skip, device):
@@ -31,13 +40,15 @@ def _skip_mask(n_q, n_k, skip_last_n_keys, is_cross_skip, device):
 
 
 class Attention(nn.Module):
-    def __init__(self, embedding_dim, num_heads, downsample_rate=1):
+    def __init__(self, embedding_dim, num_heads, downsample_rate=1,
+                 kv_in_dim=None):
         super().__init__()
         self.internal_dim = embedding_dim // downsample_rate
         self.num_heads = num_heads
+        kv_in_dim = embedding_dim if kv_in_dim is None else kv_in_dim
         self.q_proj = nn.Linear(embedding_dim, self.internal_dim)
-        self.k_proj = nn.Linear(embedding_dim, self.internal_dim)
-        self.v_proj = nn.Linear(embedding_dim, self.internal_dim)
+        self.k_proj = nn.Linear(kv_in_dim, self.internal_dim)
+        self.v_proj = nn.Linear(kv_in_dim, self.internal_dim)
         self.out_proj = nn.Linear(self.internal_dim, embedding_dim)
 
     def _split(self, x):
@@ -83,6 +94,50 @@ class Attention(nn.Module):
                            self.k_proj.bias, self.v_proj.weight.t(),
                            self.v_proj.bias, num_heads=self.num_heads)
         return self.out_proj(o)
+
+
+class RoPEAttention(Attention):
+    """Attention with 2D axial RoPE on q and k (reference RoPEAttention).
+    The last `num_k_exclude_rope` keys (object-pointer tokens) are not
+    rotated; with `rope_k_repeat` the tables repeat along keys that hold
+    several frames of the query grid. `key_valid` [B, Nk] bool masks the
+    padded slots of a fixed-shape memory bank."""
+
+    def __init__(self, embedding_dim, num_heads, downsample_rate=1,
+                 kv_in_dim=None, rope_theta=10000.0, rope_k_repeat=False,
+                 feat_sizes=(32, 32)):
+        super().__init__(embedding_dim, num_heads, downsample_rate, kv_in_dim)
+        self.rope_theta = rope_theta
+        self.rope_k_repeat = rope_k_repeat
+        self.feat_sizes = tuple(feat_sizes)
+        self.attention_impl = "pallas"
+
+    def forward(self, q, k, v, num_k_exclude_rope=0, key_valid=None):
+        qh = self._split(self.q_proj(q))
+        kh = self._split(self.k_proj(k))
+        vh = self._split(self.v_proj(v))
+        n_q = qh.shape[-2]
+        side = math.isqrt(n_q)
+        if side * side != n_q:
+            raise ValueError("RoPE attention expects square token grids")
+        cos, sin = axial_rope_cos_sin(qh.shape[-1], side, side,
+                                      self.rope_theta, device=q.device)
+        num_k_rope = kh.shape[-2] - num_k_exclude_rope
+        repeat = 1
+        if n_q != num_k_rope:
+            if not self.rope_k_repeat:
+                raise ValueError("key count differs from the query grid "
+                                 "without rope_k_repeat")
+            repeat = num_k_rope // n_q
+        qh = apply_rotary(qh, cos, sin)
+        k_rot = apply_rotary(kh[:, :, :num_k_rope], cos, sin,
+                             repeat_freqs=repeat)
+        kh = (torch.cat([k_rot, kh[:, :, num_k_rope:]], dim=2)
+              if num_k_exclude_rope > 0 else k_rot)
+        mask = None if key_valid is None else key_valid[:, None, None, :]
+        out = sdpa(qh, kh, vh, mask=mask, impl=self.attention_impl)
+        b, h, n, d = out.shape
+        return self.out_proj(out.transpose(1, 2).reshape(b, n, h * d))
 
 
 class TwoWayAttentionBlock(nn.Module):

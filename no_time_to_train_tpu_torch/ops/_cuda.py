@@ -38,6 +38,10 @@ _SIGNATURES = {
     "nttt_onepass_attn": [_VP, _VP, _VP, _VP, _LL, _LL, _LL, _I, _I, _I,
                           _I, _I, _I, _I, _I, _F, _I, _VP],
     "nttt_window_attn": [_VP, _VP, _I, _I, _I, _I, _I, _F, _I, _VP],
+    "nttt_flash_bh": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _F, _I,
+                      _VP],
+    "nttt_flash_masked": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
+                          _F, _I, _VP],
 }
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC"]

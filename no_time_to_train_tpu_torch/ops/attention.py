@@ -6,15 +6,16 @@ logits in the operands' dtype scaled by 1/sqrt(D) computed in that dtype,
 softmax in float32, probabilities cast back before the value product. They
 use matmul and softmax, not `F.scaled_dot_product_attention`.
 
-Under `attention_impl="pallas"` the encoders' long attentions take the
-flash kernels of `ops/flash_attention.py` where the JAX package's gates
-open (its CPU / TPU device checks aside): `sdpa_bnhd` for both sequences of
-at least 512 tokens and a key range that fits the single-pass kernel,
-`window_sdpa_qkv` for Hiera's windowed blocks. Inside `no_fusion()` every
-route is the plain formula. A shape that the JAX package would send to its
-other flash kernels (`_onepass_bh`, `_flash_bh`: not 4-D, or keys past the
-single-pass range) raises here; keys past the resident range of 12288 take
-the plain formula there and here.
+Under `attention_impl="pallas"` long attentions take the flash kernels of
+`ops/flash_attention.py` where the JAX package's gates open (its CPU / TPU
+device checks aside), both sequences being at least 512 tokens:
+`sdpa_bnhd` takes `flash_sdpa_bnhd` for 4-D operands whose key range fits
+the TPU's single-pass kernel, and otherwise transposes into `sdpa`; `sdpa`
+takes `flash_sdpa` for unmasked keys up to the TPU's resident range of
+12288, and `flash_sdpa_masked` for 4-D operands under a bool key-column
+mask [B, 1, 1, Nk] over more than 4608 keys (the SAM2 memory
+cross-attention); `window_sdpa_qkv` serves Hiera's windowed blocks. Every
+other shape, and every route inside `no_fusion()`, is the plain formula.
 
 The impl is carried per model: each attention module holds an
 `attention_impl` attribute, which `set_attention_impl` sets on a model.
@@ -24,7 +25,8 @@ from functools import lru_cache
 import torch
 
 from no_time_to_train_tpu_torch.ops.flash_attention import (
-    ONEPASS_MAX_NK, flash_sdpa_bnhd, flash_sdpa_window_qkv)
+    ONEPASS_MAX_NK, flash_sdpa, flash_sdpa_bnhd, flash_sdpa_masked,
+    flash_sdpa_window_qkv)
 from no_time_to_train_tpu_torch.ops.upscale_product import fusion_disabled
 
 __all__ = ["sdpa", "sdpa_bnhd", "window_sdpa_qkv", "check_attention_impl",
@@ -57,11 +59,26 @@ def _scale(d, dtype):
     return float(1.0 / torch.sqrt(torch.tensor(d, dtype=dtype)))
 
 
-def sdpa(q, k, v, mask=None):
+def _padded(n):
+    return (n + 127) // 128 * 128
+
+
+def sdpa(q, k, v, mask=None, impl="xla"):
     """Attention over [..., heads, N, D]; `mask` broadcasts to
-    [..., heads, Nq, Nk] with True = attend. The decoder's entry: its
-    sequences never reach the JAX package's flash gates (one side is at most
-    16 tokens), so it has no `impl`."""
+    [..., heads, Nq, Nk] with True = attend. The mask decoder calls it
+    without an `impl`: one of its sides is at most 16 tokens, which never
+    reaches the gates."""
+    check_attention_impl(impl)
+    if (impl == "pallas" and not fusion_disabled()
+            and q.shape[-2] >= _PALLAS_MIN_Q and k.shape[-2] >= _PALLAS_MIN_Q):
+        n_k = k.shape[-2]
+        if mask is None:
+            if _padded(n_k) <= _RESIDENT_MAX_NK:
+                return flash_sdpa(q, k, v)
+        elif (q.dim() == 4 and mask.dim() == 4 and n_k > ONEPASS_MAX_NK
+                and mask.shape == (q.shape[0], 1, 1, n_k)
+                and mask.dtype == torch.bool):
+            return flash_sdpa_masked(q, k, v, mask[:, 0, 0, :])
     logits = (q @ k.transpose(-1, -2)) * _scale(q.shape[-1], q.dtype)
     if mask is not None:
         logits = logits.masked_fill(~mask, torch.finfo(logits.dtype).min)
@@ -72,18 +89,12 @@ def sdpa(q, k, v, mask=None):
 def sdpa_bnhd(q, k, v, impl):
     """Attention with [..., N, heads, D] operands and result."""
     check_attention_impl(impl)
-    if (impl == "pallas" and not fusion_disabled()
-            and q.shape[-3] >= _PALLAS_MIN_Q and k.shape[-3] >= _PALLAS_MIN_Q):
-        n_k_padded = (k.shape[-3] + 127) // 128 * 128
-        if q.dim() == 4 and n_k_padded <= ONEPASS_MAX_NK:
-            return flash_sdpa_bnhd(q, k, v)
-        if n_k_padded <= _RESIDENT_MAX_NK:
-            raise NotImplementedError(
-                f"attention_impl='pallas' on q {tuple(q.shape)}, k "
-                f"{tuple(k.shape)}: the JAX package runs this on its flash "
-                "kernels `_onepass_bh` / `_flash_bh`, which are not ported "
-                "yet (ROADMAP B.8); use attention_impl='xla'")
-    out = sdpa(q.transpose(-3, -2), k.transpose(-3, -2), v.transpose(-3, -2))
+    if (impl == "pallas" and not fusion_disabled() and q.dim() == 4
+            and q.shape[-3] >= _PALLAS_MIN_Q and k.shape[-3] >= _PALLAS_MIN_Q
+            and _padded(k.shape[-3]) <= ONEPASS_MAX_NK):
+        return flash_sdpa_bnhd(q, k, v)
+    out = sdpa(q.transpose(-3, -2), k.transpose(-3, -2), v.transpose(-3, -2),
+               impl=impl)
     return out.transpose(-3, -2)
 
 

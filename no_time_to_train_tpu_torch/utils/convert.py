@@ -1,12 +1,11 @@
 """JAX package parameter trees -> the port's state_dicts.
 
-The inverse of `no_time_to_train_tpu/utils/torch_convert.py`
-(`convert_image_encoder`, `convert_prompt_encoder`, `convert_mask_decoder`),
+The inverse of `no_time_to_train_tpu/utils/torch_convert.py` (`convert_sam2` and its
+parts),
 `no_time_to_train_tpu/models/dino.convert_hf_dinov2` and
 `no_time_to_train_tpu/models/dino_v3.convert_hf_dinov3`: given the numpy
 leaves of `NoAMGMatcher.sam2_params` / `.dino_params`, build reference-named
-state_dicts so that the port computes what the JAX package computes. The
-SAM2 video-memory subtrees are skipped; the port does not hold them.
+state_dicts so that the port computes what the JAX package computes.
 
 Layout rules (inverse of the JAX converters): Dense kernel [in, out] ->
 Linear weight [out, in]; Conv HWIO -> OIHW; spatial embeddings HWC -> NCHW.
@@ -131,13 +130,59 @@ def _mask_decoder(sd, t):
             _conv(sd, f"{p}.{k}", t[k])
 
 
+def _memory_encoder(sd, t):
+    p = "memory_encoder"
+    for name, sub in t["mask_downsampler"].items():     # encoder_{i}
+        q = f"{p}.mask_downsampler.encoder.{name.split('_')[1]}"
+        (_conv if "kernel" in sub else _ln)(sd, q, sub)
+    _conv(sd, f"{p}.pix_feat_proj", t["pix_feat_proj"])
+    for name, blk in t["fuser"].items():                # layers_{i}
+        q = f"{p}.fuser.layers.{name.split('_')[1]}"
+        _conv(sd, f"{q}.dwconv", blk["dwconv"])
+        _ln(sd, f"{q}.norm", blk["norm"])
+        _lin(sd, f"{q}.pwconv1", blk["pwconv1"])
+        _lin(sd, f"{q}.pwconv2", blk["pwconv2"])
+        sd[f"{q}.gamma"] = _a(blk["gamma"])
+    if "out_proj" in t:
+        _conv(sd, f"{p}.out_proj", t["out_proj"])
+
+
+def _memory_attention(sd, t):
+    p = "memory_attention"
+    for name, lt in t.items():
+        if not name.startswith("layers_"):
+            continue
+        q = f"{p}.layers.{name.split('_')[1]}"
+        _attn(sd, f"{q}.self_attn", lt["self_attn"])
+        _attn(sd, f"{q}.cross_attn_image", lt["cross_attn_image"])
+        _lin(sd, f"{q}.linear1", lt["linear1"])
+        _lin(sd, f"{q}.linear2", lt["linear2"])
+        for nrm in ("norm1", "norm2", "norm3"):
+            _ln(sd, f"{q}.{nrm}", lt[nrm])
+    _ln(sd, f"{p}.norm", t["norm"])
+
+
 def sam2_state_dict(params):
-    """SAM2 flax params -> state_dict of the port's `SAM2` (image encoder,
-    prompt encoder, mask decoder)."""
+    """SAM2 flax params -> state_dict of the port's `SAM2`: image encoder,
+    prompt encoder, mask decoder, memory encoder, memory attention and the
+    video-memory parameters, under the reference's names and shapes."""
     sd = {}
     _image_encoder(sd, params["image_encoder"])
     _prompt_encoder(sd, params["sam_prompt_encoder"])
     _mask_decoder(sd, params["sam_mask_decoder"])
+    _memory_encoder(sd, params["memory_encoder"])
+    _memory_attention(sd, params["memory_attention"])
+    sd["maskmem_tpos_enc"] = _a(
+        np.asarray(params["maskmem_tpos_enc"])[:, None, None, :])
+    sd["no_mem_embed"] = _a(np.asarray(params["no_mem_embed"])[None, None])
+    sd["no_mem_pos_enc"] = _a(np.asarray(params["no_mem_pos_enc"])[None, None])
+    if "no_obj_ptr" in params:
+        sd["no_obj_ptr"] = _a(np.asarray(params["no_obj_ptr"])[None])
+    if "obj_ptr_proj" in params:
+        head = params["obj_ptr_proj"]
+        (_lin if "kernel" in head else _mlp)(sd, "obj_ptr_proj", head)
+    if "mask_downsample" in params:
+        _conv(sd, "mask_downsample", params["mask_downsample"])
     return sd
 
 

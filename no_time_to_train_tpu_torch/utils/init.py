@@ -12,7 +12,7 @@ __all__ = ["init_random_"]
 @torch.no_grad()
 def init_random_(model, generator):
     """Fill every parameter from `generator` (on the parameters' device):
-    LayerNorm scales and layer-scale gammas 1, biases 0, embeddings and the
+    LayerNorm scales and layer scales (`lambda1`, `gamma`) 1, biases 0, embeddings and the
     random-Fourier matrix standard normal (their reference init), other
     weights normal / sqrt(fan_in), fan_in being the product of all but the
     leading axis."""
@@ -25,7 +25,7 @@ def init_random_(model, generator):
     for name, p in model.named_parameters():
         rule = special.get(id(p))
         leaf = name.rsplit(".", 1)[-1]
-        if rule == "one" or leaf == "lambda1":
+        if rule == "one" or leaf in ("lambda1", "gamma"):
             p.fill_(1.0)
         elif leaf == "bias":
             p.zero_()

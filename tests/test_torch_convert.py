@@ -10,8 +10,7 @@ import torch
 
 from no_time_to_train_tpu.config import presets as jpresets
 from no_time_to_train_tpu.models.dino import convert_hf_dinov2
-from no_time_to_train_tpu.utils.torch_convert import (
-    convert_image_encoder, convert_mask_decoder, convert_prompt_encoder)
+from no_time_to_train_tpu.utils.torch_convert import convert_sam2
 from no_time_to_train_tpu_torch.config import presets as tpresets
 from no_time_to_train_tpu_torch.models.dino import DinoV2
 from no_time_to_train_tpu_torch.models.sam2.model import SAM2
@@ -50,11 +49,7 @@ def _jax_sam2_params():
     tm = SAM2(CFG)
     init_random_(tm, torch.Generator().manual_seed(0))
     sd = _port_sd(tm)
-    return {
-        "image_encoder": convert_image_encoder(sd, "image_encoder."),
-        "sam_prompt_encoder": convert_prompt_encoder(sd, "sam_prompt_encoder."),
-        "sam_mask_decoder": convert_mask_decoder(sd, "sam_mask_decoder."),
-    }, sd
+    return convert_sam2(sd, CFG), sd
 
 
 def test_sam2_round_trip_is_identity():
@@ -65,13 +60,11 @@ def test_sam2_round_trip_is_identity():
         np.testing.assert_array_equal(back[k], sd[k], err_msg=k)
     tm = SAM2(CFG)
     tm.load_state_dict({k: torch.as_tensor(v) for k, v in back.items()})
-    sd2 = _port_sd(tm)
-    again = {
-        "image_encoder": convert_image_encoder(sd2, "image_encoder."),
-        "sam_prompt_encoder": convert_prompt_encoder(sd2, "sam_prompt_encoder."),
-        "sam_mask_decoder": convert_mask_decoder(sd2, "sam_mask_decoder."),
-    }
-    _assert_tree_equal(again, params)
+    _assert_tree_equal(convert_sam2(_port_sd(tm), CFG), params)
+    for k in ("memory_encoder", "memory_attention", "maskmem_tpos_enc",
+              "no_mem_embed", "no_mem_pos_enc", "no_obj_ptr", "obj_ptr_proj",
+              "mask_downsample"):
+        assert k in params, k
 
 
 def test_dino_round_trip_is_identity():
@@ -109,7 +102,8 @@ def test_attention_impl_pallas_refused_on_cuda_only():
     a, b = SAM2(CFG), DinoV2(ENC)
     set_attention_impl(a, "xla")
     attn = [m for m in a.modules() if hasattr(m, "attention_impl")]
-    assert len(attn) == sum(CFG.stages)
+    # one per Hiera block, two (self, memory cross) per memory-attention layer
+    assert len(attn) == sum(CFG.stages) + 2 * CFG.mem_attn_layers
     assert all(m.attention_impl == "xla" for m in attn)
     assert all(m.attention_impl == "pallas" for m in b.modules()
                if hasattr(m, "attention_impl"))

@@ -1,6 +1,7 @@
-"""The port's encoder flash attention (ops/flash_attention.py) against the
-JAX package's Pallas kernels in interpret mode, and its routing
-(ops/attention.py) against the JAX package's gates, on the CPU."""
+"""The port's flash attention (ops/flash_attention.py) against the JAX
+package's Pallas kernels in interpret mode (or, for `_flash_kernel`, its
+plain reference), and its routing (ops/attention.py) against the JAX
+package's gates, on the CPU."""
 import numpy as np
 import pytest
 import jax
@@ -74,6 +75,98 @@ def test_window_plain_matches_pallas_interpret(dtype, heads, d, win, nw):
     np.testing.assert_allclose(got.float().numpy(), ref, **tol)
 
 
+F32_MASKED = dict(atol=5e-5, rtol=1e-4)   # tests/test_flash_attention.py:453
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d,n_q,n_k", [(256, 256, 300), (72, 200, 384)])
+def test_flash_bh_plain_matches_onepass_bh_interpret(dtype, d, n_q, n_k):
+    """`flash_bh_plain` against the JAX `_onepass_bh` kernel in interpret
+    mode, padded as `flash_sdpa` pads: D = 256 (memory attention) and 72;
+    300 keys pad to 384 and are masked."""
+    rng = np.random.default_rng(d + n_k)
+    b, h = 2, 2
+    q, k, v = (rng.standard_normal((b, h, n, d)).astype(np.float32) * s
+               for n, s in ((n_q, 0.3), (n_k, 0.3), (n_k, 1.0)))
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    n_kp = (n_k + 127) // 128 * 128
+    bq = jfa._onepass_block_q(n_q, n_kp)
+    pad = lambda x, n: jnp.pad(jnp.asarray(x, jd).reshape(b * h, -1, d),
+                               [(0, 0), (0, n), (0, 0)])
+    ref = jfa._onepass_bh(pad(q, (-n_q) % bq), pad(k, n_kp - n_k),
+                          pad(v, n_kp - n_k), bq, n_k, interpret=True)
+    ref = _np(ref[:, :n_q]).reshape(b, h, n_q, d)
+    got = fa.flash_bh_plain(*(torch.as_tensor(x).to(td) for x in (q, k, v)))
+    assert got.dtype == td and tuple(got.shape) == (b, h, n_q, d)
+    tol = F32_ONEPASS if dtype == "float32" else BF16_BAND
+    np.testing.assert_allclose(got.float().numpy(), ref, **tol)
+
+
+def test_flash_bh_plain_matches_the_online_kernels_reference():
+    """The JAX `_flash_kernel` (keys past 4608) does not run off the TPU;
+    its plain reference `_xla_sdpa` stands for it, at 4700 keys and D = 72,
+    on 3-D operands."""
+    rng = np.random.default_rng(12)
+    q = rng.standard_normal((2, 130, 72)).astype(np.float32) * 0.5
+    k = rng.standard_normal((2, 4700, 72)).astype(np.float32) * 0.5
+    v = rng.standard_normal((2, 4700, 72)).astype(np.float32)
+    ref = _np(jatt._xla_sdpa(*(jnp.asarray(x) for x in (q, k, v))))
+    got = fa.flash_bh_plain(*(torch.as_tensor(x) for x in (q, k, v)))
+    np.testing.assert_allclose(got.numpy(), ref, **F32_ONEPASS)
+
+
+def _masked_case(rng, b, h, n_q, n_k, d):
+    q, k, v = (rng.standard_normal((b, h, n, d)).astype(np.float32) * 0.3
+               for n in (n_q, n_k, n_k))
+    valid = rng.random((b, n_k)) < 0.5
+    valid[0, :128] = False           # a whole first key block masked ...
+    valid[0, 128] = True             # ... and the first valid key after it
+    return q, k, v, valid
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_masked_plain_matches_pallas_interpret(dtype):
+    """`flash_masked_plain` against the JAX `flash_sdpa_masked` in interpret
+    mode: a fully masked prefix of key blocks heals at the first valid key,
+    ragged queries and keys are padded and masked there."""
+    rng = np.random.default_rng(21)
+    q, k, v, valid = _masked_case(rng, 2, 2, 50, 300, 32)
+    valid[1, :] = np.arange(300) < 200
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    ref = _np(jfa.flash_sdpa_masked(
+        *(jnp.asarray(x, jd) for x in (q, k, v)), jnp.asarray(valid),
+        block_q=16, block_k=128, interpret=True))
+    got = fa.flash_masked_plain(*(torch.as_tensor(x).to(td) for x in (q, k, v)),
+                                torch.as_tensor(valid))
+    assert got.dtype == td
+    tol = F32_MASKED if dtype == "float32" else BF16_BAND
+    np.testing.assert_allclose(got.float().numpy(), ref, **tol)
+
+
+def test_flash_masked_plain_all_masked_row_is_the_mean_of_v():
+    """A batch element with every key masked returns the mean of v over its
+    300 real keys, as the JAX package's plain masked softmax does. The
+    Pallas kernel agrees where the keys fill its blocks (256 keys in blocks
+    of 128) and would also count its padding otherwise; the port follows
+    the plain path."""
+    rng = np.random.default_rng(22)
+    for n_k in (300, 256):
+        q, k, v, valid = _masked_case(rng, 2, 1, 40, n_k, 16)
+        valid[1, :] = False
+        t = [torch.as_tensor(x) for x in (q, k, v)]
+        got = fa.flash_masked_plain(*t, torch.as_tensor(valid)).numpy()
+        want = _np(jatt._xla_sdpa(*(jnp.asarray(x) for x in (q, k, v)),
+                                  mask=jnp.asarray(valid)[:, None, None, :]))
+        np.testing.assert_allclose(got, want, **F32_MASKED)
+        np.testing.assert_allclose(
+            got[1], np.broadcast_to(v[1].mean(axis=-2, keepdims=True),
+                                    got[1].shape), rtol=1e-5, atol=1e-6)
+    ref = _np(jfa.flash_sdpa_masked(
+        *(jnp.asarray(x) for x in (q, k, v)), jnp.asarray(valid),
+        block_q=8, block_k=128, interpret=True))
+    np.testing.assert_allclose(got, ref, **F32_MASKED)
+
+
 def test_wrappers_take_the_plain_versions_on_cpu():
     """A CPU tensor runs the plain version and counts no launch; a window
     count that does not divide the tokens is refused."""
@@ -85,9 +178,19 @@ def test_wrappers_take_the_plain_versions_on_cpu():
     qkv = torch.as_tensor(rng.standard_normal((2, 32, 48)), dtype=torch.float32)
     torch.testing.assert_close(fa.flash_sdpa_window_qkv(qkv, 2, 16),
                                fa.window_qkv_plain(qkv, 2, 16), rtol=0, atol=0)
+    k = torch.as_tensor(rng.standard_normal((1, 2, 50, 8)), dtype=torch.float32)
+    qh = q.transpose(1, 2)
+    torch.testing.assert_close(fa.flash_sdpa(qh, k, k),
+                               fa.flash_bh_plain(qh, k, k), rtol=0, atol=0)
+    valid = torch.as_tensor(rng.random((1, 50)) < 0.5)
+    torch.testing.assert_close(fa.flash_sdpa_masked(qh, k, k, valid),
+                               fa.flash_masked_plain(qh, k, k, valid),
+                               rtol=0, atol=0)
     assert fa.LAUNCHES == before
     with pytest.raises(ValueError):
         fa.flash_sdpa_window_qkv(qkv, 2, 24)
+    with pytest.raises(ValueError):
+        fa.flash_sdpa_masked(qh, k, k, valid.float())
 
 
 class _Calls:
@@ -104,9 +207,13 @@ class _Calls:
 @pytest.fixture
 def port_calls(monkeypatch):
     calls = {"bnhd": _Calls(fa.onepass_bnhd_plain),
-             "window": _Calls(fa.window_qkv_plain)}
+             "window": _Calls(fa.window_qkv_plain),
+             "bh": _Calls(fa.flash_bh_plain),
+             "masked": _Calls(fa.flash_masked_plain)}
     monkeypatch.setattr(fa, "onepass_bnhd_plain", calls["bnhd"])
     monkeypatch.setattr(fa, "window_qkv_plain", calls["window"])
+    monkeypatch.setattr(fa, "flash_bh_plain", calls["bh"])
+    monkeypatch.setattr(fa, "flash_masked_plain", calls["masked"])
     return calls
 
 
@@ -129,6 +236,11 @@ def jax_routes(monkeypatch):
         taken.append("window")
         return qkv[..., :qkv.shape[-1] // 3]
     monkeypatch.setattr(jfa, "flash_sdpa_window_qkv", window)
+
+    def masked(q, k, v, key_valid):
+        taken.append("masked")
+        return jnp.zeros(q.shape, q.dtype)
+    monkeypatch.setattr(jfa, "flash_sdpa_masked", masked)
     monkeypatch.setattr(jatt, "_default_device_is_cpu", lambda: False)
     monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
     return taken
@@ -144,9 +256,11 @@ BNHD_SHAPES = [(511, 600, True), (600, 511, True), (512, 512, True),
 @pytest.mark.parametrize("n_q,n_k,four_d", BNHD_SHAPES)
 def test_sdpa_bnhd_routes_as_jax(n_q, n_k, four_d, port_calls, jax_routes):
     """Under "pallas" the port takes kernel 9 exactly where the JAX package
-    takes `_onepass_bnhd`, raises where it takes `_onepass_bh` / `_flash_bh`
-    (not ported, ROADMAP B.8), and runs the plain formula where it runs XLA.
-    Under "xla" and inside no_fusion() neither side takes a kernel."""
+    takes `_onepass_bnhd`, transposes into `flash_sdpa` where it takes
+    `_onepass_bh` / `_flash_bh` (3-D operands, or keys past the single-pass
+    range: these shapes raised NotImplementedError before the kernel was
+    ported and are accepted now), and runs the plain formula where it runs
+    XLA. Under "xla" and inside no_fusion() neither side takes a kernel."""
     rng = np.random.default_rng(n_k)
     lead = (1,) if four_d else ()
     q = rng.standard_normal(lead + (n_q, 1, 8)).astype(np.float32)
@@ -154,20 +268,77 @@ def test_sdpa_bnhd_routes_as_jax(n_q, n_k, four_d, port_calls, jax_routes):
     jatt.sdpa_bnhd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(k),
                    impl="pallas")
     tq, tk = torch.as_tensor(q), torch.as_tensor(k)
-    if jax_routes and jax_routes[0] != "_onepass_bnhd":
-        with pytest.raises(NotImplementedError, match="B.8"):
-            att.sdpa_bnhd(tq, tk, tk, "pallas")
-    else:
-        out = att.sdpa_bnhd(tq, tk, tk, "pallas")
-        assert tuple(out.shape) == q.shape
-    want = [q.shape] if jax_routes == ["_onepass_bnhd"] else []
-    assert port_calls["bnhd"].shapes == want
+    out = att.sdpa_bnhd(tq, tk, tk, "pallas")
+    assert tuple(out.shape) == q.shape
+    ref = att.sdpa_bnhd(tq, tk, tk, "xla")
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=5e-5)
+    want = {"bnhd": [q.shape] if jax_routes == ["_onepass_bnhd"] else [],
+            "bh": ([lead + (1, n_q, 8)]
+                   if jax_routes in (["_onepass_bh"], ["_flash_bh"]) else []),
+            "window": [], "masked": []}
+    assert {k_: c.shapes for k_, c in port_calls.items()} == want
     jax_routes.clear()
     jatt.sdpa_bnhd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(k), impl="xla")
-    att.sdpa_bnhd(tq, tk, tk, "xla")
     with no_fusion():
         att.sdpa_bnhd(tq, tk, tk, "pallas")
-    assert jax_routes == [] and port_calls["bnhd"].shapes == want
+    assert jax_routes == []
+    assert {k_: c.shapes for k_, c in port_calls.items()} == want
+
+
+# (n_q, n_k, q dims, mask: None, "col" [B, 1, 1, Nk] bool, "full"
+# [B, 1, Nq, Nk] bool, "float" [B, 1, 1, Nk] float32)
+SDPA_CASES = [(511, 600, 4, None), (600, 511, 4, None), (512, 512, 4, None),
+              (512, 4700, 4, None), (512, 12288, 3, None),
+              (512, 12289, 4, None), (512, 4609, 4, "col"),
+              (512, 4608, 4, "col"), (511, 4700, 4, "col"),
+              (512, 4700, 4, "full"), (512, 4700, 5, "col")]
+
+
+@pytest.mark.parametrize("n_q,n_k,dims,mask_kind", SDPA_CASES)
+def test_sdpa_routes_as_jax(n_q, n_k, dims, mask_kind, port_calls,
+                            jax_routes):
+    """`sdpa` under "pallas": unmasked sequences of at least 512 tokens take
+    `flash_sdpa` up to 12288 padded keys; a bool key-column mask
+    [B, 1, 1, Nk] on 4-D operands over more than 4608 keys takes
+    `flash_sdpa_masked`; every other shape is the plain formula, as in the
+    JAX package. The decoder's call without an impl never takes a kernel."""
+    rng = np.random.default_rng(n_q + n_k)
+    lead = {3: (), 4: (2,), 5: (2, 1)}[dims]
+    q = rng.standard_normal(lead + (1, n_q, 8)).astype(np.float32)
+    k = rng.standard_normal(lead + (1, n_k, 8)).astype(np.float32)
+    mask = None
+    if mask_kind == "col":
+        mask = rng.random((2,) + (1,) * (dims - 2) + (n_k,)) < 0.6
+    elif mask_kind == "full":
+        mask = rng.random((2, 1, n_q, n_k)) < 0.6
+    jm = None if mask is None else jnp.asarray(mask)
+    jatt.sdpa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(k), mask=jm,
+              impl="pallas")
+    tq, tk = torch.as_tensor(q), torch.as_tensor(k)
+    tm = None if mask is None else torch.as_tensor(mask)
+    out = att.sdpa(tq, tk, tk, mask=tm, impl="pallas")
+    torch.testing.assert_close(out, att.sdpa(tq, tk, tk, mask=tm),
+                               rtol=1e-4, atol=5e-5)
+    route = {(): None, ("_onepass_bh",): "bh", ("_flash_bh",): "bh",
+             ("masked",): "masked"}[tuple(jax_routes)]
+    want = {name: ([q.shape] if name == route else [])
+            for name in port_calls}
+    assert {k_: c.shapes for k_, c in port_calls.items()} == want
+    with no_fusion():
+        att.sdpa(tq, tk, tk, mask=tm, impl="pallas")
+    att.sdpa(tq, tk, tk, mask=tm, impl="xla")
+    assert {k_: c.shapes for k_, c in port_calls.items()} == want
+
+
+def test_sdpa_masked_gate_needs_a_bool_mask(port_calls):
+    """A float mask of the key-column shape stays on the plain path in the
+    JAX package (its gate tests the dtype); the port's plain formula takes
+    bool masks only, so the port refuses it rather than guess."""
+    q = torch.zeros(1, 1, 512, 8)
+    k = torch.zeros(1, 1, 4700, 8)
+    with pytest.raises((RuntimeError, TypeError)):
+        att.sdpa(q, k, k, mask=torch.ones(1, 1, 1, 4700), impl="pallas")
+    assert port_calls["masked"].shapes == []
 
 
 # (b, t, win, min_tokens, impl)

@@ -25,13 +25,26 @@ Run from the root of a checkout. Phases, each of which raises on failure:
      rectangle on noise), two objects prompted by a point on frame 0,
      forward propagation; the launch counts per tracked frame, the memory
      attention of the last frame with the kernels and under no_fusion(),
-     and the same run under no_fusion() beside it.
+     and the same run under no_fusion() beside it;
+  8. the batched test step: the DINOv2-L "pallas" matcher with negative
+     references (10 positive and 10 negative references per class, both
+     banks post-processed); `test_batch_async` on two targets with exact
+     launch counts, against `test` on each image and against the same
+     batch under no_fusion(); `test_async` twice then `fetch_test` twice;
+     one image under each prompt-pair toggle; the upscale chain from t1 on
+     one decoded chunk's operands; B = 1 against B = 2 timed in turns with
+     the peak device memory of each.
+`python3 chip_smoke.py --kernels` runs phases 1 to 3 only;
+`python3 chip_smoke.py --batch-profile` runs phases 1 and 2 and then two
+images at B = 1 and at B = 2 under torch.profiler (wall, device busy time
+and kernels launched per image; a stopgap like --video-profile).
 `python3 chip_smoke.py --video-profile` runs phases 1, 2 and 7 only and
 prints the device's busy time over the tracked frames under torch.profiler
 (a stopgap until the port has a bench that measures it). The last lines are the kernel table, the card's name and
 power limit, and {"ok": true, "device": {...}}. Without a GPU, or outside a
 checkout, it exits non-zero before printing any result.
 """
+import contextlib
 import json
 import os
 import statistics
@@ -82,6 +95,20 @@ TOL = {
     ("fused_post_t1", "float32"): (1e-4, 1e-4),
     ("fused_post_t1", "bfloat16"): (0.1, 0.1),
 }
+# the pair variants and the chain from t1 compute the functions of K2, K3
+# and K4 and are held to the same bands
+SAME_BAND = {"fused_t2i_attn_p2": "fused_t2i_attn",
+             "fused_i2t_norm_p2": "fused_i2t_norm",
+             "fused_i2t_norm_pre_p2": "fused_i2t_norm",
+             "fused_i2t_norm_pair": "fused_i2t_norm",
+             "fused_post_t1_from_t1": "fused_post_t1"}
+for _new, _old in SAME_BAND.items():
+    for _dt in ("float32", "bfloat16"):
+        TOL[(_new, _dt)] = TOL[(_old, _dt)]
+# the environment variable that sends a call to each prompt-pair variant
+PAIR_TOGGLE = {"fused_t2i_attn_p2": "NTTT_PERPROMPT_PAIR",
+               "fused_i2t_norm_p2": "NTTT_PERPROMPT_PAIR",
+               "fused_i2t_norm_pre_p2": "NTTT_PROMPT_PAIR"}
 # kernel-path vs no_fusion() decode of one image, bf16 with random weights:
 # the two differ by the kernels' cast points through two transformer layers
 # and the upscale chain, each within the bands above; a predicted IoU moves
@@ -100,9 +127,9 @@ FEAT_REL_BAND = 0.05
 # the slice: SAM2 Hiera-L at 1024^2 with DINOv2-L or DINOv3-L, 20 classes x
 # 10 shots; each path is (label, encoder, attention_impl, test images)
 SAM2_CFG, TARGET_SIZE, MATCHING = "sam2_hiera_l.yaml", 1024, {}
-PATHS = [("dinov2_l xla", "dinov2_large", "xla", 3),
+PATHS = [("dinov2_l xla", "dinov2_large", "xla", 2),
          ("dinov2_l pallas", "dinov2_large", "pallas", 3),
-         ("dinov3_l pallas", "dinov3_large", "pallas", 3)]
+         ("dinov3_l pallas", "dinov3_large", "pallas", 2)]
 # launches of the encoder flash kernels per 1024^2 test image under
 # "pallas": 24 DINO layers + Hiera-L's 3 global blocks; Hiera-L's windowed
 # blocks 0-1, 3-7 and 9-43 but 23 / 33 (stage 4 and the q-pool blocks stay
@@ -110,6 +137,31 @@ PATHS = [("dinov2_l xla", "dinov2_large", "xla", 3),
 FLASH_PER_IMAGE = {"flash_sdpa_bnhd": 27, "flash_sdpa_window_qkv": 39}
 # kernels that only the video path launches (SAM2 memory attention)
 VIDEO_ONLY = ("flash_sdpa", "flash_sdpa_masked")
+# kernels that only the batched path (phase 8) launches
+BATCHED_ONLY = ("fused_post_t1_from_t1", "fused_t2i_attn_p2",
+                "fused_i2t_norm_p2", "fused_i2t_norm_pre_p2",
+                "fused_i2t_norm_pair")
+# phase 8, launches of the decode and encoder kernels. One test image: 4
+# chunks x (K2 in layer 0, layer 1 and the final attention; K3 in layers 0
+# and 1; K4). A batch of two is one step: the same launches serve both
+# images, and layer 0's K3 is the image-pair launch. Under NTTT_PROMPT_PAIR
+# layer 0's K3 takes its two-prompt variant; under NTTT_PERPROMPT_PAIR
+# layer 1's K3 and layer 1's and the final K2 take theirs.
+DECODE_NAMES = ("fused_t2i_attn", "fused_i2t_norm", "fused_post_t1",
+                *BATCHED_ONLY)
+STEP_SINGLE = {"fused_t2i_attn": 12, "fused_i2t_norm": 8, "fused_post_t1": 4}
+# at a batch of two Hiera-L's 3 global blocks are two "windows" of 4096
+# tokens and take the window kernel (the route of every non-pooling block
+# with more than one row, as in the JAX package), so kernel 9 serves the 24
+# DINO layers only
+FLASH_BATCH2 = {"flash_sdpa_bnhd": 24, "flash_sdpa_window_qkv": 42}
+STEP_BATCH2 = {"fused_t2i_attn": 12, "fused_i2t_norm": 4, "fused_post_t1": 4,
+               "fused_i2t_norm_pair": 4}
+STEP_PROMPT_PAIR = {"fused_t2i_attn": 12, "fused_i2t_norm": 4,
+                    "fused_post_t1": 4, "fused_i2t_norm_pre_p2": 4}
+STEP_PERPROMPT_PAIR = {"fused_t2i_attn": 4, "fused_i2t_norm": 4,
+                       "fused_post_t1": 4, "fused_t2i_attn_p2": 8,
+                       "fused_i2t_norm_p2": 4}
 # the video path: frames of the clip, and launches per frame. Every frame
 # runs Hiera-L once (3 global blocks, 39 windowed blocks); a tracked frame
 # runs the 4 memory-attention layers (one self and one masked cross
@@ -154,6 +206,21 @@ KERNELS = [
     dict(name="fused_post_t1", route="cuda",
          source="no_time_to_train_tpu_torch/csrc/upscale_product.cu",
          replaces="no_time_to_train_tpu/ops/upscale_product.py:338"),
+    dict(name="fused_post_t1_from_t1", route="cuda",
+         source="no_time_to_train_tpu_torch/csrc/upscale_product.cu",
+         replaces="no_time_to_train_tpu/ops/upscale_product.py:216"),
+    dict(name="fused_t2i_attn_p2", route="cuda",
+         source="no_time_to_train_tpu_torch/csrc/t2i_attn.cu",
+         replaces="no_time_to_train_tpu/ops/decoder_attention.py:824"),
+    dict(name="fused_i2t_norm_pre_p2", route="cuda",
+         source="no_time_to_train_tpu_torch/csrc/i2t_norm.cu",
+         replaces="no_time_to_train_tpu/ops/decoder_attention.py:322"),
+    dict(name="fused_i2t_norm_p2", route="cuda",
+         source="no_time_to_train_tpu_torch/csrc/i2t_norm.cu",
+         replaces="no_time_to_train_tpu/ops/decoder_attention.py:389"),
+    dict(name="fused_i2t_norm_pair", route="cuda",
+         source="no_time_to_train_tpu_torch/csrc/i2t_norm.cu",
+         replaces="no_time_to_train_tpu/ops/decoder_attention.py:552"),
     dict(name="flash_sdpa_bnhd", route="cuda",
          source="no_time_to_train_tpu_torch/csrc/onepass_attn.cu",
          replaces="no_time_to_train_tpu/ops/flash_attention.py:179"),
@@ -207,7 +274,8 @@ MASKED_EDGE = [("masked prefix, D 64", 2, 2, 200, 5000, 64, "prefix"),
 # kernel 10: (label, B, heads, D, window tokens, windows)
 WINDOW_SHAPES = [("hiera_l stage 1", 1, 2, 72, 64, 1024),
                  ("hiera_l stage 2", 1, 4, 72, 16, 1024),
-                 ("hiera_l stage 3", 1, 8, 72, 256, 16)]
+                 ("hiera_l stage 3", 1, 8, 72, 256, 16),
+                 ("hiera_l global blocks at a batch of 2", 1, 8, 72, 4096, 2)]
 WINDOW_EDGE = [("T 16 x 3 windows", 1, 4, 72, 16, 3),
                ("B 2, T 64", 2, 2, 72, 64, 3),
                ("T 256 x 1 window", 1, 8, 72, 256, 1),
@@ -269,6 +337,203 @@ def compare(name, dt, got, ref):
     if not ok:
         fail(f"{name} {dt}: kernel disagrees with its plain version")
     return max_err
+
+
+@contextlib.contextmanager
+def toggled(var):
+    """Set the environment variable `var` to 1 for the code inside, then
+    restore it."""
+    old = os.environ.get(var)
+    os.environ[var] = "1"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ[var]
+        else:
+            os.environ[var] = old
+
+
+def decoder_args(rn, dt, pk, p_, n, t):
+    """Operands of K2 and of K3 for p_ prompts of t tokens against pk sets
+    of n keys (C = 256, I = 128)."""
+    c, i = 256, 128
+    keys = rn(pk, n, c, scale=0.5, dtype=dt)
+    pe = rn(n, i, scale=0.5, dtype=dt)
+    tok_q = rn(p_, t, i, scale=0.5, dtype=dt)
+    tok_v = rn(p_, t, i, scale=0.5, dtype=dt)
+    wk, wv = rn(c, i, scale=0.05), rn(c, i, scale=0.05)
+    bk, bv = rn(i, scale=0.1), rn(i, scale=0.1)
+    wout, bout = rn(i, c, scale=0.05), rn(c, scale=0.1)
+    nw, nb = rn(c, scale=0.2) + 1.0, rn(c, scale=0.1)
+    return ((keys, pe, tok_q, wk, bk, wv, bv),
+            (keys, pe, tok_q, tok_v, wk, bk, wout, bout, nw, nb))
+
+
+def t2i_bound(args, p_, n, t):
+    """K2 with per-prompt keys: the k and v projections of every key, then
+    logits and the value product against t tokens per prompt."""
+    return bound(nbytes(*args) + p_ * t * 128 * args[0].element_size(),
+                 2 * p_ * n * 128 * (2 * 256 + 2 * t), PEAK_BF16)
+
+
+def i2t_bound(args, p_, n, t, images=0):
+    """K3: logits and value product against t tokens, output projection,
+    the norm's ~8 operations per element; the q projection once per prompt
+    with per-prompt keys, else once per image. The output is [P, n, C]."""
+    proj = images if images else p_
+    return bound(nbytes(*args) + p_ * n * 256 * args[0].element_size(),
+                 2 * n * 128 * (proj * 256 + p_ * (256 + 2 * t))
+                 + 8 * p_ * n * 256, PEAK_BF16)
+
+
+def check_pair(name, single_name, dt, fn, plain, results, bnd):
+    """One prompt-pair variant: `fn` run with its toggle set against the
+    plain version at the band of the single-prompt kernel, and against
+    `fn` with the toggle unset (the JAX package's tests call the two
+    bit-identical on the TPU; the gap found here is logged). With
+    `results`, both are timed in turns."""
+    import torch
+    from no_time_to_train_tpu_torch.ops import decoder_attention as da
+    before = dict(da.LAUNCHES)
+    single = fn()
+    with toggled(PAIR_TOGGLE[name]):
+        pair = fn()
+    moved = {k: v - before[k] for k, v in da.LAUNCHES.items() if v != before[k]}
+    if moved != {single_name: 1, name: 1}:
+        fail(f"{name}: the toggle moved the launch counts by {moved}")
+    err = compare(name, dt, pair, plain())
+    gap = float((pair.float() - single.float()).abs().max())
+    log(f"    {name} vs {single_name} on the same operands: max |d| {gap:.3e}")
+    if results is not None and dt == torch.bfloat16:
+        def paired():
+            with toggled(PAIR_TOGGLE[name]):
+                return fn()
+        ms = [cuda_ms(fn), cuda_ms(paired), cuda_ms(paired), cuda_ms(fn)]
+        results[name] = dict(max_abs_err=err, ms=min(ms[1:3]),
+                             plain_ms=cuda_ms(plain), library_ms=None, **bnd)
+        log(f"    time {name} {ms[1]:.3f} / {ms[2]:.3f} ms against "
+            f"{single_name} {ms[0]:.3f} / {ms[3]:.3f} ms (single, pair, pair, "
+            "single)")
+
+
+def pair_kernels(rn, dt, shapes, results=None):
+    """Rows 5 to 8 of the kernel table: the three prompt-pair variants, the
+    image-pair launch and the upscale chain from t1, each against its plain
+    version; `shapes` holds (prompts per image, keys, tokens)."""
+    import torch
+    from no_time_to_train_tpu_torch.ops import decoder_attention as da
+    from no_time_to_train_tpu_torch.ops import upscale_product as up
+    timed = results is not None and dt == torch.bfloat16
+    for p_, n, t in shapes:
+        # per-prompt keys: rows 6 and 7
+        t2i, i2t = decoder_args(rn, dt, p_, p_, n, t)
+        check_pair("fused_t2i_attn_p2", "fused_t2i_attn", dt,
+                   lambda: da.fused_t2i_attn(*t2i, num_heads=8),
+                   lambda: da.fused_t2i_attn_plain(*t2i, num_heads=8),
+                   results, t2i_bound(t2i, p_, n, t))
+        check_pair("fused_i2t_norm_p2", "fused_i2t_norm", dt,
+                   lambda: da.fused_i2t_norm(*i2t, num_heads=8),
+                   lambda: da.fused_i2t_norm_plain(*i2t, num_heads=8),
+                   results, i2t_bound(i2t, p_, n, t))
+        del t2i, i2t
+        # keys shared by the prompts: row 7's other body
+        _, i2t = decoder_args(rn, dt, 1, p_, n, t)
+        check_pair("fused_i2t_norm_pre_p2", "fused_i2t_norm", dt,
+                   lambda: da.fused_i2t_norm(*i2t, num_heads=8),
+                   lambda: da.fused_i2t_norm_plain(*i2t, num_heads=8),
+                   results, i2t_bound(i2t, p_, n, t, images=1))
+        # row 8: an image pair, every operand of the image side different
+        # per image, so a swapped image index cannot pass
+        _, i2t = decoder_args(rn, dt, 2, 2 * p_, n, t)
+        keys2, _, tok_k, tok_v, *rest = i2t
+        pe2 = rn(2, n, 128, scale=0.5, dtype=dt)
+        tk2, tv2 = (z.reshape(2, p_, t, 128) for z in (tok_k, tok_v))
+        a8 = (keys2, pe2, tk2, tv2, *rest)
+
+        def singles():
+            return torch.stack([da.fused_i2t_norm(
+                keys2[j:j + 1], pe2[j], tk2[j], tv2[j], *rest, num_heads=8)
+                for j in range(2)])
+
+        before = da.LAUNCHES["fused_i2t_norm_pair"]
+        got = da.fused_i2t_norm_pair(*a8, num_heads=8)
+        if da.LAUNCHES["fused_i2t_norm_pair"] != before + 1:
+            fail("fused_i2t_norm_pair did not count its launch")
+        err = compare("fused_i2t_norm_pair", dt, got,
+                      da.fused_i2t_norm_pair_plain(*a8, num_heads=8))
+        gap = float((got.float() - singles().float()).abs().max())
+        log(f"    fused_i2t_norm_pair vs two fused_i2t_norm calls: max |d| "
+            f"{gap:.3e}")
+        del got
+        if timed:
+            def pair():
+                return da.fused_i2t_norm_pair(*a8, num_heads=8)
+            ms = [cuda_ms(singles), cuda_ms(pair), cuda_ms(pair),
+                  cuda_ms(singles)]
+            results["fused_i2t_norm_pair"] = dict(
+                max_abs_err=err, ms=min(ms[1:3]), plain_ms=cuda_ms(
+                    lambda: da.fused_i2t_norm_pair_plain(*a8, num_heads=8)),
+                library_ms=None, **i2t_bound(a8, 2 * p_, n, t, images=2))
+            log(f"    time fused_i2t_norm_pair {ms[1]:.3f} / {ms[2]:.3f} ms "
+                f"against two fused_i2t_norm calls {ms[0]:.3f} / {ms[3]:.3f} "
+                "ms (singles, pair, pair, singles)")
+        del i2t, a8, keys2, tk2, tv2
+        torch.cuda.empty_cache()
+
+        # row 5: the chain from t1, against its plain version and against
+        # K4 fed the src that t1 came from
+        hw = n
+        src = rn(p_, hw, 256, scale=0.5, dtype=dt)
+        k1 = rn(256, 256, scale=1 / 16)
+        s1p, s0p = rn(hw, 256, scale=0.3), rn(hw, 512, scale=0.3)
+        lw, lb = rn(64, scale=0.2) + 1.0, rn(64, scale=0.1)
+        k2, hyper = rn(64, 128, scale=0.1), rn(p_, 32)
+        t1 = (src.float() @ k1.to(dt).float()).to(dt)
+        a5 = (t1, s1p, lw, lb, k2, s0p, hyper)
+        got = up.fused_post_t1_from_t1(*a5)
+        err = compare("fused_post_t1_from_t1", dt, got,
+                      up.fused_post_t1_from_t1_plain(*a5))
+        k4 = up.fused_post_t1(src, k1, s1p, lw, lb, k2, s0p, hyper)
+        log(f"    fused_post_t1_from_t1 vs fused_post_t1 (t1 kept in float32 "
+            f"there): max |d| {float((got.float() - k4.float()).abs().max()):.3e}")
+        del src, k4, got
+        if timed:
+            # the second deconvolution as four [hw, 64] x [64, 128]
+            # products and the hypernetwork product; t1 is read once
+            results["fused_post_t1_from_t1"] = dict(
+                max_abs_err=err,
+                ms=cuda_ms(lambda: up.fused_post_t1_from_t1(*a5)),
+                plain_ms=cuda_ms(lambda: up.fused_post_t1_from_t1_plain(*a5)),
+                library_ms=None,
+                **bound(nbytes(*a5) + p_ * 16 * hw * t1.element_size(),
+                        2 * p_ * hw * (4 * 64 * 128 + 16 * 32), PEAK_BF16))
+        del t1, a5
+        torch.cuda.empty_cache()
+
+
+def image_batches(rn, dt, p_img, n, t):
+    """K2, K3 and K4 with one set of keys / skips per image, Bi = 1, 2, 3
+    images of p_img prompts each, against their plain versions."""
+    from no_time_to_train_tpu_torch.ops import decoder_attention as da
+    from no_time_to_train_tpu_torch.ops import upscale_product as up
+    for bi in (1, 2, 3):
+        p_ = bi * p_img
+        t2i, i2t = decoder_args(rn, dt, bi, p_, n, t)
+        compare("fused_t2i_attn", dt, da.fused_t2i_attn(*t2i, num_heads=8),
+                da.fused_t2i_attn_plain(*t2i, num_heads=8))
+        compare("fused_i2t_norm", dt, da.fused_i2t_norm(*i2t, num_heads=8),
+                da.fused_i2t_norm_plain(*i2t, num_heads=8))
+        a = (rn(p_, n, 256, scale=0.5, dtype=dt), rn(256, 256, scale=1 / 16),
+             rn(bi, n, 256, scale=0.3), rn(64, scale=0.2) + 1.0,
+             rn(64, scale=0.1), rn(64, 128, scale=0.1),
+             rn(bi, n, 512, scale=0.3), rn(p_, 32))
+        compare("fused_post_t1", dt, up.fused_post_t1(*a),
+                up.fused_post_t1_plain(*a))
+        t1 = (a[0].float() @ a[1].to(dt).float()).to(dt)
+        compare("fused_post_t1_from_t1", dt,
+                up.fused_post_t1_from_t1(t1, *a[2:]),
+                up.fused_post_t1_from_t1_plain(t1, *a[2:]))
 
 
 def kernel_phase(dev):
@@ -379,6 +644,12 @@ def kernel_phase(dev):
                         2 * b * hw * (256 * 256 + 4 * 64 * 128 + 16 * 32),
                         PEAK_BF16))
         del src
+        torch.cuda.empty_cache()
+        # rows 5 to 8 at one decode chunk, and K2 / K3 / K4 at a batch of
+        # two images of 256 prompts each
+        pair_kernels(rn, dt, [(256, 4096, 8)], results)
+        if dt == torch.bfloat16:
+            image_batches(rn, dt, 256, 4096, 8)
         torch.cuda.empty_cache()
         attention_kernels(rn, dt, ONEPASS_SHAPES, WINDOW_SHAPES, results)
         memory_kernels(rn, dt, FLASH_SHAPES, MASKED_SHAPES, results)
@@ -577,6 +848,11 @@ def edge_shapes(rn):
              rn(64, 128, scale=0.1), rn(32, 512, scale=0.3), rn(37, 32))
         compare("fused_post_t1", dt, up.fused_post_t1(*a),
                 up.fused_post_t1_plain(*a))
+        # rows 5 to 8: 11 and 16 tokens, 2 and 6 prompts, 96 keys; K2 / K3 /
+        # K4 at 1, 2 and 3 images of 3 and of 2 prompts
+        pair_kernels(rn, dt, [(2, 96, 11), (6, 96, 16), (6, 64, 8)])
+        image_batches(rn, dt, 3, 96, 11)
+        image_batches(rn, dt, 2, 64, 16)
         attention_kernels(rn, dt, ONEPASS_EDGE, WINDOW_EDGE)
         memory_kernels(rn, dt, FLASH_EDGE, MASKED_EDGE)
 
@@ -688,13 +964,17 @@ def run_path(dev, label, encoder, impl, n_test):
     log(f"  kernel launches: fill + test {counts}, in test {in_test}")
     flash_on = impl == "pallas"
     missing = [k for k, v in in_test.items()
-               if v == 0 and k not in VIDEO_ONLY
+               if v == 0 and k not in VIDEO_ONLY + BATCHED_ONLY
                and (flash_on or k not in FLASH_PER_IMAGE)]
     if missing:
         fail(f"kernels not launched during test: {missing}")
-    stray = [k for k in VIDEO_ONLY if counts[k]]
+    stray = [k for k in VIDEO_ONLY + BATCHED_ONLY if counts[k]]
     if stray:
-        fail(f"the image path launched the memory-attention kernels: {stray}")
+        fail(f"the single-image path launched {stray}")
+    for k, per_image in STEP_SINGLE.items():
+        if in_test[k] != per_image * n_test:
+            fail(f"{k}: {in_test[k]} launches in {n_test} test images, "
+                 f"expected {per_image} per image")
     for k, per_image in FLASH_PER_IMAGE.items():
         want = per_image * n_test if flash_on else 0
         if in_test[k] != want or (not flash_on and counts[k]):
@@ -918,8 +1198,10 @@ def run_video(dev, profile=False):
         if counts[k] != per * tracked + extra:
             fail(f"{k}: {counts[k]} launches over {tracked} tracked frames, "
                  f"expected {per} per tracked frame (+ {extra})")
-    if counts["layer_norm"] == 0 or counts["fused_post_t1"] != 0:
-        fail("the video path runs K1 and never the grid decode's K4")
+    if counts["layer_norm"] == 0 or counts["fused_post_t1"] != 0 \
+            or any(counts[k] for k in BATCHED_ONLY):
+        fail("the video path runs K1 and never the grid decode's K4 or a "
+             "pair variant")
     log(f"  launches per tracked frame: "
         f"{ {**VIDEO_PER_FRAME, **VIDEO_PER_TRACKED} }")
 
@@ -987,6 +1269,237 @@ def run_video(dev, profile=False):
     return warm, counts
 
 
+def same_result(what, got, ref):
+    """Two results of the test step on one image: the same valid flags and
+    labels; scores and predicted IoUs within DECODE_IOU_BAND; the valid
+    masks' logits agree in sign on DECODE_SIGN_AGREE of the pixels."""
+    import numpy as np
+    v = ref["valid"]
+    if not (got["valid"] == v).all() \
+            or not (got["labels"][v] == ref["labels"][v]).all():
+        fail(f"{what}: valid flags or labels differ")
+    d_score = float(np.abs(got["scores"] - ref["scores"]).max())
+    d_iou = float(np.abs(got["pred_ious"][v] - ref["pred_ious"][v]).max()) \
+        if v.any() else 0.0
+    agree = float(((got["lr_logits"][v] > 0) == (ref["lr_logits"][v] > 0))
+                  .mean()) if v.any() else 1.0
+    equal = all(np.array_equal(got[k], ref[k]) for k in ref)
+    log(f"  {what}: n_valid {int(v.sum())}, max |d score| {d_score:.4f}, "
+        f"max |d iou| {d_iou:.4f} (band {DECODE_IOU_BAND}), mask sign "
+        f"agreement {agree:.5f} (band {DECODE_SIGN_AGREE})"
+        f"{', bit for bit' if equal else ''}")
+    if d_score > DECODE_IOU_BAND or d_iou > DECODE_IOU_BAND \
+            or agree < DECODE_SIGN_AGREE:
+        fail(f"{what}: results disagree")
+
+
+def expect_launches(what, before, want, flash=None, k1=True):
+    """The decode kernels' launches since `before` must be exactly `want`
+    (names it leaves out: 0), the encoder flash kernels' exactly `flash`
+    where given, none of the memory-attention kernels', and some of K1's
+    unless `k1` is false."""
+    now = launch_counts()
+    moved = {k: now[k] - before[k] for k in now}
+    decode = {k: moved[k] for k in DECODE_NAMES if moved[k]}
+    if decode != want:
+        fail(f"{what}: decode kernel launches {decode}, expected {want}")
+    if flash is not None and {k: moved[k] for k in flash} != flash:
+        fail(f"{what}: encoder flash launches "
+             f"{ {k: moved[k] for k in flash} }, expected {flash}")
+    if any(moved[k] for k in VIDEO_ONLY) or (k1 and moved["layer_norm"] == 0):
+        fail(f"{what}: K1 must run and the memory-attention kernels must not")
+    log(f"  {what}: launches {decode}"
+        + (f", flash { {k: moved[k] for k in flash} }" if flash else ""))
+    return now
+
+
+def build_batched_matcher(dev):
+    """The DINOv2-L "pallas" matcher with negative references, both banks
+    filled with 10 synthetic references per class and post-processed, and
+    two synthetic targets [2, S, S, 3]."""
+    import numpy as np
+    import torch
+    from no_time_to_train_tpu_torch.models.matching.pipeline import (
+        MatchingConfig, NoAMGMatcher)
+    n_classes, shots = 20, 10
+    t0 = time.perf_counter()
+    matcher = NoAMGMatcher(
+        SAM2_CFG, "dinov2_large",
+        MatchingConfig(compute_dtype="bfloat16", attention_impl="pallas",
+                       with_negative_refs=True, **MATCHING),
+        n_classes=n_classes, memory_length=shots, seed=0, device=dev)
+    for positive, seed in ((True, 0), (False, 1)):
+        rng = np.random.default_rng(seed)
+        for cls in range(n_classes):
+            imgs, masks = synthetic_refs(rng, cls, shots)
+            matcher.fill_memory(imgs, masks, [cls] * shots, positive=positive)
+        matcher.postprocess_memory(positive=positive)
+    for bank in (matcher.bank, matcher.bank_neg):
+        if bank.fill_counts.tolist() != [shots] * n_classes \
+                or not torch.isfinite(bank.feats_ins_avg).all() \
+                or not torch.isfinite(bank.feats_avg).all():
+            fail("a bank is not filled or not finite")
+    torch.cuda.synchronize()
+    log(f"  matcher built (bf16, pallas, negative references on), both "
+        f"banks filled 20 x 10 and post-processed in "
+        f"{time.perf_counter() - t0:.1f} s")
+    targets = np.stack([synthetic_target(np.random.default_rng(200 + k),
+                                         TARGET_SIZE) for k in range(2)])
+    return matcher, targets
+
+
+def batch_profile(dev, smi):
+    """`--batch-profile`: two test images as two steps of one and as one
+    step of two, each under torch.profiler: wall time, device busy time and
+    the kernels and copies launched, per image."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as prof
+    matcher, targets = build_batched_matcher(dev)
+    steps = {1: lambda: [matcher.test(t) for t in targets],
+             2: lambda: matcher.fetch_test(matcher.test_batch_async(targets))}
+    for b in (1, 2, 1, 2):
+        steps[b]()                       # warm both
+    for b in (1, 2, 2, 1):
+        with prof(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as p:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            steps[b]()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        dev_rows = [e for e in p.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in dev_rows) / 1e3
+        n_kern = sum(e.count for e in dev_rows)
+        log(f"  profile, two images at B = {b}: per image wall "
+            f"{wall / 2:.1f} ms, device busy {busy / 2:.1f} ms, idle share "
+            f"{100 * (1 - busy / wall):.1f} %, {n_kern / 2:.0f} kernels and "
+            f"copies; on {smi}")
+        for e in sorted(dev_rows, key=lambda e: -e.self_device_time_total)[:8]:
+            log(f"    {e.self_device_time_total / 2e3:9.2f} ms/img "
+                f"{e.count:6d} x  {e.key[:90]}")
+
+
+def run_batched(dev, smi):
+    """Phase 8. Returns (warm fenced ms per image at B = 1 and at B = 2,
+    launch counts of the path)."""
+    import numpy as np
+    import torch
+    from no_time_to_train_tpu_torch.models.sam2 import mask_decoder as md
+    from no_time_to_train_tpu_torch.ops import upscale_product as up
+    from no_time_to_train_tpu_torch.ops.upscale_product import no_fusion
+
+    matcher, targets = build_batched_matcher(dev)
+    flash_one = dict(FLASH_PER_IMAGE)
+
+    reset_counts()                       # the path starts here
+    mark = launch_counts()
+    # (a) the batch of two, each image alone, the batch under no_fusion()
+    batch = matcher.fetch_test(matcher.test_batch_async(targets))
+    mark = expect_launches("test_batch_async, B = 2", mark, STEP_BATCH2,
+                           FLASH_BATCH2)
+    singles = []
+    for k in range(2):
+        singles.append(matcher.test(targets[k]))
+        mark = expect_launches(f"test, image {k}", mark, STEP_SINGLE,
+                               flash_one)
+    lr_side = 4 * matcher.sam2_cfg.sam_image_embedding_size
+    if batch["lr_logits"].shape != (2, matcher.matching.num_out_instance,
+                                    lr_side, lr_side):
+        fail(f"batched lr_logits shape {batch['lr_logits'].shape}")
+    for k in range(2):
+        one = {key: v[k] for key, v in batch.items()}
+        for key in ("lr_logits", "scores", "pred_ious"):
+            if not np.isfinite(one[key].astype(np.float32)).all():
+                fail(f"batched image {k}: {key} not finite")
+        sv = one["scores"][one["valid"]]
+        if (sv <= 0).any() or (sv > 1.0 + 1e-3).any() \
+                or (np.diff(sv) > 1e-6).any():
+            fail("valid scores must be positive, <= 1 and sorted")
+        same_result(f"batch image {k} vs test alone", one, singles[k])
+    with no_fusion():
+        plain = matcher.fetch_test(matcher.test_batch_async(targets))
+    if launch_counts() != mark:
+        fail("a kernel was launched inside no_fusion()")
+    for k in range(2):
+        same_result(f"batch image {k} vs the batch under no_fusion()",
+                    {key: v[k] for key, v in batch.items()},
+                    {key: v[k] for key, v in plain.items()})
+    del plain
+    # (b) two images queued, then fetched
+    queued = [matcher.test_async(targets[k]) for k in range(2)]
+    for k in range(2):
+        same_result(f"test_async + fetch_test, image {k}, vs test",
+                    matcher.fetch_test(queued[k]), singles[k])
+    mark = expect_launches("test_async x 2", mark,
+                           {k: 2 * v for k, v in STEP_SINGLE.items()},
+                           {k: 2 * v for k, v in flash_one.items()})
+    # (c) one image under each prompt-pair toggle
+    for var, want in (("NTTT_PROMPT_PAIR", STEP_PROMPT_PAIR),
+                      ("NTTT_PERPROMPT_PAIR", STEP_PERPROMPT_PAIR)):
+        with toggled(var):
+            out = matcher.test(targets[0])
+        mark = expect_launches(f"test under {var}=1", mark, want, flash_one)
+        same_result(f"{var}=1 vs the default kernels", out, singles[0])
+    if os.environ.get("NTTT_PROMPT_PAIR") == "1" \
+            or os.environ.get("NTTT_PERPROMPT_PAIR") == "1":
+        fail("a toggle was left set")
+    # (d) the upscale chain from t1 on one decoded chunk's own operands
+    seen = {}
+    k4 = md.fused_post_t1
+
+    def record(*args, **kw):
+        seen["args"], seen["eps"] = args, kw["eps"]
+        seen["out"] = k4(*args, **kw)
+        return seen["out"]
+
+    md.fused_post_t1 = record
+    try:
+        with torch.no_grad():
+            matcher._decode_grid(torch.as_tensor(targets[0], device=dev))
+    finally:
+        md.fused_post_t1 = k4
+    mark = expect_launches("one more decode", mark, STEP_SINGLE,
+                           {"flash_sdpa_bnhd": 3, "flash_sdpa_window_qkv": 39})
+    src, k1, *rest = seen["args"]
+    t1 = src @ k1.to(src.dtype)
+    got = up.fused_post_t1_from_t1(t1, *rest, eps=seen["eps"])
+    compare("fused_post_t1_from_t1", src.dtype, got,
+            up.fused_post_t1_from_t1_plain(t1, *rest, eps=seen["eps"]))
+    log("  the chain from t1 against K4 on the last chunk's operands "
+        f"(t1 {tuple(t1.shape)}, rounded to bf16 here, float32 inside K4):")
+    compare("fused_post_t1_from_t1", src.dtype, got, seen["out"])
+    mark = expect_launches("fused_post_t1_from_t1 on a decoded chunk", mark,
+                           {"fused_post_t1_from_t1": 1}, k1=False)
+    del seen, got, t1, src, rest
+    counts = launch_counts()             # the path ends here
+
+    # B = 1 and B = 2 in turns, warm, fenced; peak memory of each
+    torch.cuda.empty_cache()
+    ms = {1: [], 2: []}
+    peak = {}
+    for _ in range(4):
+        for b in (1, 2):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            if b == 1:
+                matcher.test(targets[0])
+            else:
+                matcher.fetch_test(matcher.test_batch_async(targets))
+            ms[b].append((time.perf_counter() - t0) * 1e3 / b)
+            peak[b] = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"  warm fenced ms per image, in turns: B = 1 "
+        f"{[round(t, 1) for t in ms[1]]}, B = 2 (ms per batch / 2) "
+        f"{[round(t, 1) for t in ms[2]]}; medians "
+        f"{statistics.median(ms[1]):.1f} and {statistics.median(ms[2]):.1f}; "
+        f"peak device memory {peak[1]:.2f} GiB at B = 1, {peak[2]:.2f} GiB "
+        f"at B = 2 (torch.cuda.max_memory_allocated); on {smi}")
+    del matcher
+    torch.cuda.empty_cache()
+    return statistics.median(ms[1]), statistics.median(ms[2]), counts
+
+
 def main():
     try:
         import torch
@@ -1030,10 +1543,18 @@ def main():
         run_video(dev, profile=True)
         print(smi)
         return 0
+    if sys.argv[1:] == ["--batch-profile"]:
+        log("[8] the test step at B = 1 and B = 2 under torch.profiler")
+        batch_profile(dev, smi)
+        print(smi)
+        return 0
 
     log("[3] kernels vs plain versions at the slice's shapes")
     kres = kernel_phase(dev)
     phase_done("3")
+    if sys.argv[1:] == ["--kernels"]:
+        print(smi)
+        return 0
 
     totals = {}
     summary = []
@@ -1054,8 +1575,24 @@ def main():
     summary.append(f"video {ms_frame:.1f} ms/frame")
     phase_done("7")
 
+    log("[8] batched test step, SAM2-L + dinov2_large, bf16, "
+        "attention_impl=pallas, negative references, B = 2")
+    ms_b1, ms_b2, counts = run_batched(dev, smi)
+    for k, v in counts.items():
+        totals[k] = totals.get(k, 0) + v
+    summary.append(f"negative refs B = 1 {ms_b1:.1f} ms/img, B = 2 "
+                   f"{ms_b2:.1f} ms/img")
+    phase_done("8")
+
     kernels = [dict(k, launches=totals[k["name"]], **kres[k["name"]])
                for k in KERNELS]
+    idle = [k["name"] for k in kernels if k["launches"] == 0]
+    if idle:
+        fail(f"kernels that no path launched: {idle}")
+    for k in kernels:
+        log(f"  {k['name']:21s} {k['ms']:.3f} ms, plain {k['plain_ms']:.3f}, "
+            f"bound {k['bound_ms']:.4f} by {k['bound_by']}, launches "
+            f"{k['launches']}; on {smi}")
     log(f"summary: warm fenced {'; '.join(summary)}; on {smi}")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -15,8 +15,19 @@
 // rows; the prompt is the fastest grid index, so the blocks in flight share
 // a row range and, for layer 0's shared keys, read it through L2.
 //
-// Layer 0 (pre != 0): qi is the same for every prompt, so the caller
-// projects it once (already scaled and rounded) and passes it in `peq`.
+// Layer 0 (pre != 0): qi is the same for every prompt of an image, so the
+// caller projects it once per image (already scaled and rounded) and passes
+// it in `peq`. Prompt q then reads the keys and the qi of image q / ppi.
+//
+// Pair variants (kNP == 2) replace `_i2t_pre_p2_kernel`, `_i2t_p2_kernel`
+// (two prompts a grid step) and `_i2t_pre_pair_kernel` (two images a grid
+// step, reached from `fused_i2t_norm_pair`). The TPU bodies pair two chains
+// so that one chain's vector work overlaps the other's matrix work; here a
+// block serves two chains (prompts 2b and 2b + 1, or prompt b of image 0
+// and of image 1) and stages what they share once: Wq and Wout (128 KB in
+// bf16) and, where both chains read the same image, the key and qi tiles.
+// The two chains' token K / V then stay in the storage type so that the
+// block still fits under 227 KB.
 //
 // Softmax: per head, with the per-head maximum (the Pallas kernel shifts by
 // the maximum over all heads, which is the same function). LayerNorm
@@ -39,7 +50,22 @@ constexpr int kBR = 32;          // rows a tile
 constexpr int kRowsPerBlock = 256;
 constexpr int kThreads = 256;
 
-template <typename T, bool kWSmem>
+__device__ __forceinline__ float tok_f(float v) { return v; }
+__device__ __forceinline__ float tok_f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ void tok_set(float& d, float v) { d = v; }
+__device__ __forceinline__ void tok_set(__nv_bfloat16& d, float v) {
+  d = __float2bfloat16_rn(v);
+}
+
+// Token K / V in shared memory: float for one chain a block, the storage
+// type for two (exact: the tokens arrive in that type).
+template <typename T, int kNP> struct TokStore { using type = T; };
+template <typename T> struct TokStore<T, 1> { using type = float; };
+
+// Chain j of block b is prompt b * chain_a + j * chain_b.
+template <typename T, bool kWSmem, int kNP>
 __global__ void __launch_bounds__(kThreads)
 i2t_kernel(const T* __restrict__ keys, const T* __restrict__ peq,
            const T* __restrict__ tok_k, const T* __restrict__ tok_v,
@@ -47,23 +73,35 @@ i2t_kernel(const T* __restrict__ keys, const T* __restrict__ peq,
            const T* __restrict__ wout, const float* __restrict__ bout,
            const T* __restrict__ nw, const T* __restrict__ nb,
            T* __restrict__ out, int n, int ntok, float scale, float eps,
-           int pre, long long key_stride) {
+           int pre, long long key_stride, long long key_img_stride,
+           long long peq_img_stride, int ppi, int chain_a, int chain_b) {
+  using Tok = typename TokStore<T, kNP>::type;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* x_s = (float*)smem_raw;           // [kBR][kC] keys, then residual
   float* q_s = x_s + kBR * kC;             // [kBR][kI]
   float* at_s = q_s + kBR * kI;            // [kBR][kI]
-  float* tk_s = at_s + kBR * kI;           // [16][kI]
-  float* tv_s = tk_s + 16 * kI;            // [16][kI]
-  T* xb_s = (T*)(tv_s + 16 * kI);          // [kBR][kC] keys, bf16 path
+  Tok* tk_all = (Tok*)(at_s + kBR * kI);   // [kNP][16][kI]
+  Tok* tv_all = tk_all + kNP * 16 * kI;    // [kNP][16][kI]
+  T* xb_s = (T*)(tv_all + kNP * 16 * kI);  // [kBR][kC] keys, bf16 path
   T* wq_s = xb_s + kBR * kC;               // [kC][kI] when kWSmem
   T* wo_s = wq_s + kC * kI;                // [kI][kC] when kWSmem
   T* atb_s = (T*)at_s;                     // attention output in T
 
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
-  const int p = blockIdx.x;
   const int row0 = blockIdx.y * kRowsPerBlock;
-  const T* kp = keys + (long long)p * key_stride;
+  // per chain: its prompt, its keys and its positional term (pre: its qi)
+  long long chain_q[kNP];
+  const T* chain_keys[kNP];
+  const T* chain_peq[kNP];
+#pragma unroll
+  for (int j = 0; j < kNP; ++j) {
+    const long long q = (long long)blockIdx.x * chain_a + (long long)j * chain_b;
+    const long long img = q / ppi;
+    chain_q[j] = q;
+    chain_keys[j] = keys + q * key_stride + img * key_img_stride;
+    chain_peq[j] = peq + img * peq_img_stride;
+  }
 
   const T* wqp = wq;
   const T* wop = wout;
@@ -75,12 +113,16 @@ i2t_kernel(const T* __restrict__ keys, const T* __restrict__ peq,
     for (int i = tid; i < kI * kC; i += kThreads) wo_s[i] = wout[i];
     wop = wo_s;
   }
-  for (int i = tid; i < 16 * kI; i += kThreads) {
-    const int t = i / kI;
-    const long long g = ((long long)p * ntok + t) * kI + (i % kI);
-    tk_s[i] = t < ntok ? Num<T>::to_f(tok_k[g]) : 0.f;
-    tv_s[i] = t < ntok ? Num<T>::to_f(tok_v[g]) : 0.f;
-  }
+#pragma unroll
+  for (int j = 0; j < kNP; ++j)
+    for (int i = tid; i < 16 * kI; i += kThreads) {
+      const int t = i / kI;
+      const long long g = (chain_q[j] * ntok + t) * kI + (i % kI);
+      tok_set(tk_all[j * 16 * kI + i],
+              t < ntok ? Num<T>::to_f(tok_k[g]) : 0.f);
+      tok_set(tv_all[j * 16 * kI + i],
+              t < ntok ? Num<T>::to_f(tok_v[g]) : 0.f);
+    }
   // this lane's LayerNorm weights: columns lane + 32 k
   float lw[8], lb[8];
 #pragma unroll
@@ -91,13 +133,23 @@ i2t_kernel(const T* __restrict__ keys, const T* __restrict__ peq,
   __syncthreads();
 
   for (int n0 = row0; n0 < min(row0 + kRowsPerBlock, n); n0 += kBR) {
+#pragma unroll
+  for (int j = 0; j < kNP; ++j) {
+    const T* kp = chain_keys[j];
+    const T* peq = chain_peq[j];
+    const Tok* tk_s = tk_all + j * 16 * kI;
+    const Tok* tv_s = tv_all + j * 16 * kI;
+    const long long p = chain_q[j];
+    // a second chain on the same image finds the bf16 key tile and, under
+    // pre, the qi tile already in shared memory
+    const bool staged = j > 0 && kp == chain_keys[0] && peq == chain_peq[0];
     if constexpr (Num<T>::is_bf16) {
-      copy_bf16(xb_s, kp + (long long)n0 * kC, kBR * kC);
+      if (!staged) copy_bf16(xb_s, kp + (long long)n0 * kC, kBR * kC);
     } else {
       for (int i = tid; i < kBR * kC; i += kThreads)
         x_s[i] = Num<T>::to_f(kp[(long long)n0 * kC + i]);
     }
-    if (pre) {
+    if (pre && !staged) {
       for (int i = tid; i < kBR * kI; i += kThreads)
         q_s[i] = Num<T>::to_f(peq[(long long)n0 * kI + i]);
     }
@@ -164,7 +216,8 @@ i2t_kernel(const T* __restrict__ keys, const T* __restrict__ peq,
       for (int t = 0; t < 16; ++t) {
         float v = 0.f;
 #pragma unroll
-        for (int d = 0; d < kDh; ++d) v = fmaf(q[d], tk_s[t * kI + h * kDh + d], v);
+        for (int d = 0; d < kDh; ++d)
+          v = fmaf(q[d], tok_f(tk_s[t * kI + h * kDh + d]), v);
         s[t] = v;
         if (t < ntok) m = fmaxf(m, v);
       }
@@ -182,7 +235,8 @@ i2t_kernel(const T* __restrict__ keys, const T* __restrict__ peq,
       for (int t = 0; t < 16; ++t) {
         const float pt = Num<T>::round(s[t] * linv);
 #pragma unroll
-        for (int d = 0; d < kDh; ++d) o[d] = fmaf(pt, tv_s[t * kI + h * kDh + d], o[d]);
+        for (int d = 0; d < kDh; ++d)
+          o[d] = fmaf(pt, tok_f(tv_s[t * kI + h * kDh + d]), o[d]);
       }
 #pragma unroll
       for (int d = 0; d < kDh; ++d) atb_s[r * kI + h * kDh + d] = Num<T>::from_f(o[d]);
@@ -245,7 +299,7 @@ i2t_kernel(const T* __restrict__ keys, const T* __restrict__ peq,
 #pragma unroll
       for (int k = 0; k < 8; ++k) q += (v[k] - mu) * (v[k] - mu);
       const float inv = rsqrtf(warp_sum(q) / kC + eps);
-      T* orow = out + ((long long)p * n + n0 + r) * kC;
+      T* orow = out + (p * n + n0 + r) * kC;
 #pragma unroll
       for (int k = 0; k < 8; ++k)
         orow[lane + 32 * k] =
@@ -253,36 +307,50 @@ i2t_kernel(const T* __restrict__ keys, const T* __restrict__ peq,
     }
     __syncthreads();
   }
+  }
 }
 
-template <typename T, bool kWSmem>
+template <typename T, bool kWSmem, int kNP>
 int launch(const void* keys, const void* peq, const void* tok_k,
            const void* tok_v, const void* wq, const float* bq,
            const void* wout, const float* bout, const void* nw,
            const void* nb, void* out, int P, int n, int ntok, float scale,
-           float eps, int pre, long long key_stride, cudaStream_t stream) {
-  size_t smem = sizeof(float) * (kBR * kC + 2 * kBR * kI + 2 * 16 * kI) +
-                sizeof(T) * kBR * kC;
+           float eps, int pre, long long key_stride,
+           long long key_img_stride, long long peq_img_stride, int ppi,
+           int chain_a, int chain_b, cudaStream_t stream) {
+  using Tok = typename TokStore<T, kNP>::type;
+  size_t smem = sizeof(float) * (kBR * kC + 2 * kBR * kI) +
+                sizeof(Tok) * kNP * 2 * 16 * kI + sizeof(T) * kBR * kC;
   if (kWSmem) smem += sizeof(T) * 2 * kC * kI;
-  auto kern = i2t_kernel<T, kWSmem>;
+  auto kern = i2t_kernel<T, kWSmem, kNP>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid(P, (n + kRowsPerBlock - 1) / kRowsPerBlock);
+  dim3 grid(P / kNP, (n + kRowsPerBlock - 1) / kRowsPerBlock);
   kern<<<grid, kThreads, smem, stream>>>(
       (const T*)keys, (const T*)peq, (const T*)tok_k, (const T*)tok_v,
       (const T*)wq, bq, (const T*)wout, bout, (const T*)nw, (const T*)nb,
-      (T*)out, n, ntok, scale, eps, pre, key_stride);
+      (T*)out, n, ntok, scale, eps, pre, key_stride, key_img_stride,
+      peq_img_stride, ppi, chain_a, chain_b);
   return (int)cudaGetLastError();
+}
+
+template <typename T, bool kWSmem, typename... A>
+int launch_np(int pair, A... a) {
+  return pair ? launch<T, kWSmem, 2>(a...) : launch<T, kWSmem, 1>(a...);
 }
 
 }  // namespace
 
-// keys: [Pk, n, 256]; peq: [n, 128] = pe_q @ ... pre-projected positional
-// term (pre: the scaled, rounded qi [n, 128]); tok_k, tok_v: [P, T, 128];
-// wq: [256, 128]; bq: float [128]; wout: [128, 256]; bout: float [256];
-// nw, nb: [256]; out: [P, n, 256]. key_stride is n * 256 for per-prompt
-// keys, 0 when the keys are shared.
+// keys: [Pk, n, 256]; tok_k, tok_v: [P, T, 128]; wq: [256, 128]; bq: float
+// [128]; wout: [128, 256]; bout: float [256]; nw, nb: [256]; out:
+// [P, n, 256]. Per-prompt keys (pre == 0): Pk == P, key_stride = n * 256,
+// peq: [n, 128] the pre-projected positional term, the image strides 0.
+// Shared keys (pre != 0): Pk images of ppi prompts each, key_stride = 0,
+// key_img_stride = n * 256, peq: [Pk, n, 128] the scaled, rounded qi with
+// peq_img_stride = n * 128. pair: 0 for one prompt a block; 1 for two
+// prompts a block (2b, 2b + 1; P even); 2 for an image pair (prompt b of
+// image 0 and of image 1; P = 2 * ppi).
 extern "C" int nttt_i2t_norm(const void* keys, const void* peq,
                              const void* tok_k, const void* tok_v,
                              const void* wq, const float* bq,
@@ -290,15 +358,22 @@ extern "C" int nttt_i2t_norm(const void* keys, const void* peq,
                              const void* nw, const void* nb, void* out,
                              int P, int n, int heads, int ntok, float scale,
                              float eps, int pre, long long key_stride,
+                             long long key_img_stride,
+                             long long peq_img_stride, int ppi, int pair,
                              int dtype, void* stream) {
-  if (heads != kH || ntok < 1 || ntok > 16 || n % kBR)
+  if (heads != kH || ntok < 1 || ntok > 16 || n % kBR || ppi < 1 ||
+      pair < 0 || pair > 2 || (pair && P % 2) || (pair == 2 && P != 2 * ppi))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  const int chain_a = pair == 1 ? 2 : 1;
+  const int chain_b = pair == 2 ? ppi : 1;
   if (dtype == NTTT_DTYPE_BF16)
-    return launch<__nv_bfloat16, true>(keys, peq, tok_k, tok_v, wq, bq, wout,
-                                       bout, nw, nb, out, P, n, ntok, scale,
-                                       eps, pre, key_stride, s);
-  return launch<float, false>(keys, peq, tok_k, tok_v, wq, bq, wout, bout,
-                              nw, nb, out, P, n, ntok, scale, eps, pre,
-                              key_stride, s);
+    return launch_np<__nv_bfloat16, true>(
+        pair, keys, peq, tok_k, tok_v, wq, bq, wout, bout, nw, nb, out, P, n,
+        ntok, scale, eps, pre, key_stride, key_img_stride, peq_img_stride,
+        ppi, chain_a, chain_b, s);
+  return launch_np<float, false>(
+      pair, keys, peq, tok_k, tok_v, wq, bq, wout, bout, nw, nb, out, P, n,
+      ntok, scale, eps, pre, key_stride, key_img_stride, peq_img_stride, ppi,
+      chain_a, chain_b, s);
 }

@@ -16,9 +16,17 @@
 // logits never reach device memory; what is read is the keys (once), pe_k
 // and the weights.
 //
-// Layer 0 (pre != 0): kk and vv are the same for every prompt, so the
-// caller projects them once with a matrix product and the kernel reads them
-// from device memory instead of projecting.
+// Layer 0 (pre != 0): kk and vv are the same for every prompt of an image,
+// so the caller projects them once per image with a matrix product and the
+// kernel reads them from device memory instead of projecting; prompt q reads
+// image q / ppi.
+//
+// The pair variant (kNP == 2) replaces `_t2i_p2_kernel` (two prompts a grid
+// step, per-prompt keys). The TPU body pairs two chains so that one chain's
+// vector work overlaps the other's matrix work; here a block serves prompts
+// 2b and 2b + 1, stages Wk|Wv once for both and keeps two online-softmax
+// states (q, max, sum, rescale factor in shared memory, the accumulators in
+// registers) apart.
 //
 // Bound: at the slice's shapes the per-prompt projection is 137 GFLOP a
 // call. In bf16 it runs on the tensor cores (WMMA 16x16x16, float32
@@ -37,60 +45,73 @@ constexpr int kDh = 16;
 constexpr int kBK = 32;      // key rows a tile
 constexpr int kThreads = 256;
 
-template <typename T, bool kWSmem>
+template <typename T, bool kWSmem, int kNP>
 __global__ void __launch_bounds__(kThreads)
 t2i_kernel(const T* __restrict__ keys, const T* __restrict__ pe,
            const T* __restrict__ tok_q, const T* __restrict__ wkv,
            const float* __restrict__ bk, const float* __restrict__ bv,
            T* __restrict__ out, int n, int heads, int ntok, float scale,
-           int pre, long long key_stride) {
+           int pre, long long key_stride, long long img_stride, int ppi) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* x_s = (float*)smem_raw;            // [kBK][kC]
-  float* kk_s = x_s + kBK * kC;             // [kBK][kI]
+  T* xt_s = (T*)smem_raw;                   // [kBK][kC] key tile
+  float* x_s = (float*)smem_raw;            // the same, float32 path
+  float* kk_s = (float*)(xt_s + kBK * kC);  // [kBK][kI]
   float* vv_s = kk_s + kBK * kI;            // [kBK][kI]
   float* s_s = vv_s + kBK * kI;             // [kBK][128] logits / weights
-  float* q_s = s_s + kBK * 128;             // [128][kDh]
-  float* m_s = q_s + 128 * kDh;             // [128]
-  float* l_s = m_s + 128;                   // [128]
-  float* a_s = l_s + 128;                   // [128] rescale factors
+  float* q_all = s_s + kBK * 128;           // [kNP][128][kDh]
+  float* m_all = q_all + kNP * 128 * kDh;   // [kNP][128]
+  float* l_all = m_all + kNP * 128;         // [kNP][128]
+  float* a_s = l_all + kNP * 128;           // [128] rescale factors
   T* w_s = (T*)(a_s + 128);                 // [kC][2*kI] when kWSmem
 
   const int tid = threadIdx.x;
-  const int p = blockIdx.x;
   const int ht = heads * ntok;              // live (head, token) columns
-  const T* kp = keys + (long long)p * key_stride;
 
   const T* w = wkv;
   if (kWSmem && !pre) {
     for (int i = tid; i < kC * 2 * kI; i += kThreads) w_s[i] = wkv[i];
     w = w_s;
   }
-  for (int c = tid; c < 128; c += kThreads) {
-    m_s[c] = -1e30f;
-    l_s[c] = 0.f;
+  for (int c = tid; c < kNP * 128; c += kThreads) {
+    m_all[c] = -1e30f;
+    l_all[c] = 0.f;
   }
-  for (int i = tid; i < 128 * kDh; i += kThreads) {
-    const int col = i / kDh, d = i % kDh;
-    float v = 0.f;
-    if (col < ht) {
-      const int h = col / ntok, t = col % ntok;
-      v = Num<T>::round(
-          Num<T>::to_f(tok_q[((long long)p * ntok + t) * kI + h * kDh + d]) *
-          scale);
-    }
-    q_s[i] = v;
-  }
-  float acc[8];
 #pragma unroll
-  for (int k = 0; k < 8; ++k) acc[k] = 0.f;
+  for (int j = 0; j < kNP; ++j)
+    for (int i = tid; i < 128 * kDh; i += kThreads) {
+      const int col = i / kDh, d = i % kDh;
+      const long long p = (long long)blockIdx.x * kNP + j;
+      float v = 0.f;
+      if (col < ht) {
+        const int h = col / ntok, t = col % ntok;
+        v = Num<T>::round(
+            Num<T>::to_f(tok_q[(p * ntok + t) * kI + h * kDh + d]) * scale);
+      }
+      q_all[j * 128 * kDh + i] = v;
+    }
+  float acc_all[kNP][8];
+#pragma unroll
+  for (int j = 0; j < kNP; ++j)
+#pragma unroll
+    for (int k = 0; k < 8; ++k) acc_all[j][k] = 0.f;
   __syncthreads();
 
   for (int n0 = 0; n0 < n; n0 += kBK) {
+#pragma unroll
+  for (int j = 0; j < kNP; ++j) {
+    const long long p = (long long)blockIdx.x * kNP + j;
+    // per-prompt keys, or under pre the kk / vv of the prompt's image
+    const T* kp = keys + p * key_stride + (p / ppi) * img_stride;
+    const T* vp = pe + (p / ppi) * img_stride;
+    float* q_s = q_all + j * 128 * kDh;
+    float* m_s = m_all + j * 128;
+    float* l_s = l_all + j * 128;
+    float* acc = acc_all[j];
     if constexpr (Num<T>::is_bf16) {
       if (!pre) {
         // [kBK, kC] @ [kC, 2*kI] on the tensor cores: warp w owns row tile
         // w & 1 and column tiles 4 (w >> 1) .. +3, all in kk or all in vv
-        __nv_bfloat16* xb_s = (__nv_bfloat16*)x_s;
+        __nv_bfloat16* xb_s = (__nv_bfloat16*)xt_s;
         copy_bf16(xb_s, kp + (long long)n0 * kC, kBK * kC);
         __syncthreads();
         const int warp = tid >> 5;
@@ -147,10 +168,10 @@ t2i_kernel(const T* __restrict__ keys, const T* __restrict__ pe,
         }
       }
     } else if (pre) {
-      // layer 0: kk in `keys`, vv in `pe`, both [n, kI]
+      // layer 0: kk in `keys`, vv in `pe`, both [images, n, kI]
       for (int i = tid; i < kBK * kI; i += kThreads) {
-        kk_s[i] = Num<T>::to_f(keys[(long long)n0 * kI + i]);
-        vv_s[i] = Num<T>::to_f(pe[(long long)n0 * kI + i]);
+        kk_s[i] = Num<T>::to_f(kp[(long long)n0 * kI + i]);
+        vv_s[i] = Num<T>::to_f(vp[(long long)n0 * kI + i]);
       }
     }
     __syncthreads();
@@ -210,61 +231,82 @@ t2i_kernel(const T* __restrict__ keys, const T* __restrict__ pe,
     }
     __syncthreads();
   }
+  }
 
 #pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const int col = (tid >> 4) + 16 * k;
-    const int d = tid & 15;
-    if (col < ht) {
-      const int h = col / ntok, t = col % ntok;
-      out[((long long)p * ntok + t) * kI + h * kDh + d] =
-          Num<T>::from_f(acc[k] * (1.0f / l_s[col]));
+  for (int j = 0; j < kNP; ++j)
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int col = (tid >> 4) + 16 * k;
+      const int d = tid & 15;
+      if (col < ht) {
+        const int h = col / ntok, t = col % ntok;
+        const long long p = (long long)blockIdx.x * kNP + j;
+        out[(p * ntok + t) * kI + h * kDh + d] = Num<T>::from_f(
+            acc_all[j][k] * (1.0f / l_all[j * 128 + col]));
+      }
     }
-  }
 }
 
-template <typename T, bool kWSmem>
+template <typename T, bool kWSmem, int kNP>
 int launch(const void* keys, const void* pe, const void* tok_q,
            const void* wkv, const float* bk, const float* bv, void* out,
            int P, int n, int heads, int ntok, float scale, int pre,
-           long long key_stride, cudaStream_t stream) {
-  size_t smem = sizeof(float) * (kBK * kC + 2 * kBK * kI + kBK * 128 +
-                                 128 * kDh + 3 * 128);
+           long long key_stride, long long img_stride, int ppi,
+           cudaStream_t stream) {
+  size_t smem = sizeof(T) * kBK * kC +
+                sizeof(float) * (2 * kBK * kI + kBK * 128 +
+                                 kNP * (128 * kDh + 2 * 128) + 128);
   if (kWSmem) smem += sizeof(T) * kC * 2 * kI;
-  auto kern = t2i_kernel<T, kWSmem>;
+  auto kern = t2i_kernel<T, kWSmem, kNP>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  kern<<<P, kThreads, smem, stream>>>(
+  kern<<<P / kNP, kThreads, smem, stream>>>(
       (const T*)keys, (const T*)pe, (const T*)tok_q, (const T*)wkv, bk, bv,
-      (T*)out, n, heads, ntok, scale, pre, key_stride);
+      (T*)out, n, heads, ntok, scale, pre, key_stride, img_stride, ppi);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// keys: [Pk, n, 256] (pre: kk [n, 128]); pe: [n, 128] (pre: vv [n, 128]);
-// tok_q: [P, T, 128]; wkv: [256, 256] = Wk | Wv; bk, bv: float [128];
-// out: [P, T, 128]. key_stride is n * 256 for per-prompt keys, 0 when the
-// keys are shared.
+// tok_q: [P, T, 128]; wkv: [256, 256] = Wk | Wv; bk, bv: float [128]; out:
+// [P, T, 128]. Per-prompt keys (pre == 0): keys [P, n, 256], key_stride =
+// n * 256, pe [n, 128], img_stride 0. Shared keys (pre != 0): `keys` holds
+// kk and `pe` holds vv, both [images, n, 128] with img_stride = n * 128 and
+// key_stride 0; prompt q reads image q / ppi. pair != 0 (per-prompt keys
+// only, P even): two prompts a block.
 extern "C" int nttt_t2i_attn(const void* keys, const void* pe,
                              const void* tok_q, const void* wkv,
                              const float* bk, const float* bv, void* out,
                              int P, int n, int heads, int ntok, float scale,
-                             int pre, long long key_stride, int dtype,
-                             void* stream) {
-  if (heads * kDh != kI || ntok < 1 || ntok > 16 || n % kBK)
+                             int pre, long long key_stride,
+                             long long img_stride, int ppi, int pair,
+                             int dtype, void* stream) {
+  if (heads * kDh != kI || ntok < 1 || ntok > 16 || n % kBK || ppi < 1 ||
+      (pair && (pre || P % 2)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == NTTT_DTYPE_BF16) {
     if (pre)
-      return launch<__nv_bfloat16, false>(keys, pe, tok_q, wkv, bk, bv, out,
+      return launch<__nv_bfloat16, false, 1>(keys, pe, tok_q, wkv, bk, bv,
+                                             out, P, n, heads, ntok, scale,
+                                             pre, key_stride, img_stride,
+                                             ppi, s);
+    if (pair)
+      return launch<__nv_bfloat16, true, 2>(keys, pe, tok_q, wkv, bk, bv,
+                                            out, P, n, heads, ntok, scale,
+                                            pre, key_stride, img_stride, ppi,
+                                            s);
+    return launch<__nv_bfloat16, true, 1>(keys, pe, tok_q, wkv, bk, bv, out,
                                           P, n, heads, ntok, scale, pre,
-                                          key_stride, s);
-    return launch<__nv_bfloat16, true>(keys, pe, tok_q, wkv, bk, bv, out, P,
-                                       n, heads, ntok, scale, pre,
-                                       key_stride, s);
+                                          key_stride, img_stride, ppi, s);
   }
-  return launch<float, false>(keys, pe, tok_q, wkv, bk, bv, out, P, n, heads,
-                              ntok, scale, pre, key_stride, s);
+  if (pair)
+    return launch<float, false, 2>(keys, pe, tok_q, wkv, bk, bv, out, P, n,
+                                   heads, ntok, scale, pre, key_stride,
+                                   img_stride, ppi, s);
+  return launch<float, false, 1>(keys, pe, tok_q, wkv, bk, bv, out, P, n,
+                                 heads, ntok, scale, pre, key_stride,
+                                 img_stride, ppi, s);
 }

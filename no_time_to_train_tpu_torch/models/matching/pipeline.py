@@ -5,10 +5,15 @@ test.
 
 The test step: DINOv2 or DINOv3 features of the target, Hiera + FPN once, the point
 grid decoded in chunks with the best of the multimask outputs kept, masked
-average features scored against the bank, class-aware NMS, semantic-IoS
-decay and top-K, all on the model's device with fixed shapes. The winning
-low-resolution logits go to the host, where `finalize_results` resizes them
-to the original image size.
+average features scored against the bank (with negative references, against
+both banks), class-aware NMS, semantic-IoS decay and top-K, all on the
+model's device with fixed shapes. The winning low-resolution logits go to
+the host, where `finalize_results` resizes them to the original image size.
+
+`test` runs one image and fetches it; `test_async` queues one image and
+returns device tensors for `fetch_test`, so that the next image can be
+queued before the fetch; `test_batch_async` runs B images as one step: both
+encoders at batch B, every decode chunk at B * chunk prompts.
 """
 from dataclasses import dataclass
 from functools import partial
@@ -40,8 +45,8 @@ IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
 @dataclass(frozen=True)
 class MatchingConfig:
     """sam2_infer_cfgs of the reference experiment YAMLs. The JAX package's
-    negative references, factored decoder and int8 encoders are not
-    ported. `attention_impl` is set on this matcher's two encoders only."""
+    factored decoder and int8 encoders are not ported. `attention_impl` is
+    set on this matcher's two encoders only."""
     points_per_side: int = 32
     testing_point_bs: int = 256
     iou_thr: float = 0.4
@@ -50,6 +55,8 @@ class MatchingConfig:
     kmeans_k: int = 4
     n_pca_components: int = 3
     cls_num_per_mask: int = 1
+    with_negative_refs: bool = False
+    neg_sigma: float = 0.8
     expand_ratio: int = 8
     analysis_res: int = 256
     compute_dtype: str = "float32"
@@ -92,9 +99,13 @@ class NoAMGMatcher:
         for model in (self.sam2, self.dino):
             set_attention_impl(model, matching.attention_impl)
         gs = self.enc_cfg.grid_size
-        self.bank = mb.create(n_classes, memory_length, gs * gs,
-                              self.enc_cfg.feat_dim, matching.kmeans_k,
-                              matching.n_pca_components, device=self.device)
+        def new_bank():
+            return mb.create(n_classes, memory_length, gs * gs,
+                             self.enc_cfg.feat_dim, matching.kmeans_k,
+                             matching.n_pca_components, device=self.device)
+
+        self.bank = new_bank()
+        self.bank_neg = new_bank() if matching.with_negative_refs else None
         self._mean = torch.as_tensor(IMAGENET_MEAN, device=self.device)
         self._std = torch.as_tensor(IMAGENET_STD, device=self.device)
 
@@ -129,24 +140,37 @@ class NoAMGMatcher:
         masks = resize_hw(ref_masks.float(), (gs, gs), mode="nearest")
         return feats, masks.reshape(masks.shape[0], -1)
 
-    def fill_memory(self, ref_imgs, ref_masks, cat_inds):
+    def fill_memory(self, ref_imgs, ref_masks, cat_inds, positive=True):
+        """Write references into the positive or the negative bank; raises
+        IndexError when a class receives more than `memory_length`."""
+        if not positive and self.bank_neg is None:
+            raise ValueError("the negative bank needs "
+                             "MatchingConfig(with_negative_refs=True)")
         feats, masks = self._fill_features(self._as_tensor(ref_imgs),
                                            self._as_tensor(ref_masks))
-        self.bank = mb.fill(self.bank, cat_inds, feats, masks)
+        if positive:
+            self.bank = mb.fill(self.bank, cat_inds, feats, masks)
+        else:
+            self.bank_neg = mb.fill(self.bank_neg, cat_inds, feats, masks)
 
-    def postprocess_memory(self, seed=0):
+    def postprocess_memory(self, positive=True, seed=0):
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        self.bank = mb.postprocess(self.bank, gen)
+        if positive:
+            self.bank = mb.postprocess(self.bank, gen)
+        else:
+            self.bank_neg = mb.postprocess(self.bank_neg, gen)
 
     # ----------------------------------------------------------------- test
-    def _decode_grid(self, img):
-        """Hiera + FPN once, then the grid decoded in chunks. Returns
-        (lr_masks [P, 4h, 4w] in the compute dtype, pred_ious [P],
-        points [P, 2])."""
+    def _decode_grid_batch(self, imgs):
+        """Hiera + FPN once at the batch of imgs [B, S, S, 3], then the grid
+        decoded in chunks of B * chunk prompts. Returns (lr_masks
+        [B, P, 4h, 4w] in the compute dtype, pred_ious [B, P], points
+        [P, 2])."""
         m = self.matching
         s = self.sam2_cfg.image_size
+        n_img = imgs.shape[0]
         backbone = self.sam2.forward_image(
-            self._normalize(img)[None].to(self.dtype))
+            self._normalize(imgs).to(self.dtype))
         fpn = backbone["backbone_fpn"]
         feats, hr = fpn[-1], [fpn[0], fpn[1]]
         pts = grid_points(m.points_per_side, s, self.device)
@@ -159,22 +183,48 @@ class NoAMGMatcher:
         labels = torch.ones((chunk, 1), dtype=torch.long, device=self.device)
         for pc in pts.reshape(n_pts // chunk, chunk, 1, 2):
             lr, iou = self.sam2.forward_sam_heads_best(feats, pc, labels, hr)
-            lrs.append(lr)
-            ious.append(iou)
-        return torch.cat(lrs), torch.cat(ious), pts
+            lrs.append(lr.reshape(n_img, chunk, *lr.shape[1:]))
+            ious.append(iou.reshape(n_img, chunk))
+        return torch.cat(lrs, dim=1), torch.cat(ious, dim=1), pts
+
+    def _decode_grid(self, img):
+        """One image [S, S, 3]: (lr_masks [P, 4h, 4w], pred_ious [P],
+        points [P, 2])."""
+        lr, ious, pts = self._decode_grid_batch(img[None])
+        return lr[0], ious[0], pts
+
+    def _target_features(self, tar_imgs):
+        """DINO features [B, gs * gs, D] float32 of tar_imgs [B, S, S, 3]."""
+        e = self.enc_cfg.img_size
+        enc_in = self._normalize(resize(tar_imgs, (e, e), mode="bicubic"))
+        return self.dino(enc_in.to(self.dtype)).float()
 
     @torch.no_grad()
     def _test_impl(self, tar_img):
         """tar_img: [S, S, 3] float in [0, 1] on the device. Returns the
-        padded result dict of the reference forward_test (:562-698)."""
-        m = self.matching
-        e, gs = self.enc_cfg.img_size, self.enc_cfg.grid_size
-        bank = self.bank
-
-        enc_in = self._normalize(resize(tar_img[None], (e, e), mode="bicubic"))
-        tar_feat = self.dino(enc_in.to(self.dtype)).float()[0]
-
+        padded result dict of the reference forward_test (:562-698).
+        Nothing here waits for the device."""
+        tar_feat = self._target_features(tar_img[None])[0]
         lr, pred_ious, _ = self._decode_grid(tar_img)
+        return self._match(tar_feat, lr, pred_ious)
+
+    @torch.no_grad()
+    def _test_batch_impl(self, tar_imgs):
+        """tar_imgs: [B, S, S, 3]: both encoders at batch B, every decode
+        chunk at B * chunk prompts, then the tail per image. Returns the
+        result dict of `_test_impl` with a leading B axis."""
+        tar_feats = self._target_features(tar_imgs)
+        lrs, pred_ious, _ = self._decode_grid_batch(tar_imgs)
+        outs = [self._match(tar_feats[b], lrs[b], pred_ious[b])
+                for b in range(tar_imgs.shape[0])]
+        return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+    def _match(self, tar_feat, lr, pred_ious):
+        """Scoring, NMS, IoS decay and top-K of one image: tar_feat
+        [gs * gs, D] float32, lr [P, 4h, 4w], pred_ious [P]."""
+        m = self.matching
+        gs = self.enc_cfg.grid_size
+        bank = self.bank
         n_masks, lr_res = lr.shape[0], lr.shape[-1]
         valid = pred_ious > m.iou_thr
 
@@ -182,8 +232,13 @@ class NoAMGMatcher:
                          mode="bilinear", antialias=True)[0]
         feat_sp = feat_sp.reshape(lr_res * lr_res, -1).to(self.dtype)
         masks_bool = (lr > 0).reshape(n_masks, -1)
-        sim, obj_feats = scoring.sim_global_avg(feat_sp, masks_bool,
-                                                bank.feats_ins_avg)
+        if m.with_negative_refs:
+            sim, obj_feats = scoring.sim_global_avg_with_neg(
+                feat_sp, masks_bool, bank.feats_avg,
+                self.bank_neg.feats_ins_avg, sigma=m.neg_sigma)
+        else:
+            sim, obj_feats = scoring.sim_global_avg(feat_sp, masks_bool,
+                                                    bank.feats_ins_avg)
 
         n_classes = bank.feats_ins_avg.shape[0]
         k = n_classes if m.cls_num_per_mask == -1 else m.cls_num_per_mask
@@ -240,12 +295,28 @@ class NoAMGMatcher:
         """tar_img: [S, S, 3] float in [0, 1]. Returns a numpy dict with
         `lr_logits` [K, 4h, 4w] float16, `scores`, `labels`, `pred_ious`,
         `valid`; valid entries form a prefix."""
-        return self.fetch_test(self._test_impl(self._as_tensor(tar_img)))
+        return self.fetch_test(self.test_async(tar_img))
+
+    def test_async(self, tar_img):
+        """Queue one test step and return its outputs on the device without
+        waiting for them. `fetch_test` brings them to the host; queue the
+        next image first to overlap its work with the fetch."""
+        return self._test_impl(self._as_tensor(tar_img))
+
+    def test_batch_async(self, tar_imgs):
+        """tar_imgs [B, S, S, 3]: B images as one step, outputs on the
+        device with a leading B axis (`fetch_test` takes them too)."""
+        return self._test_batch_impl(self._as_tensor(tar_imgs))
 
     @staticmethod
     def fetch_test(out):
         """Device outputs -> numpy; only the valid prefix of the logits is
-        copied."""
+        copied. A batched output gives the same dict with a leading B
+        axis."""
+        if out["valid"].dim() == 2:
+            per = [NoAMGMatcher.fetch_test({k: v[b] for k, v in out.items()})
+                   for b in range(out["valid"].shape[0])]
+            return {k: np.stack([o[k] for o in per]) for k in per[0]}
         valid = out["valid"].cpu().numpy()
         n = int(valid.sum())
         lr = np.zeros(tuple(out["lr_logits"].shape), np.float16)

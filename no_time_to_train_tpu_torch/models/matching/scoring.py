@@ -1,10 +1,11 @@
 """Matching math (port of `no_time_to_train_tpu/models/matching/scoring.py`;
 reference matching_baseline_utils.py:831-941): cosine similarity against the
-class prototypes and the semantic intersection-over-self decay, with fixed
-shapes and validity masks."""
+class prototypes, negative-reference suppression and the semantic
+intersection-over-self decay, with fixed shapes and validity masks."""
 import torch
 
-__all__ = ["masked_avg_feats", "sim_global_avg", "semantic_ios"]
+__all__ = ["masked_avg_feats", "sim_global_avg", "sim_global_avg_with_neg",
+           "semantic_ios"]
 
 
 def _l2n(x):
@@ -29,6 +30,24 @@ def sim_global_avg(tar_feat, masks_bool, mem_feats_ins_avg):
     obj_feats = masked_avg_feats(tar_feat, masks_bool)
     mem_avg = _l2n(mem_feats_ins_avg.float().mean(dim=1))
     return obj_feats @ mem_avg.T, obj_feats
+
+
+def sim_global_avg_with_neg(tar_feat, masks_bool, mem_feats_avg,
+                            mem_feats_ins_avg_neg, sigma=1.0):
+    """The positive similarity with exponential negative-reference
+    suppression (reference :906-941): sim_pos * exp(-max(sim_neg - sim_pos,
+    0) / sigma), sim_neg the largest over a class's negative instance
+    prototypes. mem_feats_avg [C, D]; mem_feats_ins_avg_neg [C, L, D].
+    Returns (sim [M, C], obj_feats [M, D])."""
+    obj_feats = masked_avg_feats(tar_feat, masks_bool)
+    n_classes, d = mem_feats_avg.shape
+    mem_avg = _l2n(mem_feats_avg.float())
+    neg = _l2n(mem_feats_ins_avg_neg.float()).reshape(-1, d)
+    sim_pos = (obj_feats @ mem_avg.T).clamp(min=0.0)
+    sim_neg = (obj_feats @ neg.T).clamp(min=0.0)
+    sim_neg = sim_neg.reshape(masks_bool.shape[0], n_classes, -1).amax(dim=-1)
+    out = sim_pos * torch.exp(-(sim_neg - sim_pos).clamp(min=0.0) / sigma)
+    return out, obj_feats
 
 
 def semantic_ios(masks_bool, labels, obj_sim, valid=None):

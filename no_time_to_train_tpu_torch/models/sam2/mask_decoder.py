@@ -173,14 +173,17 @@ class MaskDecoder(nn.Module):
                                   sparse_prompt_embeddings,
                                   dense_prompt_embeddings,
                                   high_res_features=None):
-        """image_embeddings, dense: [1, h, w, C]; image_pe [h, w, C]; sparse
-        [B, N, C]. Runs the transformer, picks the best of the multimask
-        outputs (channels 1..3) by predicted IoU and computes only that
-        mask. Returns (mask [B, 4h, 4w], iou [B])."""
+        """image_embeddings [Bi, h, w, C]; dense [1, h, w, C]; image_pe
+        [h, w, C]; sparse [B, N, C], the B / Bi prompts of an image lying
+        together; high_res_features with Bi rows. Runs the transformer,
+        picks the best of the multimask outputs (channels 1..3) by predicted
+        IoU and computes only that mask. Returns (mask [B, 4h, 4w],
+        iou [B])."""
         tokens, s = self._tokens(sparse_prompt_embeddings)
         bs = tokens.shape[0]
-        # the image side keeps batch 1: the prompt-independent projections of
-        # layer 0 are computed once until the keys diverge per prompt
+        # the image side keeps its own batch: the prompt-independent
+        # projections of layer 0 are computed once per image until the keys
+        # diverge per prompt
         src = image_embeddings + dense_prompt_embeddings
         h, w = src.shape[1:3]
         hs, src_out = self.transformer(src, image_pe[None], tokens)
@@ -199,7 +202,8 @@ class MaskDecoder(nn.Module):
                                     high_res_features):
         """Output upscaling and hypernetwork product in the deconvolutions'
         unshuffled layout: rows (y, x), cols (phase, channel). Only the final
-        [B, 4h, 4w] mask is re-ordered."""
+        [B, 4h, 4w] mask is re-ordered. The skips are re-laid once per
+        image."""
         b = src_flat.shape[0]
         d = self.transformer_dim
         c1, c2 = d // 4, d // 8
@@ -210,15 +214,16 @@ class MaskDecoder(nn.Module):
         k2 = dc2.weight.permute(0, 2, 3, 1).reshape(c1, 4 * c2)
         if high_res_features is not None:
             feat_s0, feat_s1 = high_res_features
-            # [1, 2h, 2w, c1] -> rows (y, x), cols (dy1, dx1, c1)
-            s1f = feat_s1.reshape(h, 2, w, 2, c1).permute(0, 2, 1, 3, 4) \
-                .reshape(hw, 4 * c1)
-            # [1, 4h, 4w, c2] -> rows (y, x), cols (dy1, dx1, dy2, dx2, c2)
-            s0f16 = feat_s0.reshape(h, 2, 2, w, 2, 2, c2) \
-                .permute(0, 3, 1, 4, 2, 5, 6).reshape(hw, 16 * c2)
+            bi = feat_s1.shape[0]
+            # [Bi, 2h, 2w, c1] -> rows (y, x), cols (dy1, dx1, c1)
+            s1f = feat_s1.reshape(bi, h, 2, w, 2, c1) \
+                .permute(0, 1, 3, 2, 4, 5).reshape(bi, hw, 4 * c1)
+            # [Bi, 4h, 4w, c2] -> rows (y, x), cols (dy1, dx1, dy2, dx2, c2)
+            s0f16 = feat_s0.reshape(bi, h, 2, 2, w, 2, 2, c2) \
+                .permute(0, 1, 4, 2, 5, 3, 6, 7).reshape(bi, hw, 16 * c2)
         else:
-            s1f = src_flat.new_zeros(hw, 4 * c1)
-            s0f16 = src_flat.new_zeros(hw, 16 * c2)
+            s1f = src_flat.new_zeros(1, hw, 4 * c1)
+            s0f16 = src_flat.new_zeros(1, hw, 16 * c2)
         s1p, s0p = fold_skips(dc1.bias.repeat(4), s1f, dc2.bias, s0f16)
         m16 = fused_post_t1(src_flat.reshape(b, hw, d).contiguous(), k1, s1p,
                             ln.weight, ln.bias, k2, s0p, hyper, eps=ln.eps)

@@ -88,11 +88,13 @@ class SAM2(nn.Module):
     # ------------------------------------------------------------------ heads
     def forward_sam_heads_best(self, backbone_features, point_coords,
                                point_labels, high_res_features=None):
-        """Grid decode: point prompts [B, 1, 2] / labels [B, 1] against one
-        image's features [1, h, w, C]. Returns (mask [B, 4h, 4w] in the
-        compute dtype, iou [B])."""
+        """Grid decode: point prompts [B, 1, 2] / labels [B, 1] against the
+        features [Bi, h, w, C] of Bi images (high_res_features with Bi rows
+        too); every image is decoded at every prompt. Returns (mask
+        [Bi * B, 4h, 4w] in the compute dtype, iou [Bi * B]), image-major."""
         pe = self.sam_prompt_encoder
         sparse = pe.embed_points(point_coords, point_labels)
+        sparse = sparse.repeat(backbone_features.shape[0], 1, 1)
         return self.sam_mask_decoder.predict_best_of_multimask(
             backbone_features, pe.get_dense_pe(), sparse, pe.no_mask_dense(),
             high_res_features=high_res_features)

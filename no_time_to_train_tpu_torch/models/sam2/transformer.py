@@ -7,6 +7,11 @@ The image-side cross-attentions route to the fused kernels
 attention to K2, the image <- token attention with its residual and norm4
 to K3. Otherwise they run the classic unfused formulation.
 
+The image side may be a batch of Bi images with Bi * P prompts, the prompts
+of an image lying together: layer 0 then projects the keys once per image
+and, for an image pair, takes `fused_i2t_norm_pair`; from layer 0's output
+on the keys are per prompt, [Bi * P, n, C].
+
 `RoPEAttention` is the attention of the video memory path (self-attention
 and memory cross-attention); under `attention_impl="pallas"` its long
 sequences take `flash_sdpa` and `flash_sdpa_masked` through `sdpa`.
@@ -21,7 +26,7 @@ from no_time_to_train_tpu_torch.models.sam2.pos_enc import (
     apply_rotary, axial_rope_cos_sin)
 from no_time_to_train_tpu_torch.ops.attention import sdpa
 from no_time_to_train_tpu_torch.ops.decoder_attention import (
-    fused_i2t_norm, fused_t2i_attn)
+    fused_i2t_norm, fused_i2t_norm_pair, fused_t2i_attn, per_prompt)
 from no_time_to_train_tpu_torch.ops.upscale_product import fusion_disabled
 
 __all__ = ["Attention", "RoPEAttention", "TwoWayAttentionBlock",
@@ -60,6 +65,9 @@ class Attention(nn.Module):
         qh = self._split(self.q_proj(q))
         kh = self._split(self.k_proj(k))
         vh = self._split(self.v_proj(v))
+        # an image batch on one side: each image's rows serve its prompts
+        nb = max(qh.shape[0], kh.shape[0])
+        qh, kh, vh = (per_prompt(z, nb) for z in (qh, kh, vh))
         mask = _skip_mask(qh.shape[-2], kh.shape[-2], skip_last_n_keys,
                           is_cross_skip, q.device)
         out = sdpa(qh, kh, vh, mask=mask)
@@ -81,10 +89,20 @@ class Attention(nn.Module):
         """norm(keys + self(keys + key_pe, tok_q_in, tok_v_in)) through K3."""
         wq = self.q_proj.weight.t()
         pe_q = key_pe[0] @ wq.to(key_pe.dtype)
-        return fused_i2t_norm(
-            keys, pe_q, self.k_proj(tok_q_in), self.v_proj(tok_v_in), wq,
-            self.q_proj.bias, self.out_proj.weight.t(), self.out_proj.bias,
-            norm.weight, norm.bias, num_heads=self.num_heads, eps=norm.eps)
+        tok_k, tok_v = self.k_proj(tok_q_in), self.v_proj(tok_v_in)
+        rest = (wq, self.q_proj.bias, self.out_proj.weight.t(),
+                self.out_proj.bias, norm.weight, norm.bias)
+        bi, p_ = keys.shape[0], tok_k.shape[0]
+        if bi == 2 and p_ > 2:
+            # layer 0 of an image pair: one launch serves both images
+            out = fused_i2t_norm_pair(
+                keys, pe_q[None].expand(2, -1, -1).contiguous(),
+                tok_k.reshape(2, p_ // 2, *tok_k.shape[1:]),
+                tok_v.reshape(2, p_ // 2, *tok_v.shape[1:]), *rest,
+                num_heads=self.num_heads, eps=norm.eps)
+            return out.reshape(p_, *out.shape[2:])
+        return fused_i2t_norm(keys, pe_q, tok_k, tok_v, *rest,
+                              num_heads=self.num_heads, eps=norm.eps)
 
     def t2i_fused(self, keys, key_pe, tok_q_in):
         """self(tok_q_in, keys + key_pe, keys) through K2."""
@@ -185,7 +203,7 @@ class TwoWayAttentionBlock(nn.Module):
             attn_out = i2t(keys + key_pe, q, queries,
                            skip_last_n_keys=skip_last_n_keys,
                            is_cross_skip=True)
-            keys = self.norm4(keys + attn_out)
+            keys = self.norm4(per_prompt(keys, attn_out.shape[0]) + attn_out)
         return queries, keys
 
 
@@ -204,8 +222,9 @@ class TwoWayTransformer(nn.Module):
 
     def forward(self, image_embedding, image_pe, point_embedding,
                 skip_last_n_keys=0):
-        """image_embedding [B, h, w, C] (B may be 1, shared by every prompt),
-        image_pe [1 or B, h, w, C]; point_embedding [P, N, C]. Returns
+        """image_embedding [Bi, h, w, C] (Bi images, each shared by P / Bi
+        prompts that lie together, or one image per prompt), image_pe
+        [1 or Bi, h, w, C]; point_embedding [P, N, C]. Returns
         (queries [P, N, C], keys [P, hw, C])."""
         bi, h, w, c = image_embedding.shape
         keys = image_embedding.reshape(bi, h * w, c)

@@ -1,6 +1,7 @@
-"""Port decoder attention (plain versions of kernels K2 and K3) vs the JAX
-package's Pallas kernels in interpret mode, and the transformer's fused
-routing vs its classic path."""
+"""Port decoder attention (plain versions of kernels K2 and K3, of their
+prompt-pair variants and of the image-pair entry) vs the JAX package's Pallas
+kernels in interpret mode, and the transformer's fused routing vs its classic
+path."""
 import numpy as np
 import pytest
 import jax.numpy as jnp
@@ -80,6 +81,105 @@ def test_t2i_attn_plain_matches_pallas(dtype, pk, t):
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(ref, np.float32),
                                rtol=TOL[dtype], atol=TOL[dtype])
+
+
+# the pair bodies: the JAX package's own anchors for them (interpret mode
+# against XLA 3e-5 in float32; its bf16 band for these kernels 0.08)
+PAIR_TOL = {"float32": 3e-5, "bfloat16": 0.08}
+
+
+def _i2t_args(d):
+    return (d["keys"], d["pe"], d["tok_k"], d["tok_v"], d["wq"], d["bq"],
+            d["wout"], d["bout"], d["norm_w"], d["norm_b"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t", [8, 11, 16])
+def test_i2t_norm_pair_matches_pallas(dtype, t):
+    """Row 8: the image-pair entry against `_i2t_pre_pair_kernel` in
+    interpret mode, and equal to one `fused_i2t_norm` call per image."""
+    rng = np.random.default_rng(30 + t)
+    d = _np_inputs(30 + t, 2, t, True)
+    d["pe"] = (rng.standard_normal((2, N, I)) * 0.5).astype(np.float32)
+    for k in ("tok_k", "tok_v"):
+        d[k] = (rng.standard_normal((2, P, t, I)) * 0.5).astype(np.float32)
+    j, tt = _to(d, dtype)
+    ref = jda.fused_i2t_norm_pair(*_i2t_args(j), num_heads=8, pos_block=64,
+                                  interpret=True)
+    got = tda.fused_i2t_norm_pair(*_i2t_args(tt), num_heads=8)
+    assert tuple(got.shape) == (2, P, N, C) and got.dtype == tt["keys"].dtype
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(ref, np.float32),
+                               rtol=PAIR_TOL[dtype], atol=PAIR_TOL[dtype])
+    a = _i2t_args(tt)
+    for i in range(2):
+        one = tda.fused_i2t_norm(a[0][i:i + 1], a[1][i], a[2][i], a[3][i],
+                                 *a[4:], num_heads=8)
+        torch.testing.assert_close(got[i], one, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("body,pk", [("NTTT_PROMPT_PAIR", 1),
+                                     ("NTTT_PERPROMPT_PAIR", P)])
+@pytest.mark.parametrize("t", [8, 11, 16])
+def test_i2t_norm_prompt_pair_bodies_match_pallas(monkeypatch, dtype, body,
+                                                  pk, t):
+    """Row 7: `_i2t_pre_p2_kernel` (shared keys) and `_i2t_p2_kernel`
+    (per-prompt keys) in interpret mode, each selected by its toggle as the
+    port selects its variant."""
+    monkeypatch.setenv(body, "1")
+    assert jda._prompt_pair_enabled() == tda._prompt_pair_enabled()
+    assert jda._perprompt_pair_enabled() == tda._perprompt_pair_enabled()
+    j, tt = _to(_np_inputs(40 + t, pk, t, True), dtype)
+    ref = jda.fused_i2t_norm(*_i2t_args(j), num_heads=8, pos_block=64,
+                             interpret=True)
+    got = tda.fused_i2t_norm(*_i2t_args(tt), num_heads=8)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(ref, np.float32),
+                               rtol=PAIR_TOL[dtype], atol=PAIR_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t", [8, 11, 16])
+def test_t2i_attn_prompt_pair_body_matches_pallas(monkeypatch, dtype, t):
+    """Row 6: `_t2i_p2_kernel` in interpret mode under its toggle."""
+    monkeypatch.setenv("NTTT_PERPROMPT_PAIR", "1")
+    assert tda._perprompt_pair_enabled()
+    j, tt = _to(_np_inputs(50 + t, P, t, False), dtype)
+    ref = jda.fused_t2i_attn(j["keys"], j["pe"], j["tok_q"], j["wk"],
+                             j["bk"], j["wv"], j["bv"], num_heads=8,
+                             pos_block=64, interpret=True)
+    got = tda.fused_t2i_attn(tt["keys"], tt["pe"], tt["tok_q"], tt["wk"],
+                             tt["bk"], tt["wv"], tt["bv"], num_heads=8)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(ref, np.float32),
+                               rtol=PAIR_TOL[dtype], atol=PAIR_TOL[dtype])
+
+
+@pytest.mark.parametrize("n_img", [2, 3])
+def test_keys_per_image_equal_single_image_calls(n_img):
+    """Shared keys [Bi, n, C] for Bi images of P prompts each: prompt p
+    reads image p // P, for K2 and K3 alike; equal to one call per image."""
+    d = _np_inputs(60 + n_img, n_img, 8, True)
+    rng = np.random.default_rng(n_img)
+    for k in ("tok_k", "tok_v"):
+        d[k] = (rng.standard_normal((n_img * P, 8, I)) * 0.5
+                ).astype(np.float32)
+    _, tt = _to(d, "float32")
+    a = _i2t_args(tt)
+    got = tda.fused_i2t_norm(*a, num_heads=8)
+    t2i = (tt["keys"], tt["pe"], tt["tok_k"], tt["wq"], tt["bq"],
+           tt["wout"].T.contiguous(), tt["bq"])
+    got2 = tda.fused_t2i_attn(*t2i, num_heads=8)
+    assert tuple(got.shape) == (n_img * P, N, C)
+    for i in range(n_img):
+        sl = slice(i * P, (i + 1) * P)
+        one = tda.fused_i2t_norm(a[0][i:i + 1], a[1], a[2][sl], a[3][sl],
+                                 *a[4:], num_heads=8)
+        torch.testing.assert_close(got[sl], one, rtol=1e-6, atol=1e-6)
+        one2 = tda.fused_t2i_attn(t2i[0][i:i + 1], t2i[1], t2i[2][sl],
+                                  *t2i[3:], num_heads=8)
+        torch.testing.assert_close(got2[sl], one2, rtol=1e-6, atol=1e-6)
 
 
 def test_transformer_fused_routing_equals_classic():

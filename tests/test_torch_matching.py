@@ -1,6 +1,7 @@
 """Port matching stack vs the JAX package (float32, CPU): scoring, the
-memory bank, the whole tiny 10-shot step, and the NMS / IoS / top-K tail on
-a scene that keeps many valid masks."""
+memory bank, the whole tiny 10-shot step (single, asynchronous, batched,
+with negative references), and the NMS / IoS / top-K tail on a scene that
+keeps many valid masks."""
 import dataclasses
 
 import numpy as np
@@ -22,7 +23,10 @@ from no_time_to_train_tpu_torch.models.matching.pipeline import (
 from no_time_to_train_tpu_torch.utils.convert import (
     dino_state_dict, sam2_state_dict)
 
-from test_torch_flash_attention import port_calls  # noqa: F401 (fixture)
+from no_time_to_train_tpu_torch.models.sam2 import transformer as ttr
+from no_time_to_train_tpu_torch.ops import decoder_attention as tda
+
+from test_torch_flash_attention import _Calls, port_calls  # noqa: F401
 
 SAM = Sam2Config(
     embed_dim=32, num_heads=1, stages=(1, 1, 1, 1), global_att_blocks=(2,),
@@ -55,6 +59,31 @@ def test_scoring_matches_jax():
     ti = tsc.semantic_ios(torch.as_tensor(masks), torch.as_tensor(labels),
                           torch.as_tensor(osim), valid=torch.as_tensor(valid))
     np.testing.assert_allclose(ti.numpy(), np.asarray(ji), rtol=1e-5, atol=1e-6)
+
+
+def test_scoring_with_neg_matches_jax():
+    rng = np.random.default_rng(2)
+    feat = rng.standard_normal((64, 16)).astype(np.float32)
+    masks = rng.random((12, 64)) > 0.6
+    masks[5] = False                                # zero-area mask
+    avg = rng.standard_normal((3, 16)).astype(np.float32)
+    neg = rng.standard_normal((3, 4, 16)).astype(np.float32)
+    seen = []
+    for sigma in (0.8, 0.1):
+        js, jo = jsc.sim_global_avg_with_neg(
+            jnp.asarray(feat), jnp.asarray(masks), jnp.asarray(avg),
+            jnp.asarray(neg), sigma=sigma)
+        ts, to = tsc.sim_global_avg_with_neg(
+            torch.as_tensor(feat), torch.as_tensor(masks),
+            torch.as_tensor(avg), torch.as_tensor(neg), sigma=sigma)
+        np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=1e-5,
+                                   atol=1e-5)
+        np.testing.assert_allclose(to.numpy(), np.asarray(jo), rtol=1e-5,
+                                   atol=1e-5)
+        seen.append(ts.numpy())
+    assert (seen[1] >= 0).all() and float(seen[1].max()) > 0
+    # the suppression acts: a smaller sigma lowers some scores
+    assert (seen[1] < seen[0] - 1e-3).any() and (seen[1] <= seen[0]).all()
 
 
 def test_bank_fill_postprocess_matches_jax():
@@ -115,6 +144,17 @@ def _pair(refs=None, sam=SAM, enc=ENC, **kw):
     np.testing.assert_allclose(tm.bank.feats_ins_avg.numpy(),
                                np.asarray(jm.bank.feats_ins_avg), rtol=1e-4,
                                atol=1e-5)
+    if jc.with_negative_refs:
+        rng = np.random.default_rng(1)
+        neg = (rng.random((4, 64, 64, 3), np.float32),
+               (rng.random((4, 64, 64)) > 0.5).astype(np.float32),
+               [2, 0, 1, 1])
+        for m in (jm, tm):
+            m.fill_memory(*neg, positive=False)
+            m.postprocess_memory(positive=False)
+        np.testing.assert_allclose(tm.bank_neg.feats_ins_avg.numpy(),
+                                   np.asarray(jm.bank_neg.feats_ins_avg),
+                                   rtol=1e-4, atol=1e-5)
     return jm, tm
 
 
@@ -148,6 +188,155 @@ def test_tiny_step_matches_jax():
     if rj is not None:
         assert [s["counts"] for s in rt["segs"]] == \
             [s["counts"] for s in rj["segs"]]
+
+
+def test_tiny_step_negative_refs_matches_jax():
+    """The step with `with_negative_refs=True` (the configuration of
+    tests/test_negative_refs.py), both banks filled and post-processed; the
+    tolerances of `_assert_same_outputs` as for the positive step."""
+    jm, tm = _pair(with_negative_refs=True)
+    assert tm.bank_neg is not None and tm.bank_neg.postprocessed
+    img = np.random.default_rng(9).random((128, 128, 3), np.float32)
+    oj, ot = jm.test(img), tm.test(img)
+    _assert_same_outputs(oj, ot)
+    v = ot["scores"][ot["valid"]]
+    assert np.all(v >= 0) and np.all(v <= 1.0 + 1e-5)
+
+
+@pytest.mark.parametrize("b", [2, 3])
+def test_batch_async_matches_jax_and_single_calls(b):
+    """`test_batch_async` on B different images: against the JAX package's
+    vmapped step image by image (tolerances of `_assert_same_outputs`), and
+    against the port's own `test` on each image alone (the batch changes
+    only the order of float32 sums inside the products)."""
+    jm, tm = _pair(with_negative_refs=True)
+    imgs = np.random.default_rng(20 + b).random((b, 128, 128, 3), np.float32)
+    oj = jm.test_batch_async(imgs)
+    dev = tm.test_batch_async(imgs)
+    assert all(torch.is_tensor(v) and v.shape[0] == b for v in dev.values())
+    ot = tm.fetch_test(dev)
+    for k in oj:
+        assert ot[k].shape == tuple(oj[k].shape), k
+    for i in range(b):
+        one_j = jm.fetch_test({k: v[i] for k, v in oj.items()})
+        one_t = {k: v[i] for k, v in ot.items()}
+        _assert_same_outputs(one_j, one_t)
+        _assert_same_outputs(tm.test(imgs[i]), one_t)
+
+
+def test_async_then_fetch_equals_test():
+    """Two images queued with `test_async`, then fetched in order, equal
+    `test` on each: the same computation, so bit for bit."""
+    tm = _port_matcher()
+    imgs = np.random.default_rng(11).random((2, 128, 128, 3), np.float32)
+    queued = [tm.test_async(img) for img in imgs]
+    assert all(torch.is_tensor(v) for q in queued for v in q.values())
+    for img, q in zip(imgs, queued):
+        got, want = tm.fetch_test(q), tm.test(img)
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+def _port_matcher(**kw):
+    """The port's tiny matcher alone, on seeded random weights."""
+    cfg = MatchingConfig(points_per_side=4, testing_point_bs=8, iou_thr=0.0,
+                         num_out_instance=5, analysis_res=128, expand_ratio=2,
+                         **kw)
+    tm = NoAMGMatcher(SAM, ENC, cfg, n_classes=3, memory_length=2,
+                      device="cpu")
+    rng = np.random.default_rng(0)
+    for positive in (True, False) if cfg.with_negative_refs else (True,):
+        tm.fill_memory(rng.random((3, 64, 64, 3), np.float32),
+                       (rng.random((3, 64, 64)) > 0.5).astype(np.float32),
+                       [0, 1, 2], positive=positive)
+        tm.postprocess_memory(positive=positive)
+    return tm
+
+
+def test_bank_overflow_raises_for_both_banks():
+    """More references for a class than `memory_length` (2 here; the
+    reference's slot indexing raises IndexError likewise)."""
+    tm = _port_matcher(with_negative_refs=True)
+    rng = np.random.default_rng(3)
+    imgs = rng.random((2, 64, 64, 3), np.float32)
+    masks = (rng.random((2, 64, 64)) > 0.5).astype(np.float32)
+    for positive in (True, False):
+        before = (tm.bank if positive else tm.bank_neg).fill_counts.clone()
+        with pytest.raises(IndexError):
+            tm.fill_memory(imgs, masks, [1, 1], positive=positive)
+        after = (tm.bank if positive else tm.bank_neg).fill_counts
+        assert torch.equal(before, after)
+        tm.fill_memory(imgs[:1], masks[:1], [1], positive=positive)
+    assert tm.bank.fill_counts.tolist() == [1, 2, 1]
+    assert tm.bank_neg.fill_counts.tolist() == [1, 2, 1]
+    with pytest.raises(ValueError, match="with_negative_refs"):
+        _port_matcher().fill_memory(imgs[:1], masks[:1], [1], positive=False)
+
+
+@pytest.fixture
+def pair_entry_calls(monkeypatch):
+    """Records the transformer's calls of the image-pair entry."""
+    calls = _Calls(tda.fused_i2t_norm_pair)
+    monkeypatch.setattr(ttr, "fused_i2t_norm_pair", calls)
+    return calls
+
+
+@pytest.mark.parametrize("n_img", [2, 3])
+def test_transformer_image_batch_routes_and_equals_classic(pair_entry_calls,
+                                                           n_img):
+    """The two-way transformer on Bi images of 3 prompts each: layer 0 of an
+    image pair takes `fused_i2t_norm_pair`, three images the image-indexed
+    `fused_i2t_norm`; either way the result equals the classic formulation
+    under no_fusion() and one call per image."""
+    from no_time_to_train_tpu_torch.ops.upscale_product import no_fusion
+    from no_time_to_train_tpu_torch.utils.init import init_random_
+    tr = ttr.TwoWayTransformer(2, 256, 8, 512)
+    init_random_(tr, torch.Generator().manual_seed(3))
+    rng = np.random.default_rng(3)
+    img = torch.as_tensor(rng.standard_normal((n_img, 8, 8, 256)) * 0.5).float()
+    pe = torch.as_tensor(rng.standard_normal((1, 8, 8, 256)) * 0.5).float()
+    toks = torch.as_tensor(rng.standard_normal((n_img * 3, 8, 256)) * 0.5
+                           ).float()
+    with torch.no_grad():
+        q_f, k_f = tr(img, pe, toks)
+        assert pair_entry_calls.shapes == ([(2, 64, 256)] if n_img == 2
+                                           else [])
+        with no_fusion():
+            q_c, k_c = tr(img, pe, toks)
+        assert len(pair_entry_calls.shapes) == (1 if n_img == 2 else 0)
+        assert tuple(k_f.shape) == (n_img * 3, 64, 256)
+        np.testing.assert_allclose(q_f.numpy(), q_c.numpy(), rtol=2e-4,
+                                   atol=2e-4)
+        np.testing.assert_allclose(k_f.numpy(), k_c.numpy(), rtol=2e-4,
+                                   atol=2e-4)
+        for i in range(n_img):
+            q_1, k_1 = tr(img[i:i + 1], pe, toks[3 * i:3 * i + 3])
+            np.testing.assert_allclose(q_f[3 * i:3 * i + 3].numpy(),
+                                       q_1.numpy(), rtol=1e-5, atol=1e-5)
+            np.testing.assert_allclose(k_f[3 * i:3 * i + 3].numpy(),
+                                       k_1.numpy(), rtol=1e-5, atol=1e-5)
+
+
+def test_single_image_step_takes_no_pair_variant(monkeypatch,
+                                                 pair_entry_calls):
+    """With both toggles unset the single-image step reads them as off,
+    never calls the image-pair entry and moves no `*_p2` / `*_pair`
+    counter; the batch of two calls the pair entry once per chunk."""
+    monkeypatch.delenv("NTTT_PROMPT_PAIR", raising=False)
+    monkeypatch.delenv("NTTT_PERPROMPT_PAIR", raising=False)
+    assert not tda._prompt_pair_enabled()
+    assert not tda._perprompt_pair_enabled()
+    tm = _port_matcher()
+    before = dict(tda.LAUNCHES)
+    imgs = np.random.default_rng(4).random((2, 128, 128, 3), np.float32)
+    tm.test(imgs[0])
+    assert pair_entry_calls.shapes == []
+    tm.fetch_test(tm.test_batch_async(imgs))
+    assert len(pair_entry_calls.shapes) == 2      # 16 points in chunks of 8
+    assert tda.LAUNCHES == before
+    assert {k for k in before if k.endswith(("_p2", "_pair"))} == {
+        "fused_t2i_attn_p2", "fused_i2t_norm_p2", "fused_i2t_norm_pre_p2",
+        "fused_i2t_norm_pair"}
 
 
 def test_tiny_step_pallas_routes_match_jax(port_calls):

@@ -1,5 +1,6 @@
-"""Port upscale chain (plain version of kernel K4) vs the JAX package's
-Pallas kernel in interpret mode, and the fusion switch."""
+"""Port upscale chain (plain versions of kernel K4 and of the chain from t1)
+vs the JAX package's Pallas kernels in interpret mode, the per-image skips,
+and the fusion switch."""
 import threading
 
 import numpy as np
@@ -63,6 +64,55 @@ def test_plain_bf16_close_to_pallas_bf16():
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(ref, np.float32), rtol=0.1,
                                atol=0.1)
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 3e-5), ("bfloat16", 0.1)])
+@pytest.mark.parametrize("b,hw", [(8, 256), (6, 192)])
+def test_from_t1_plain_matches_pallas_interpret(dtype, tol, b, hw):
+    """The chain from the raw first-deconv output on (`k1mat=None`, the
+    `_post_t1_kernel` body) at the JAX package's tolerances for it: float32
+    3e-5, bf16 0.1."""
+    kw = {k: v.astype(np.float32) for k, v in _inputs(b + 1, b, hw).items()}
+    kw["t1"] = kw["src"] @ kw["k1"]
+    act = ("t1", "k2", "s1f", "s0f16")
+    j = {k: jnp.asarray(v, getattr(jnp, dtype) if k in act else jnp.float32)
+         for k, v in kw.items()}
+    ref = j_post(j["t1"], j["bias1_4"], j["s1f"], j["ln_w"], j["ln_b"],
+                 j["k2"], j["bias2"], j["s0f16"], j["hyper"], out_16pt=True,
+                 interpret=True)
+    t = {k: torch.as_tensor(v).to(getattr(torch, dtype) if k in act
+                                  else torch.float32) for k, v in kw.items()}
+    s1p, s0p = up.fold_skips(t["bias1_4"], t["s1f"], t["bias2"], t["s0f16"])
+    got = up.fused_post_t1_from_t1(t["t1"], s1p, t["ln_w"], t["ln_b"],
+                                   t["k2"], s0p, t["hyper"])
+    assert tuple(got.shape) == (b, 16, hw) and got.dtype == t["t1"].dtype
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(ref, np.float32), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("n_img", [1, 2, 3])
+def test_skips_per_image_equal_single_image_calls(n_img):
+    """Skips [Bi, hw, ...]: prompt p reads image p // (B / Bi), for K4 and
+    for the chain from t1 alike; equal to one call per image."""
+    b, hw = 6, 64
+    kw = {k: torch.as_tensor(v.astype(np.float32))
+          for k, v in _inputs(20 + n_img, b, hw).items()}
+    rng = np.random.default_rng(n_img)
+    s1f = torch.as_tensor(rng.standard_normal((n_img, hw, 256)) * 0.3).float()
+    s0f = torch.as_tensor(rng.standard_normal((n_img, hw, 512)) * 0.3).float()
+    s1p, s0p = up.fold_skips(kw["bias1_4"], s1f, kw["bias2"], s0f)
+    assert tuple(s1p.shape) == (n_img, hw, 256)
+    rest = (kw["ln_w"], kw["ln_b"], kw["k2"])
+    got = up.fused_post_t1(kw["src"], kw["k1"], s1p, *rest, s0p, kw["hyper"])
+    t1 = kw["src"] @ kw["k1"]
+    got_t1 = up.fused_post_t1_from_t1(t1, s1p, *rest, s0p, kw["hyper"])
+    per = b // n_img
+    for i in range(n_img):
+        sl = slice(i * per, (i + 1) * per)
+        one = up.fused_post_t1(kw["src"][sl], kw["k1"], s1p[i], *rest, s0p[i],
+                               kw["hyper"][sl])
+        torch.testing.assert_close(got[sl], one, rtol=1e-6, atol=1e-6)
+        torch.testing.assert_close(got_t1[sl], one, rtol=1e-5, atol=1e-5)
 
 
 def test_no_fusion_is_scoped_and_per_thread():

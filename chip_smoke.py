@@ -10,7 +10,10 @@ Run from the root of a checkout. Phases, each of which raises on failure:
      and at edge shapes, bf16 and float32, with CUDA-event times;
      beside the plain version's and, where one PyTorch call computes the
      same function, that call's (a yardstick only: the port never calls
-     it), and the least time the card could take for the same work;
+     it), and the least time the card could take for the same work; the
+     bf16 kernels of flash_sdpa and flash_sdpa_bnhd also with forced key
+     splits, a batch of 3 against its elements alone, and in turns with
+     their parent on the WMMA tile;
   4. the 10-shot test step on three paths, each a SAM2 Hiera-L matcher in
      bf16 with seeded random weights: DINOv2-L under attention_impl="xla",
      DINOv2-L under "pallas" and DINOv3-L under "pallas". Each fills the
@@ -248,7 +251,12 @@ ONEPASS_EDGE = [("n 513", 1, 513, 513, 16, 64, False),
                 ("nq 1000 nk 513", 10, 1000, 513, 2, 72, False),
                 ("nq 513 nk 1000", 2, 513, 1000, 4, 64, False),
                 ("packed n 1000", 3, 1000, 1000, 2, 72, True),
-                ("n 600, D 256", 1, 600, 600, 2, 256, False)]
+                ("n 600, D 256", 1, 600, 600, 2, 256, False),
+                # the bf16 tile's limits: 64-key tiles, 128-row blocks
+                ("nq 129 nk 63", 2, 129, 63, 4, 64, False),
+                ("nq 128 nk 64", 2, 128, 64, 4, 64, False),
+                ("nq 127 nk 65, packed", 2, 127, 127, 4, 72, True),
+                ("one query row", 1, 1, 777, 16, 64, False)]
 # flash_sdpa (rows 11 + 12): (label, B, H, Nq, Nk, D, strided views of a
 # [B, N, H, D] tensor); the memory attention's self-attention for 1 and 2
 # objects (row 11's range) and a key range that the TPU sends to row 12,
@@ -260,7 +268,35 @@ FLASH_EDGE = [("5330 keys, D 64", 1, 16, 5330, 5330, 64, False),
               ("ragged, D 128", 2, 3, 513, 1000, 128, False),
               ("ragged, D 256", 2, 1, 1000, 333, 256, False),
               ("strided, D 72", 2, 4, 600, 600, 72, True),
-              ("3-D operands, D 64", 0, 3, 130, 4700, 64, False)]
+              ("3-D operands, D 64", 0, 3, 130, 4700, 64, False),
+              # the bf16 tile's limits: one under, at and one over a 64-key
+              # tile; one query row; at D = 256 the rule cuts 2047 to 2049
+              # keys into 4 runs of 8, 8 and 9 tiles (the last run short)
+              ("63 keys, D 64", 2, 2, 129, 63, 64, False),
+              ("64 keys, D 128", 2, 2, 65, 64, 128, False),
+              ("65 keys, D 72", 2, 2, 128, 65, 72, False),
+              ("one query row, D 72", 1, 3, 1, 700, 72, False),
+              ("one query row, D 256", 1, 1, 1, 2100, 256, False),
+              ("2047 keys in 4 runs, D 256", 1, 1, 200, 2047, 256, False),
+              ("2048 keys in 4 runs, D 256", 2, 1, 200, 2048, 256, False),
+              ("2049 keys in 4 runs, D 256", 1, 1, 200, 2049, 256, False)]
+# forced key splits of the bf16 kernels: (label, B, H, Nq, Nk, D, splits);
+# every padded head dim through the merge, a last run that is empty (130
+# keys are 3 tiles for 4 runs)
+SPLIT_EDGE = [("3 runs, D 64", 1, 2, 200, 700, 64, 3),
+              ("4 runs, D 72", 2, 2, 200, 700, 72, 4),
+              ("2 runs, D 128", 2, 3, 70, 1000, 128, 2),
+              ("4 runs, one empty, D 256", 1, 1, 300, 130, 256, 4),
+              ("4 runs, D 32", 1, 2, 100, 640, 32, 4),
+              ("2 runs of 1 query row, D 256", 1, 1, 1, 1024, 256, 2)]
+# a batch of 3 against its elements alone, bit for bit: the split count and
+# the tiles depend on (n_q, n_k, D) only. (entry, B, H, Nq, Nk, D)
+BATCH_EDGE = [("flash_sdpa", 3, 1, 300, 2100, 256),
+              ("flash_sdpa", 3, 4, 300, 700, 72),
+              ("flash_sdpa_bnhd", 3, 4, 700, 700, 64),
+              ("flash_sdpa_bnhd", 3, 2, 300, 2100, 256)]
+# shapes beyond a kernel's first that the kernel table keeps, under `also`
+ALSO_TIMED = ("hiera_l global", "row 12: 8192 keys, D 72")
 # flash_sdpa_masked (row 13): (label, B, H, Nq, Nk, D, mask); the memory
 # cross-attention over 7 rows x 4096 tokens + 16 pointers x 4 tokens with a
 # partly filled ring; then a fully masked prefix of tiles, a batch element
@@ -654,6 +690,7 @@ def kernel_phase(dev):
         attention_kernels(rn, dt, ONEPASS_SHAPES, WINDOW_SHAPES, results)
         memory_kernels(rn, dt, FLASH_SHAPES, MASKED_SHAPES, results)
     edge_shapes(rn)
+    _QUEUE.clear()
     for k, v in results.items():
         lib = ("none" if v["library_ms"] is None
                else f"{v['library_ms']:.3f} ms")
@@ -664,33 +701,109 @@ def kernel_phase(dev):
     return results
 
 
+def sharp_operands(rn, dt, shape_of, nq, nk):
+    """q and k at scale 1.5 (sharp logits), v of unit scale around 0.5: the
+    outputs are of size 0.5, so the bf16 band tells a right kernel from one
+    that dropped a tile or mis-scaled the logits."""
+    q, k = (rn(*shape_of(n), dtype=dt, scale=1.5) for n in (nq, nk))
+    return q, k, (rn(*shape_of(nk)) + 0.5).to(dt)
+
+
+_QUEUE = {}
+
+
+def queued_ms(fn, n=20, reps=3):
+    """Device ms per call of fn(): `n` calls enqueued behind two long matrix
+    products, so that the host's share of a call (the wrapper's Python, the
+    launch) hides behind the queue and the events see the kernels back to
+    back; the least of `reps` readings. `cuda_ms` beside it times one call
+    on an idle card, host share included."""
+    import torch
+    if "big" not in _QUEUE:
+        _QUEUE["big"] = torch.randn(8192, 8192, device="cuda",
+                                    dtype=torch.bfloat16)
+    big = _QUEUE["big"]
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        big @ big
+        big @ big
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    return min(times)
+
+
+def in_turns(name, label, fn, parent):
+    """Device ms (`queued_ms`) of the kernel and of its parent (the same
+    entry on the WMMA tile of csrc/attn_tile.cuh, which the bf16 entry
+    launched before the tiles of csrc/attn_mma.cuh), timed parent, kernel,
+    kernel, parent in one process; the kernel has to be the faster."""
+    ms = [queued_ms(parent), queued_ms(fn), queued_ms(fn), queued_ms(parent)]
+    log(f"  time {name} {label}: device ms, parent {ms[0]:.4f} / {ms[3]:.4f}, "
+        f"kernel {ms[1]:.4f} / {ms[2]:.4f} (parent, kernel, kernel, parent)")
+    if min(ms[1:3]) >= min(ms[0], ms[3]):
+        fail(f"{name} {label}: the kernel is not faster than its parent")
+    return min(ms[1:3]), min(ms[0], ms[3])
+
+
+def timed_row(name, label, err, fn, plain, lib, n_bytes, ops, parent):
+    """One timed shape: one call on an idle card (`cuda_ms`: kernel, plain
+    version, library call) and, where the kernel has a parent, device ms of
+    kernel, parent and library call behind a full queue."""
+    ms, plain_ms, lib_ms = cuda_ms(fn), cuda_ms(plain), cuda_ms(lib)
+    bnd = bound(n_bytes, ops, PEAK_BF16)
+    row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+               shape=label, **bnd)
+    text = (f"  time {name} {label}: kernel {ms:.3f} ms, plain {plain_ms:.3f}"
+            f" ms, library call {lib_ms:.3f} ms, bound {bnd['bound_ms']:.4f}"
+            f" ms by {bnd['bound_by']}")
+    if parent is not None:
+        row["device_ms"], row["parent_device_ms"] = in_turns(name, label, fn,
+                                                             parent)
+        row["library_device_ms"] = queued_ms(lib)
+        text += (f"; device ms behind a full queue: kernel "
+                 f"{row['device_ms']:.4f} ({ops / row['device_ms'] / 1e9:.0f} "
+                 f"TFLOP/s), parent {row['parent_device_ms']:.4f}, library "
+                 f"call {row['library_device_ms']:.4f}")
+    else:
+        text += f" ({ops / ms / 1e9:.1f} TFLOP/s)"
+    log(text)
+    return row
+
+
 def attention_kernels(rn, dt, onepass_shapes, window_shapes, results=None):
     """Kernels 9 and 10 against their plain versions; with `results`, the
     bf16 times at every shape are logged too (and beside them the "xla"
-    formula's, which the kernels replace on the pallas path), and the first
-    shape of each kernel is kept for the kernel table."""
+    formula's, which the kernels replace on the pallas path; kernel 9 in
+    turns with its parent on the WMMA tile), the first shape of each kernel
+    is kept for the kernel table, and later shapes whose label is in
+    ALSO_TIMED are kept under `also`."""
     import torch
     import torch.nn.functional as F
     from no_time_to_train_tpu_torch.ops import attention as att
     from no_time_to_train_tpu_torch.ops import flash_attention as fa
     timed = results is not None and dt == torch.bfloat16
 
-    def report(name, label, err, fn, plain, xla, lib, n_bytes, ops):
-        ms, plain_ms, xla_ms = cuda_ms(fn), cuda_ms(plain), cuda_ms(xla)
-        lib_ms = cuda_ms(lib)
-        bnd = bound(n_bytes, ops, PEAK_BF16)
-        log(f"  time {name} {label}: kernel {ms:.3f} ms, plain {plain_ms:.3f}"
-            f" ms, xla formula {xla_ms:.3f} ms, library call {lib_ms:.3f} ms,"
-            f" bound {bnd['bound_ms']:.4f} ms by {bnd['bound_by']}")
-        results.setdefault(name, dict(max_abs_err=err, ms=ms,
-                                      plain_ms=plain_ms, library_ms=lib_ms,
-                                      **bnd))
+    def report(name, label, err, fn, plain, xla, lib, n_bytes, ops,
+               parent=None):
+        row = timed_row(name, label, err, fn, plain, lib, n_bytes, ops, parent)
+        log(f"    xla formula {cuda_ms(xla):.3f} ms")
+        keep(results, name, row)
 
     for label, b, nq, nk, h, d, packed in onepass_shapes:
         if packed:
-            q, k, v = rn(b, nq, 3, h, d, dtype=dt).unbind(2)
+            qkv = rn(b, nq, 3, h, d, scale=1.5)
+            qkv[:, :, 2] = qkv[:, :, 2] / 1.5 + 0.5
+            q, k, v = qkv.to(dt).unbind(2)
         else:
-            q, k, v = (rn(b, n, h, d, dtype=dt) for n in (nq, nk, nk))
+            q, k, v = sharp_operands(rn, dt, lambda n: (b, n, h, d), nq, nk)
         err = compare("flash_sdpa_bnhd", dt, fa.flash_sdpa_bnhd(q, k, v),
                       fa.onepass_bnhd_plain(q, k, v))
         if timed:
@@ -700,7 +813,8 @@ def attention_kernels(rn, dt, onepass_shapes, window_shapes, results=None):
                    lambda: fa.onepass_bnhd_plain(q, k, v),
                    lambda: att.sdpa_bnhd(q, k, v, "xla"),
                    lambda: F.scaled_dot_product_attention(qt, kt, vt),
-                   2 * nbytes(q) + 2 * nbytes(k), 4 * b * h * nq * nk * d)
+                   2 * nbytes(q) + 2 * nbytes(k), 4 * b * h * nq * nk * d,
+                   parent=lambda: fa.flash_sdpa_bnhd_wmma(q, k, v))
     for label, b, h, d, win, nw in window_shapes:
         qkv = rn(b, nw * win, 3 * h * d, dtype=dt)
         err = compare("flash_sdpa_window_qkv", dt,
@@ -716,6 +830,15 @@ def attention_kernels(rn, dt, onepass_shapes, window_shapes, results=None):
                    lambda: F.scaled_dot_product_attention(*heads_first),
                    nbytes(qkv) * 4 // 3, 4 * b * nw * win * win * h * d)
     torch.cuda.empty_cache()
+
+
+def keep(results, name, row):
+    """The first timed shape of a kernel is its entry of the kernel table;
+    a later shape named in ALSO_TIMED is kept beside it under `also`."""
+    if name not in results:
+        results[name] = row
+    elif row["shape"] in ALSO_TIMED:
+        results[name].setdefault("also", []).append(row)
 
 
 def key_mask(kind, b, nk, dev, gen):
@@ -753,20 +876,12 @@ def memory_kernels(rn, dt, flash_shapes, masked_shapes, results=None):
     from no_time_to_train_tpu_torch.ops import flash_attention as fa
     timed = results is not None and dt == torch.bfloat16
 
-    def report(name, label, err, fn, plain, lib, n_bytes, ops):
-        ms, plain_ms, lib_ms = cuda_ms(fn), cuda_ms(plain), cuda_ms(lib)
-        bnd = bound(n_bytes, ops, PEAK_BF16)
-        log(f"  time {name} {label}: kernel {ms:.3f} ms, plain {plain_ms:.3f}"
-            f" ms, library call {lib_ms:.3f} ms, bound {bnd['bound_ms']:.4f}"
-            f" ms by {bnd['bound_by']} ({ops / ms / 1e9:.1f} TFLOP/s)")
-        results.setdefault(name, dict(max_abs_err=err, ms=ms,
-                                      plain_ms=plain_ms, library_ms=lib_ms,
-                                      **bnd))
+    def report(name, label, err, fn, plain, lib, n_bytes, ops, parent=None):
+        keep(results, name, timed_row(name, label, err, fn, plain, lib,
+                                      n_bytes, ops, parent))
 
     def operands(shape_of, nq, nk):
-        """q and k at scale 1.5 (sharp logits), v of unit scale around 0.5."""
-        q, k = (rn(*shape_of(n), dtype=dt, scale=1.5) for n in (nq, nk))
-        return q, k, (rn(*shape_of(nk)) + 0.5).to(dt)
+        return sharp_operands(rn, dt, shape_of, nq, nk)
 
     for label, b, h, nq, nk, d, strided in flash_shapes:
         lead = (b,) if b else ()
@@ -782,7 +897,8 @@ def memory_kernels(rn, dt, flash_shapes, masked_shapes, results=None):
                    lambda: fa.flash_bh_plain(q, k, v),
                    lambda: F.scaled_dot_product_attention(q, k, v),
                    2 * nbytes(q) + 2 * nbytes(k),
-                   4 * max(b, 1) * h * nq * nk * d)
+                   4 * max(b, 1) * h * nq * nk * d,
+                   parent=lambda: fa.flash_sdpa_wmma(q, k, v))
     for label, b, h, nq, nk, d, kind in masked_shapes:
         q, k, v = operands(lambda n: (b, h, n, d), nq, nk)
         valid = key_mask(kind, b, nk, q.device, None if kind == "ring"
@@ -812,6 +928,42 @@ def memory_kernels(rn, dt, flash_shapes, masked_shapes, results=None):
                    4 * h * nq * n_valid * d)
         del q, k, v, got
         torch.cuda.empty_cache()
+
+
+def split_and_batch_checks(rn):
+    """The bf16 kernels of flash_sdpa and flash_sdpa_bnhd with a forced
+    number of key splits against the plain version, and a batch of 3 against
+    the same elements alone, bit for bit (float32 too: the old tile)."""
+    import torch
+    from no_time_to_train_tpu_torch.ops import flash_attention as fa
+    dt = torch.bfloat16
+    for label, b, h, nq, nk, d, splits in SPLIT_EDGE:
+        q, k, v = sharp_operands(rn, dt, lambda n: (b, h, n, d), nq, nk)
+        log(f"    {label}:")
+        compare("flash_sdpa", dt, fa.flash_sdpa(q, k, v, splits=splits),
+                fa.flash_bh_plain(q, k, v))
+        qn, kn, vn = (x.transpose(1, 2) for x in (q, k, v))
+        compare("flash_sdpa_bnhd", dt,
+                fa.flash_sdpa_bnhd(qn.contiguous(), kn.contiguous(),
+                                   vn.contiguous(), splits=splits),
+                fa.onepass_bnhd_plain(qn, kn, vn))
+    for dt in (torch.bfloat16, torch.float32):
+        for entry, b, h, nq, nk, d in BATCH_EDGE:
+            bnhd = entry == "flash_sdpa_bnhd"
+            shape_of = (lambda n: (b, n, h, d)) if bnhd \
+                else (lambda n: (b, h, n, d))
+            q, k, v = sharp_operands(rn, dt, shape_of, nq, nk)
+            fn = getattr(fa, entry)
+            whole = fn(q, k, v)
+            alone = torch.cat([fn(q[i:i + 1], k[i:i + 1], v[i:i + 1])
+                               for i in range(b)])
+            same = torch.equal(whole, alone)
+            runs = fa.key_splits(nq, nk, d) if dt == torch.bfloat16 else 1
+            log(f"  {entry} {dt} batch of {b} x {h} heads, {nq} x {nk}, D {d} "
+                f"({runs} key runs) against each element alone: "
+                f"{'bit for bit' if same else 'DIFFERS'}")
+            if not same:
+                fail(f"{entry}: a batch element's result depends on its batch")
 
 
 def edge_shapes(rn):
@@ -855,6 +1007,7 @@ def edge_shapes(rn):
         image_batches(rn, dt, 2, 64, 16)
         attention_kernels(rn, dt, ONEPASS_EDGE, WINDOW_EDGE)
         memory_kernels(rn, dt, FLASH_EDGE, MASKED_EDGE)
+    split_and_batch_checks(rn)
 
 
 def _counters():
@@ -1240,7 +1393,7 @@ def run_video(dev, profile=False):
             f"{wall:.1f} ms, device busy {busy:.1f} ms, idle share "
             f"{100 * (1 - busy / wall):.1f} %, {n_kern} kernels and copies "
             f"({n_kern / VIDEO_FRAMES:.0f} per frame)")
-        for e in sorted(dev_rows, key=lambda e: -e.self_device_time_total)[:14]:
+        for e in profile_rows(dev_rows, 14):
             log(f"    {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d} x  "
                 f"{e.key[:90]}")
         return warm, counts
@@ -1348,6 +1501,14 @@ def build_batched_matcher(dev):
     return matcher, targets
 
 
+def profile_rows(dev_rows, top):
+    """The `top` device rows of a profile by time, then every row of the
+    attention kernels that is not among them."""
+    rows = sorted(dev_rows, key=lambda e: -e.self_device_time_total)
+    return rows[:top] + [e for e in rows[top:] if "attn" in e.key
+                         or "merge_kernel" in e.key]
+
+
 def batch_profile(dev, smi):
     """`--batch-profile`: two test images as two steps of one and as one
     step of two, each under torch.profiler: wall time, device busy time and
@@ -1375,7 +1536,7 @@ def batch_profile(dev, smi):
             f"{wall / 2:.1f} ms, device busy {busy / 2:.1f} ms, idle share "
             f"{100 * (1 - busy / wall):.1f} %, {n_kern / 2:.0f} kernels and "
             f"copies; on {smi}")
-        for e in sorted(dev_rows, key=lambda e: -e.self_device_time_total)[:8]:
+        for e in profile_rows(dev_rows, 8):
             log(f"    {e.self_device_time_total / 2e3:9.2f} ms/img "
                 f"{e.count:6d} x  {e.key[:90]}")
 

@@ -37,10 +37,14 @@ _SIGNATURES = {
     "nttt_upscale_product": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                              _I, _I, _I, _I, _I, _F, _I, _VP],
     "nttt_onepass_attn": [_VP, _VP, _VP, _VP, _LL, _LL, _LL, _I, _I, _I,
-                          _I, _I, _I, _I, _I, _F, _I, _VP],
+                          _I, _I, _I, _I, _I, _F, _I, _I, _VP, _VP, _VP],
+    "nttt_onepass_attn_wmma": [_VP, _VP, _VP, _VP, _LL, _LL, _LL, _I, _I, _I,
+                               _I, _I, _I, _I, _I, _F, _I, _VP],
     "nttt_window_attn": [_VP, _VP, _I, _I, _I, _I, _I, _F, _I, _VP],
     "nttt_flash_bh": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _F, _I,
-                      _VP],
+                      _I, _VP, _VP, _VP],
+    "nttt_flash_bh_wmma": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _F,
+                           _I, _VP],
     "nttt_flash_masked": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
                           _F, _I, _VP],
 }

@@ -11,21 +11,36 @@ qkv projection produces (DINOv2 / DINOv3 layers, Hiera global blocks);
 the shifted exponent, the normalized weights cast to v's dtype before the
 float32-accumulated value product.
 
-On a CUDA tensor each launches its kernel (`csrc/onepass_attn.cu`,
-`csrc/window_attn.cu`, all four entries on the tile of
-`csrc/attn_tile.cuh`); on a CPU tensor, or inside `no_fusion()`, each runs
-its plain version (`onepass_bnhd_plain`, `window_qkv_plain`). The kernels
-stream key tiles with an online softmax, so they round the unnormalized
-weights to bf16 and divide by the sum after the value product; the plain
-versions keep the TPU kernel's order (normalize, then round). The two agree
-within the bf16 band stated where they are compared.
-
 `flash_sdpa` is unmasked attention on [..., H, N, D] (the memory
 attention's self-attention at D = 256; the JAX package's `_onepass_bh` and
 `_flash_bh` in one kernel, `csrc/flash_bh.cu`); `flash_sdpa_masked` adds a
 per-batch key-column mask (the memory cross-attention over the ring-masked
-memory bank, `csrc/flash_masked.cu`). Their plain versions are
-`flash_bh_plain` and `flash_masked_plain`.
+memory bank, `csrc/flash_masked.cu`).
+
+On a CUDA tensor each launches its kernel; on a CPU tensor, or inside
+`no_fusion()`, each runs its plain version (`onepass_bnhd_plain`,
+`window_qkv_plain`, `flash_bh_plain`, `flash_masked_plain`). Which entry
+runs on which tile:
+  * `flash_sdpa` and `flash_sdpa_bnhd` on bf16 operands: the
+    register-accumulator tiles of `csrc/attn_mma.cuh` (the online softmax on
+    the accumulator registers of the products, operand tiles alone in shared
+    memory): `wgmma` products where the head dim pads to 64, 128 or 256
+    columns (D <= 64, 81..256), `mma.sync` products where it pads to 80
+    (65..80: Hiera's 72). At D > 128, where one head leaves most SMs idle,
+    the key range is cut into `key_splits(n_q, n_k, d)` runs of whole key
+    tiles whose partial results a second kernel merges in a fixed order;
+    `flash_bh_split_plain` is that arithmetic in plain PyTorch.
+  * the same two entries on float32 operands, and `flash_sdpa_window_qkv`
+    and `flash_sdpa_masked` on either dtype: the tile of
+    `csrc/attn_tile.cuh` (WMMA products in bf16, FMAs in float32, logits and
+    accumulators in shared memory). `flash_sdpa_wmma` and
+    `flash_sdpa_bnhd_wmma` run the first two entries on that tile for
+    either dtype: a second implementation to check and time against,
+    called by no model.
+The kernels stream key tiles with an online softmax, so they round the
+unnormalized weights to bf16 and divide by the sum after the value product;
+the plain versions keep the TPU kernel's order (normalize, then round). The
+two agree within the bf16 band stated where they are compared.
 """
 import ctypes
 import math
@@ -35,16 +50,25 @@ import torch
 from no_time_to_train_tpu_torch.ops import _cuda
 from no_time_to_train_tpu_torch.ops.upscale_product import fusion_disabled
 
-__all__ = ["ONEPASS_MAX_NK", "MASKED_NEG", "flash_sdpa_bnhd",
+__all__ = ["ONEPASS_MAX_NK", "MASKED_NEG", "MAX_SPLITS", "flash_sdpa_bnhd",
            "flash_sdpa_window_qkv", "flash_sdpa", "flash_sdpa_masked",
+           "flash_sdpa_wmma", "flash_sdpa_bnhd_wmma", "key_splits",
            "onepass_bnhd_plain", "window_qkv_plain", "flash_bh_plain",
+           "flash_bh_split_plain", "merge_splits_plain",
            "flash_masked_plain", "LAUNCHES"]
 
 # widest key range (padded to 128) the TPU's single-pass kernels take: the
 # gate of `flash_sdpa_bnhd`, and the least masked key range that the JAX
 # package sends to `flash_sdpa_masked`
 ONEPASS_MAX_NK = 4608
-_MAX_D = 256          # the shared tile of the four kernels
+_MAX_D = 256          # the widest head dim of both tiles
+# the register-accumulator tile (csrc/attn_mma.cuh): key rows of a tile, the
+# query rows of a block at D > 128, the most key splits it takes, and the SMs
+# of an H100
+_TILE_BK = 64
+_SPLIT_BQ = 128
+MAX_SPLITS = 4
+_SMS = 132
 # the additive bias of a masked key, as the TPU kernel's
 MASKED_NEG = -1e30
 
@@ -94,7 +118,8 @@ def _check_operand(x, name, d):
     """The kernel reads 16-byte pieces of rows whose heads sit side by side:
     unit element stride, head stride D, 16-byte aligned rows."""
     grain = 16 // x.element_size()
-    _cuda.require(x.is_cuda and x.stride(3) == 1 and x.stride(2) == d,
+    _cuda.require(x.is_cuda and x.stride(3) == 1
+                  and (x.shape[2] == 1 or x.stride(2) == d),
                   f"{name}: CUDA tensor with [.., H, D] rows contiguous")
     _cuda.require(x.data_ptr() % 16 == 0 and x.stride(1) % grain == 0
                   and x.stride(0) % grain == 0,
@@ -109,12 +134,47 @@ def _check_dtype_d(x, d):
                   "16-byte pieces")
 
 
-def flash_sdpa_bnhd(q, k, v):
-    """Kernel 9: attention over [B, N, H, D] operands and result. q, k, v
-    may be strided views (a packed qkv's columns) as long as each row's
-    [H, D] block is contiguous and 16-byte aligned."""
-    if q.device.type == "cpu" or fusion_disabled():
-        return onepass_bnhd_plain(q, k, v)
+def key_splits(n_q, n_k, d):
+    """Runs of whole key tiles that the bf16 kernels of `flash_sdpa` and
+    `flash_sdpa_bnhd` cut the key range into. It depends on (n_q, n_k, d)
+    only, never on batch or heads, so a batch element's result does not
+    depend on its batch. Up to D = 128 the models bring 8 or 16 heads, whose
+    blocks fill the card: one run. At D > 128 (the memory attention, one
+    head) the query tiles of 128 rows are spread over the SMs with up to 4
+    runs of at least 8 key tiles each."""
+    if d <= 128:
+        return 1
+    q_tiles = -(-n_q // _SPLIT_BQ)
+    k_tiles = -(-n_k // _TILE_BK)
+    return max(1, min(4, _SMS // q_tiles, k_tiles // 8))
+
+
+def _split_args(q, slices, nq, nk, d, splits):
+    """(splits, scratch_o, scratch_ml) of one launch over `slices` (batch,
+    head) pairs: the rule's split count unless the caller forces one, and
+    the float32 scratch the split kernels write (none at one split, which
+    is all that float32 operands take)."""
+    if q.dtype != torch.bfloat16:
+        _cuda.require(splits in (None, 1), "float32 operands take no key splits")
+        splits = 1
+    elif splits is None:
+        splits = key_splits(nq, nk, d)
+    _cuda.require(1 <= splits <= MAX_SPLITS,
+                  f"1 to {MAX_SPLITS} key splits, got {splits}")
+    if splits == 1:
+        return 1, None, None
+    part_o = torch.empty((slices * splits, nq, d), dtype=torch.float32,
+                         device=q.device)
+    part_ml = torch.empty((slices * splits, nq, 2), dtype=torch.float32,
+                          device=q.device)
+    return splits, part_o, part_ml
+
+
+def _ptr(x):
+    return None if x is None else x.data_ptr()
+
+
+def _check_bnhd(q, k, v):
     req = _cuda.require
     req(q.dim() == 4 and k.dim() == 4, "q [B, Nq, H, D], k / v [B, Nk, H, D]")
     b, nq, h, d = q.shape
@@ -125,15 +185,45 @@ def flash_sdpa_bnhd(q, k, v):
     _check_dtype_d(q, d)
     for x, name in ((q, "q"), (k, "k"), (v, "v")):
         _check_operand(x, name, d)
+    return b, nq, nk, h, d
+
+
+def _bnhd_args(q, k, v, out, b, nq, nk, h, d):
+    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            q.stride(0), k.stride(0), v.stride(0),
+            q.stride(1), k.stride(1), v.stride(1),
+            b, nq, nk, h, d, 1.0 / math.sqrt(d), _cuda.dtype_code(q.dtype))
+
+
+def flash_sdpa_bnhd(q, k, v, *, splits=None):
+    """Kernel 9: attention over [B, N, H, D] operands and result. q, k, v
+    may be strided views (a packed qkv's columns) as long as each row's
+    [H, D] block is contiguous and 16-byte aligned. `splits` forces a number
+    of key splits on the bf16 kernel (the checks cross the merge with it);
+    the models leave it to `key_splits`."""
+    if q.device.type == "cpu" or fusion_disabled():
+        return onepass_bnhd_plain(q, k, v)
+    b, nq, nk, h, d = _check_bnhd(q, k, v)
+    splits, part_o, part_ml = _split_args(q, b * h, nq, nk, d, splits)
     out = torch.empty((b, nq, h, d), dtype=q.dtype, device=q.device)
     err = _cuda.lib().nttt_onepass_attn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        q.stride(0), k.stride(0), v.stride(0),
-        q.stride(1), k.stride(1), v.stride(1),
-        b, nq, nk, h, d, 1.0 / math.sqrt(d), _cuda.dtype_code(q.dtype),
-        _cuda.stream_ptr(q.device))
+        *_bnhd_args(q, k, v, out, b, nq, nk, h, d), splits, _ptr(part_o),
+        _ptr(part_ml), _cuda.stream_ptr(q.device))
     _cuda.check(err, "nttt_onepass_attn")
     LAUNCHES["flash_sdpa_bnhd"] += 1
+    return out
+
+
+def flash_sdpa_bnhd_wmma(q, k, v):
+    """`flash_sdpa_bnhd` on the tile of `csrc/attn_tile.cuh` for either
+    dtype (CUDA tensors only): a second implementation to check and time
+    the bf16 kernel against. It counts no launch."""
+    b, nq, nk, h, d = _check_bnhd(q, k, v)
+    out = torch.empty((b, nq, h, d), dtype=q.dtype, device=q.device)
+    err = _cuda.lib().nttt_onepass_attn_wmma(
+        *_bnhd_args(q, k, v, out, b, nq, nk, h, d),
+        _cuda.stream_ptr(q.device))
+    _cuda.check(err, "nttt_onepass_attn_wmma")
     return out
 
 
@@ -169,6 +259,48 @@ def flash_bh_plain(q, k, v):
     return (p.float() @ v.float()).to(q.dtype)
 
 
+def merge_splits_plain(parts):
+    """Merge the partial results of key splits as the kernel's second pass
+    does. `parts` is a list of (o, m, l): the unnormalised float32 value
+    product [..., Nq, D] of a split, its row maximum in base-2 logits
+    [..., Nq, 1] (-inf for a split that saw no key) and its row sum
+    [..., Nq, 1]. Returns sum_s w_s o_s / sum_s w_s l_s with
+    w_s = 2^(m_s - max_s m_s), the splits taken in order."""
+    m = torch.stack([p[1] for p in parts]).amax(dim=0)
+    num = torch.zeros_like(parts[0][0])
+    den = torch.zeros_like(parts[0][2])
+    for o, m_s, l_s in parts:
+        w = torch.exp2(m_s - m)
+        num = num + w * o
+        den = den + w * l_s
+    return num / den
+
+
+def flash_bh_split_plain(q, k, v, splits, tile=_TILE_BK):
+    """`flash_sdpa` as the bf16 kernel computes it with the key range cut
+    into `splits` runs of whole `tile`-key tiles (the last runs may be short
+    or empty): per run the base-2 logits' row maximum, the unnormalised
+    weights cast to v's dtype for the value product, their float32 sum; then
+    `merge_splits_plain`. q [..., H, Nq, D], k / v [..., H, Nk, D]."""
+    nk = k.shape[-2]
+    per = -(-(-(-nk // tile)) // splits)
+    scale_log2 = math.log2(math.e) / math.sqrt(q.shape[-1])
+    parts = []
+    for s in range(splits):
+        lo = min(s * per * tile, nk)
+        hi = min(lo + per * tile, nk)
+        t = q.float() @ k[..., lo:hi, :].float().transpose(-1, -2) * scale_log2
+        if hi == lo:
+            m = t.new_full(t.shape[:-1] + (1,), -math.inf)
+            p = t
+        else:
+            m = t.amax(dim=-1, keepdim=True)
+            p = torch.exp2(t - m)
+        parts.append((p.to(v.dtype).float() @ v[..., lo:hi, :].float(), m,
+                      p.sum(dim=-1, keepdim=True)))
+    return merge_splits_plain(parts).to(q.dtype)
+
+
 def flash_masked_plain(q, k, v, key_valid):
     """q [B, H, Nq, D], k / v [B, H, Nk, D], key_valid [B, Nk] bool (True =
     attend) -> [B, H, Nq, D]. The TPU streaming kernel's arithmetic with one
@@ -200,7 +332,7 @@ def _flash_operand(x, name):
     return x
 
 
-def _launch_flash(name, q, k, v, bias):
+def _launch_flash(name, q, k, v, bias, splits=None):
     req = _cuda.require
     req(q.dim() >= 3 and k.dim() == q.dim() and v.dim() == q.dim(),
         "q [..., H, Nq, D], k / v [..., H, Nk, D]")
@@ -224,8 +356,13 @@ def _launch_flash(name, q, k, v, bias):
     out = torch.empty((b, h, nq, d), dtype=q.dtype, device=q.device)
     tail = (strides, b, h, nq, nk, d, 1.0 / math.sqrt(d),
             _cuda.dtype_code(q.dtype), _cuda.stream_ptr(q.device))
-    if bias is None:
+    if name == "flash_bh":
+        splits, part_o, part_ml = _split_args(q, b * h, nq, nk, d, splits)
         err = _cuda.lib().nttt_flash_bh(
+            q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), out.data_ptr(),
+            *tail[:-1], splits, _ptr(part_o), _ptr(part_ml), tail[-1])
+    elif name == "flash_bh_wmma":
+        err = _cuda.lib().nttt_flash_bh_wmma(
             q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), out.data_ptr(),
             *tail)
     else:
@@ -236,15 +373,25 @@ def _launch_flash(name, q, k, v, bias):
     return out.reshape(lead + (h, nq, d))
 
 
-def flash_sdpa(q, k, v):
+def flash_sdpa(q, k, v, *, splits=None):
     """Kernels 11 and 12 as one: unmasked attention over [..., H, N, D]
     operands and result, any key count, D <= 256. Strided views with unit
-    stride in D and 16-byte aligned rows are read in place."""
+    stride in D and 16-byte aligned rows are read in place. One call is one
+    launch in `LAUNCHES`, whatever the key splits behind it. `splits` forces
+    a number of key splits on the bf16 kernel (the checks cross the merge
+    with it); the models leave it to `key_splits`."""
     if q.device.type == "cpu" or fusion_disabled():
         return flash_bh_plain(q, k, v)
-    out = _launch_flash("flash_bh", q, k, v, None)
+    out = _launch_flash("flash_bh", q, k, v, None, splits)
     LAUNCHES["flash_sdpa"] += 1
     return out
+
+
+def flash_sdpa_wmma(q, k, v):
+    """`flash_sdpa` on the tile of `csrc/attn_tile.cuh` for either dtype
+    (CUDA tensors only): a second implementation to check and time the bf16
+    kernel against. It counts no launch."""
+    return _launch_flash("flash_bh_wmma", q, k, v, None)
 
 
 def flash_sdpa_masked(q, k, v, key_valid):

@@ -115,6 +115,140 @@ def test_flash_bh_plain_matches_the_online_kernels_reference():
     np.testing.assert_allclose(got.numpy(), ref, **F32_ONEPASS)
 
 
+def _interp_onepass_bh(q, k, v, jd):
+    """JAX `_onepass_bh` in interpret mode on [B, H, N, D] numpy operands,
+    padded as `flash_sdpa` pads them."""
+    b, h, n_q, d = q.shape
+    n_k = k.shape[2]
+    n_kp = (n_k + 127) // 128 * 128
+    bq = jfa._onepass_block_q(n_q, n_kp)
+    pad = lambda x, n: jnp.pad(jnp.asarray(x, jd).reshape(b * h, -1, d),
+                               [(0, 0), (0, n), (0, 0)])
+    ref = jfa._onepass_bh(pad(q, (-n_q) % bq), pad(k, n_kp - n_k),
+                          pad(v, n_kp - n_k), bq, n_k, interpret=True)
+    return _np(ref[:, :n_q]).reshape(b, h, n_q, d)
+
+
+# (n_q, n_k, d, splits, tile): ragged sizes; 130 keys are 3 tiles of 64, so
+# the 4th split is empty; 64 keys are 1 tile, so the 2nd split is empty; 333
+# keys leave the 3rd split a tail of 13 keys; 1000 keys in tiles of 16
+SPLIT_CASES = [(70, 130, 16, 4, 64), (33, 333, 24, 3, 64), (5, 64, 8, 2, 64),
+               (9, 65, 8, 1, 64), (40, 520, 256, 4, 64), (1, 200, 72, 2, 64),
+               (50, 1000, 32, 4, 16)]
+
+
+@pytest.mark.parametrize("n_q,n_k,d,splits,tile", SPLIT_CASES)
+def test_split_merge_plain_matches_unsplit(n_q, n_k, d, splits, tile):
+    """The key-split arithmetic of the bf16 kernels (partial O, maximum and
+    sum per run of whole key tiles, merged in order) against the unsplit
+    plain version in float32: the same sums in another order, 1e-5."""
+    rng = np.random.default_rng(n_k + splits)
+    q, k, v = (torch.as_tensor(rng.standard_normal((2, 3, n, d)).astype(
+        np.float32) * s) for n, s in ((n_q, 1.0), (n_k, 1.0), (n_k, 1.0)))
+    got = fa.flash_bh_split_plain(q, k, v, splits, tile)
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    torch.testing.assert_close(got, fa.flash_bh_plain(q, k, v), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_merge_splits_plain_ignores_a_split_without_keys():
+    """A split that saw no key (maximum -inf, sum 0, O 0) changes nothing,
+    wherever it stands, and one split alone is plain normalisation."""
+    rng = np.random.default_rng(3)
+    o, l = (torch.as_tensor(rng.random(s).astype(np.float32) + 0.5)
+            for s in ((2, 7, 8), (2, 7, 1)))
+    m = torch.as_tensor(rng.standard_normal((2, 7, 1)).astype(np.float32))
+    empty = (torch.zeros_like(o), torch.full_like(m, -np.inf),
+             torch.zeros_like(l))
+    want = o / l
+    for parts in ([(o, m, l)], [empty, (o, m, l)], [(o, m, l), empty, empty]):
+        torch.testing.assert_close(fa.merge_splits_plain(parts), want,
+                                   rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d,n_q,n_k,splits", [(256, 256, 300, 3),
+                                              (72, 200, 384, 4)])
+def test_split_merge_plain_matches_onepass_bh_interpret(dtype, d, n_q, n_k,
+                                                        splits):
+    """The split arithmetic against the JAX `_onepass_bh` kernel in
+    interpret mode (the kernel `flash_sdpa` reaches at these sizes). In
+    bf16 the split version rounds the unnormalised weights and divides
+    after the value product, the TPU kernel normalises first: the same
+    relative rounding, inside the bf16 band."""
+    rng = np.random.default_rng(d + n_k)
+    q, k, v = (rng.standard_normal((2, 2, n, d)).astype(np.float32) * s
+               for n, s in ((n_q, 0.3), (n_k, 0.3), (n_k, 1.0)))
+    ref = _interp_onepass_bh(q, k, v, getattr(jnp, dtype))
+    td = getattr(torch, dtype)
+    got = fa.flash_bh_split_plain(
+        *(torch.as_tensor(x).to(td) for x in (q, k, v)), splits)
+    assert got.dtype == td
+    tol = F32_ONEPASS if dtype == "float32" else BF16_BAND
+    np.testing.assert_allclose(got.float().numpy(), ref, **tol)
+
+
+# the shapes of the models' calls and what each must give
+@pytest.mark.parametrize("n_q,n_k,d,want", [
+    (4096, 4096, 256, 4), (4096, 28736, 256, 4), (1370, 1370, 64, 1),
+    (4096, 4096, 72, 1), (8192, 8192, 72, 1), (4096, 4096, 128, 1),
+    (4096, 500, 256, 1), (4096, 1024, 256, 2), (128, 4096, 256, 4),
+    (8448, 4096, 256, 2), (8449, 4096, 256, 1), (20000, 4096, 256, 1)])
+def test_key_splits_rule(n_q, n_k, d, want):
+    """The split count is a function of (n_q, n_k, d) alone: one run up to
+    D = 128; at D > 128 as many runs as spread the 128-row query tiles over
+    132 SMs, at most 4, each of at least 8 key tiles of 64."""
+    assert fa.key_splits(n_q, n_k, d) == want
+    assert 1 <= want <= fa.MAX_SPLITS
+
+
+def test_split_scratch_follows_the_rule_and_the_dtype():
+    """bf16 operands get the rule's split count and float32 scratch for the
+    partial results; float32 operands take one split and no scratch; a
+    forced count is honoured up to MAX_SPLITS."""
+    q = torch.zeros(1, dtype=torch.bfloat16)
+    n, part_o, part_ml = fa._split_args(q, 6, 512, 4096, 256, None)
+    assert n == fa.key_splits(512, 4096, 256) == 4
+    assert part_o.shape == (24, 512, 256) and part_o.dtype == torch.float32
+    assert part_ml.shape == (24, 512, 2) and part_ml.dtype == torch.float32
+    assert fa._split_args(q, 6, 512, 4096, 64, None) == (1, None, None)
+    assert fa._split_args(q, 2, 10, 100, 64, 3)[0] == 3
+    assert fa._split_args(q.float(), 6, 512, 4096, 256, None) == (1, None, None)
+    with pytest.raises(ValueError, match="key splits"):
+        fa._split_args(q, 2, 10, 100, 64, fa.MAX_SPLITS + 1)
+    with pytest.raises(ValueError, match="float32"):
+        fa._split_args(q.float(), 2, 10, 100, 64, 2)
+
+
+# (entry, D, dtypes of q and k, the refusal's words)
+REFUSALS = [("bh", 12, ("bfloat16", "bfloat16"), "16-byte pieces"),
+            ("bh", 6, ("float32", "float32"), "16-byte pieces"),
+            ("bh", 264, ("bfloat16", "bfloat16"), "16-byte pieces"),
+            ("bh", 64, ("bfloat16", "float32"), "share one dtype"),
+            ("bh", 64, ("float16", "float16"), "float32 or bfloat16"),
+            ("bnhd", 12, ("bfloat16", "bfloat16"), "16-byte pieces"),
+            ("bnhd", 264, ("float32", "float32"), "16-byte pieces"),
+            ("bnhd", 64, ("float32", "bfloat16"), "share one dtype"),
+            ("bnhd", 64, ("float16", "float16"), "float32 or bfloat16")]
+
+
+@pytest.mark.parametrize("entry,d,dtypes,words", REFUSALS)
+def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(entry, d, dtypes,
+                                                             words):
+    """The checks in front of both tiles' launches: a head dim that is not
+    whole 16-byte pieces or is wider than 256, mixed dtypes, and a dtype
+    other than float32 / bfloat16 raise before any launch."""
+    q, k = (torch.zeros((1, 2, 20, d) if entry == "bh" else (1, 20, 2, d),
+                        dtype=getattr(torch, dt)) for dt in dtypes)
+    before = dict(fa.LAUNCHES)
+    with pytest.raises(ValueError, match=words):
+        if entry == "bh":
+            fa._launch_flash("flash_bh", q, k, k, None)
+        else:
+            fa._check_bnhd(q, k, k)
+    assert fa.LAUNCHES == before
+
+
 def _masked_case(rng, b, h, n_q, n_k, d):
     q, k, v = (rng.standard_normal((b, h, n, d)).astype(np.float32) * 0.3
                for n in (n_q, n_k, n_k))

@@ -11,9 +11,11 @@ Run from the root of a checkout. Phases, each of which raises on failure:
      beside the plain version's and, where one PyTorch call computes the
      same function, that call's (a yardstick only: the port never calls
      it), and the least time the card could take for the same work; the
-     bf16 kernels of flash_sdpa and flash_sdpa_bnhd also with forced key
-     splits, a batch of 3 against its elements alone, and in turns with
-     their parent on the WMMA tile;
+     bf16 attention kernels (flash_sdpa, flash_sdpa_bnhd, flash_sdpa_masked,
+     flash_sdpa_window_qkv) also with forced key splits, a batch against its
+     elements alone bit for bit, the masked kernel's tile list against its
+     plain version, and in turns with their parent on the WMMA tile; the
+     scoring products on bf16 operands against their float32 form;
   4. the 10-shot test step on three paths, each a SAM2 Hiera-L matcher in
      bf16 with seeded random weights: DINOv2-L under attention_impl="xla",
      DINOv2-L under "pallas" and DINOv3-L under "pallas". Each fills the
@@ -38,6 +40,8 @@ Run from the root of a checkout. Phases, each of which raises on failure:
      one decoded chunk's operands; B = 1 against B = 2 timed in turns with
      the peak device memory of each.
 `python3 chip_smoke.py --kernels` runs phases 1 to 3 only;
+`python3 chip_smoke.py --registers` runs phase 1 and prints each kernel's
+registers and spills as `nvcc -Xptxas -v` reports them;
 `python3 chip_smoke.py --batch-profile` runs phases 1 and 2 and then two
 images at B = 1 and at B = 2 under torch.profiler (wall, device busy time
 and kernels launched per image; a stopgap like --video-profile).
@@ -296,17 +300,45 @@ BATCH_EDGE = [("flash_sdpa", 3, 1, 300, 2100, 256),
               ("flash_sdpa_bnhd", 3, 4, 700, 700, 64),
               ("flash_sdpa_bnhd", 3, 2, 300, 2100, 256)]
 # shapes beyond a kernel's first that the kernel table keeps, under `also`
-ALSO_TIMED = ("hiera_l global", "row 12: 8192 keys, D 72")
+ALSO_TIMED = ("hiera_l global", "row 12: 8192 keys, D 72",
+              "hiera_l global blocks at a batch of 2",
+              "memory cross, ring full")
 # flash_sdpa_masked (row 13): (label, B, H, Nq, Nk, D, mask); the memory
 # cross-attention over 7 rows x 4096 tokens + 16 pointers x 4 tokens with a
-# partly filled ring; then a fully masked prefix of tiles, a batch element
-# with every key masked (its rows return the mean of v), ragged sequences
+# partly filled ring, and with the ring full (every clip from its 7th frame
+# on); then a fully masked prefix of tiles, a batch element with every key
+# masked beside a partly masked one (its rows return the mean of v), ragged
+# sequences, one valid key in a whole element, valid keys in the last,
+# partial tile only, and every other tile fully masked (at D = 256 in 4 runs)
 MASKED_SHAPES = [("memory cross, 1 object", 1, 1, 4096, 28736, 256, "ring"),
-                 ("memory cross, 2 objects", 2, 1, 4096, 28736, 256, "ring")]
+                 ("memory cross, 2 objects", 2, 1, 4096, 28736, 256, "ring"),
+                 ("memory cross, ring full", 1, 1, 4096, 28736, 256, "full")]
 MASKED_EDGE = [("masked prefix, D 64", 2, 2, 200, 5000, 64, "prefix"),
                ("masked row, D 256", 2, 1, 130, 4700, 256, "row"),
                ("ragged, D 72", 1, 3, 513, 4611, 72, "random"),
-               ("ragged, D 128", 2, 1, 77, 4999, 128, "random")]
+               ("ragged, D 128", 2, 1, 77, 4999, 128, "random"),
+               ("one valid key, D 256", 2, 1, 130, 4700, 256, "one key"),
+               ("last partial tile only, D 128", 1, 2, 200, 4700, 128,
+                "last tile"),
+               ("alternate tiles, D 72", 2, 2, 300, 4800, 72, "alternate"),
+               ("alternate tiles, D 256", 1, 1, 300, 4800, 256, "alternate")]
+# forced key runs of the bf16 masked kernel against its arithmetic in plain
+# PyTorch: (label, B, H, Nq, Nk, D, mask, splits); 130 keys are 3 tiles for
+# 4 runs (one empty), one valid key leaves 3 of 4 runs empty
+MASKED_SPLIT_EDGE = [("1 run, D 256", 2, 1, 200, 2100, 256, "random", 1),
+                     ("2 runs, D 128", 2, 2, 70, 1000, 128, "alternate", 2),
+                     ("3 runs, D 72", 1, 2, 200, 700, 72, "prefix", 3),
+                     ("4 runs, D 64", 2, 2, 100, 640, 64, "random", 4),
+                     ("4 runs, one empty, D 256", 1, 1, 300, 130, 256,
+                      "random", 4),
+                     ("4 runs, one valid key, D 256", 1, 1, 300, 2100, 256,
+                      "one key", 4),
+                     ("4 runs, masked row, D 256", 2, 1, 130, 2100, 256,
+                      "row", 4)]
+# a batch of 3 with three different masks against its elements alone, bit
+# for bit: (B, H, Nq, Nk, D, the three masks)
+MASKED_BATCH_EDGE = [(3, 1, 300, 4800, 256, ("alternate", "one key", "row")),
+                     (3, 2, 300, 2100, 72, ("prefix", "random", "last tile"))]
 # kernel 10: (label, B, heads, D, window tokens, windows)
 WINDOW_SHAPES = [("hiera_l stage 1", 1, 2, 72, 64, 1024),
                  ("hiera_l stage 2", 1, 4, 72, 16, 1024),
@@ -316,7 +348,24 @@ WINDOW_EDGE = [("T 16 x 3 windows", 1, 4, 72, 16, 3),
                ("B 2, T 64", 2, 2, 72, 64, 3),
                ("T 256 x 1 window", 1, 8, 72, 256, 1),
                ("D 64, T 49", 1, 2, 64, 49, 5),
-               ("D 256, T 64", 1, 1, 256, 64, 3)]
+               ("D 256, T 64", 1, 1, 256, 64, 3),
+               # the windows and head dims of the smaller topologies; window
+               # counts that do not fill the last block of 64 rows; windows
+               # of whole 128-row blocks at every padded head dim
+               ("D 96, T 196", 1, 4, 96, 196, 25),
+               ("D 96, T 49", 1, 8, 96, 49, 25),
+               ("D 56, T 196", 1, 4, 56, 196, 25),
+               ("D 72, T 49 x 7", 1, 2, 72, 49, 7),
+               ("D 72, T 196 x 3", 2, 2, 72, 196, 3),
+               ("D 72, T 16 x 9", 2, 4, 72, 16, 9),
+               ("D 72, T 128 x 3", 2, 2, 72, 128, 3),
+               ("D 64, T 256 x 2", 1, 2, 64, 256, 2),
+               ("D 96, T 128 x 2", 1, 2, 96, 128, 2),
+               ("D 256, T 384 x 1", 1, 1, 256, 384, 1)]
+# kernel 10 at a batch of 2 against its halves alone, bit for bit: (heads,
+# D, window tokens, windows)
+WINDOW_BATCH_EDGE = [(2, 72, 64, 5), (4, 72, 16, 9), (2, 72, 256, 2),
+                     (2, 96, 49, 7)]
 
 
 def log(*a):
@@ -447,6 +496,7 @@ def check_pair(name, single_name, dt, fn, plain, results, bnd):
                 return fn()
         ms = [cuda_ms(fn), cuda_ms(paired), cuda_ms(paired), cuda_ms(fn)]
         results[name] = dict(max_abs_err=err, ms=min(ms[1:3]),
+                             device_ms=queued_ms(paired),
                              plain_ms=cuda_ms(plain), library_ms=None, **bnd)
         log(f"    time {name} {ms[1]:.3f} / {ms[2]:.3f} ms against "
             f"{single_name} {ms[0]:.3f} / {ms[3]:.3f} ms (single, pair, pair, "
@@ -508,7 +558,8 @@ def pair_kernels(rn, dt, shapes, results=None):
             ms = [cuda_ms(singles), cuda_ms(pair), cuda_ms(pair),
                   cuda_ms(singles)]
             results["fused_i2t_norm_pair"] = dict(
-                max_abs_err=err, ms=min(ms[1:3]), plain_ms=cuda_ms(
+                max_abs_err=err, ms=min(ms[1:3]), device_ms=queued_ms(pair),
+                plain_ms=cuda_ms(
                     lambda: da.fused_i2t_norm_pair_plain(*a8, num_heads=8)),
                 library_ms=None, **i2t_bound(a8, 2 * p_, n, t, images=2))
             log(f"    time fused_i2t_norm_pair {ms[1]:.3f} / {ms[2]:.3f} ms "
@@ -540,6 +591,7 @@ def pair_kernels(rn, dt, shapes, results=None):
             results["fused_post_t1_from_t1"] = dict(
                 max_abs_err=err,
                 ms=cuda_ms(lambda: up.fused_post_t1_from_t1(*a5)),
+                device_ms=queued_ms(lambda: up.fused_post_t1_from_t1(*a5)),
                 plain_ms=cuda_ms(lambda: up.fused_post_t1_from_t1_plain(*a5)),
                 library_ms=None,
                 **bound(nbytes(*a5) + p_ * 16 * hw * t1.element_size(),
@@ -603,6 +655,9 @@ def kernel_phase(dev):
                 results["layer_norm"] = dict(
                     max_abs_err=err,
                     ms=cuda_ms(lambda: fl.layer_norm(x, w, b, 1e-6)),
+                    device_ms=queued_ms(lambda: fl.layer_norm(x, w, b, 1e-6)),
+                    library_device_ms=queued_ms(
+                        lambda: F.layer_norm(x, (c,), wd, bd, 1e-6)),
                     plain_ms=cuda_ms(lambda: fl.layer_norm_plain(x, w, b, 1e-6)),
                     library_ms=cuda_ms(lambda: F.layer_norm(x, (c,), wd, bd,
                                                             1e-6)),
@@ -629,6 +684,8 @@ def kernel_phase(dev):
                 results["fused_t2i_attn"] = dict(
                     max_abs_err=err,
                     ms=cuda_ms(lambda: da.fused_t2i_attn(*args, num_heads=8)),
+                    device_ms=queued_ms(
+                        lambda: da.fused_t2i_attn(*args, num_heads=8)),
                     plain_ms=cuda_ms(
                         lambda: da.fused_t2i_attn_plain(*args, num_heads=8)),
                     library_ms=None,
@@ -649,6 +706,8 @@ def kernel_phase(dev):
                 results["fused_i2t_norm"] = dict(
                     max_abs_err=err,
                     ms=cuda_ms(lambda: da.fused_i2t_norm(*args, num_heads=8)),
+                    device_ms=queued_ms(
+                        lambda: da.fused_i2t_norm(*args, num_heads=8)),
                     plain_ms=cuda_ms(
                         lambda: da.fused_i2t_norm_plain(*args, num_heads=8)),
                     library_ms=None,
@@ -674,6 +733,7 @@ def kernel_phase(dev):
             # 16 phases x 32 channels; the result is [b, 16, hw]
             results["fused_post_t1"] = dict(
                 max_abs_err=err, ms=cuda_ms(lambda: up.fused_post_t1(*args)),
+                device_ms=queued_ms(lambda: up.fused_post_t1(*args)),
                 plain_ms=cuda_ms(lambda: up.fused_post_t1_plain(*args)),
                 library_ms=None,
                 **bound(nbytes(*args) + b * 16 * hw * src.element_size(),
@@ -697,7 +757,10 @@ def kernel_phase(dev):
         log(f"  time {k:21s} kernel {v['ms']:.3f} ms, plain "
             f"{v['plain_ms']:.3f} ms, library call {lib}, bound "
             f"{v['bound_ms']:.4f} ms by {v['bound_by']} "
-            "(bf16, median of 10 after 3 warm-up)")
+            f"(bf16, median of 10 after 3 warm-up); device ms behind a full "
+            f"queue {v['device_ms']:.4f}"
+            + (f", library call {v['library_device_ms']:.4f}"
+               if "library_device_ms" in v else ""))
     return results
 
 
@@ -741,10 +804,11 @@ def queued_ms(fn, n=20, reps=3):
 
 
 def in_turns(name, label, fn, parent):
-    """Device ms (`queued_ms`) of the kernel and of its parent (the same
-    entry on the WMMA tile of csrc/attn_tile.cuh, which the bf16 entry
-    launched before the tiles of csrc/attn_mma.cuh), timed parent, kernel,
-    kernel, parent in one process; the kernel has to be the faster."""
+    """Device ms (`queued_ms`) of the kernel and of its parent (any
+    attention entry's `_wmma` route: the same function on the WMMA tile of
+    csrc/attn_tile.cuh, which the bf16 entry launched before the tiles of
+    csrc/attn_mma.cuh took it), timed parent, kernel, kernel, parent in one
+    process; the kernel has to be the faster."""
     ms = [queued_ms(parent), queued_ms(fn), queued_ms(fn), queued_ms(parent)]
     log(f"  time {name} {label}: device ms, parent {ms[0]:.4f} / {ms[3]:.4f}, "
         f"kernel {ms[1]:.4f} / {ms[2]:.4f} (parent, kernel, kernel, parent)")
@@ -781,8 +845,8 @@ def timed_row(name, label, err, fn, plain, lib, n_bytes, ops, parent):
 def attention_kernels(rn, dt, onepass_shapes, window_shapes, results=None):
     """Kernels 9 and 10 against their plain versions; with `results`, the
     bf16 times at every shape are logged too (and beside them the "xla"
-    formula's, which the kernels replace on the pallas path; kernel 9 in
-    turns with its parent on the WMMA tile), the first shape of each kernel
+    formula's, which the kernels replace on the pallas path; both kernels in
+    turns with their parents on the WMMA tile), the first shape of each kernel
     is kept for the kernel table, and later shapes whose label is in
     ALSO_TIMED are kept under `also`."""
     import torch
@@ -828,7 +892,8 @@ def attention_kernels(rn, dt, onepass_shapes, window_shapes, results=None):
                    lambda: fa.window_qkv_plain(qkv, h, win),
                    lambda: att.sdpa_bnhd(*split, "xla"),
                    lambda: F.scaled_dot_product_attention(*heads_first),
-                   nbytes(qkv) * 4 // 3, 4 * b * nw * win * win * h * d)
+                   nbytes(qkv) * 4 // 3, 4 * b * nw * win * win * h * d,
+                   parent=lambda: fa.flash_sdpa_window_qkv_wmma(qkv, h, win))
     torch.cuda.empty_cache()
 
 
@@ -847,8 +912,13 @@ def key_mask(kind, b, nk, dev, gen):
     rows 0, 2, 3 (first object) or 0, 1, 2, 4, 6 (second) and 24 pointer
     tokens valid; "prefix": the first third of the keys masked for the
     first batch element; "row": every key of the last batch element
-    masked; all but "ring" over 70 % random valid keys."""
+    masked; "one key": one valid key in each element; "last tile": valid
+    keys in the last, partial 64-key tile only; "alternate": every other
+    64-key tile fully masked; "full": every key valid; "prefix", "row",
+    "alternate" and "random" over 70 % random valid keys."""
     import torch
+    if kind == "full":
+        return torch.ones((b, nk), dtype=torch.bool, device=dev)
     if kind == "ring":
         valid = torch.zeros((b, nk), dtype=torch.bool, device=dev)
         for o in range(b):
@@ -861,6 +931,15 @@ def key_mask(kind, b, nk, dev, gen):
         valid[0, :nk // 3] = False
     elif kind == "row":
         valid[-1, :] = False
+    elif kind == "one key":
+        valid[:] = False
+        valid[torch.arange(b, device=dev), (nk // 3) * (1 + torch.arange(
+            b, device=dev) % 2)] = True
+    elif kind == "last tile":
+        valid[:, :nk // 64 * 64] = False
+        valid[:, -1] = True
+    elif kind == "alternate":
+        valid[:, (torch.arange(nk, device=dev) // 64) % 2 == 1] = False
     return valid
 
 
@@ -901,8 +980,8 @@ def memory_kernels(rn, dt, flash_shapes, masked_shapes, results=None):
                    parent=lambda: fa.flash_sdpa_wmma(q, k, v))
     for label, b, h, nq, nk, d, kind in masked_shapes:
         q, k, v = operands(lambda n: (b, h, n, d), nq, nk)
-        valid = key_mask(kind, b, nk, q.device, None if kind == "ring"
-                         else torch.Generator(q.device).manual_seed(nk))
+        valid = key_mask(kind, b, nk, q.device,
+                         torch.Generator(q.device).manual_seed(nk))
         # a masked key's value lies 3 above a valid key's
         v = torch.where(valid[:, None, :, None], v, v + 3.0)
         got = fa.flash_sdpa_masked(q, k, v, valid)
@@ -925,7 +1004,8 @@ def memory_kernels(rn, dt, flash_shapes, masked_shapes, results=None):
                                                           attn_mask=mask4),
                    2 * nbytes(q) + nbytes(valid)
                    + 2 * n_valid * h * d * q.element_size(),
-                   4 * h * nq * n_valid * d)
+                   4 * h * nq * n_valid * d,
+                   parent=lambda: fa.flash_sdpa_masked_wmma(q, k, v, valid))
         del q, k, v, got
         torch.cuda.empty_cache()
 
@@ -964,6 +1044,121 @@ def split_and_batch_checks(rn):
                 f"{'bit for bit' if same else 'DIFFERS'}")
             if not same:
                 fail(f"{entry}: a batch element's result depends on its batch")
+
+
+def masked_and_window_checks(rn):
+    """The bf16 kernels of flash_sdpa_masked and flash_sdpa_window_qkv: the
+    masked kernel's pre-pass against `masked_tile_list_plain`; forced key
+    runs against `flash_masked_split_plain` (the kernel's own arithmetic)
+    and the plain version; a batch of 3 different masks against its
+    elements alone and a window batch of 2 against its halves alone, bit
+    for bit (float32 too: the old tile); two 4096-token windows against
+    flash_sdpa_bnhd on each half, bit for bit."""
+    import torch
+    from no_time_to_train_tpu_torch.ops import flash_attention as fa
+    dev, dt = "cuda", torch.bfloat16
+    gen = torch.Generator(dev).manual_seed(7)
+    for kind in ("ring", "full", "prefix", "row", "one key", "last tile",
+                 "alternate", "random"):
+        nk = 28736 if kind in ("ring", "full") else 4700
+        valid = key_mask(kind, 3, nk, dev, gen)
+        tiles, count = fa.masked_tile_list(valid)
+        want_tiles, want_count = fa.masked_tile_list_plain(valid)
+        same = torch.equal(tiles, want_tiles) and torch.equal(count,
+                                                              want_count)
+        log(f"  masked tile list, {kind} mask, {nk} keys: taken tiles "
+            f"{count.tolist()} of {tiles.shape[1]}: "
+            f"{'equal to its plain version' if same else 'DIFFERS'}")
+        if not same:
+            fail("the masked kernel's tile list differs from its plain "
+                 "version")
+    for label, b, h, nq, nk, d, kind, splits in MASKED_SPLIT_EDGE:
+        q, k, v = sharp_operands(rn, dt, lambda n: (b, h, n, d), nq, nk)
+        valid = key_mask(kind, b, nk, dev, gen)
+        v = torch.where(valid[:, None, :, None], v, v + 3.0)
+        log(f"    {label}:")
+        got = fa.flash_sdpa_masked(q, k, v, valid, splits=splits)
+        compare("flash_sdpa_masked", dt, got,
+                fa.flash_masked_plain(q, k, v, valid))
+        own = fa.flash_masked_split_plain(q, k, v, valid, splits)
+        gap = float((got.float() - own.float()).abs().max())
+        log(f"    against flash_masked_split_plain: max |d| {gap:.3e}")
+        compare("flash_sdpa_masked", dt, got, own)
+    for dt in (torch.bfloat16, torch.float32):
+        for b, h, nq, nk, d, kinds in MASKED_BATCH_EDGE:
+            q, k, v = sharp_operands(rn, dt, lambda n: (b, h, n, d), nq, nk)
+            valid = torch.stack([key_mask(kind, 2, nk, dev, gen)[
+                1 if kind == "row" else 0] for kind in kinds])
+            whole = fa.flash_sdpa_masked(q, k, v, valid)
+            alone = torch.cat([fa.flash_sdpa_masked(
+                q[i:i + 1], k[i:i + 1], v[i:i + 1], valid[i:i + 1])
+                for i in range(b)])
+            same = torch.equal(whole, alone)
+            log(f"  flash_sdpa_masked {dt} batch of {b} x {h} heads, {nq} x "
+                f"{nk}, D {d}, masks {kinds} against each element alone: "
+                f"{'bit for bit' if same else 'DIFFERS'}")
+            if not same:
+                fail("flash_sdpa_masked: a batch element's result depends "
+                     "on its batch")
+        for h, d, win, nw in WINDOW_BATCH_EDGE:
+            qkv = rn(2, nw * win, 3 * h * d, dtype=dt)
+            whole = fa.flash_sdpa_window_qkv(qkv, h, win)
+            alone = torch.cat([fa.flash_sdpa_window_qkv(qkv[i:i + 1], h, win)
+                               for i in range(2)])
+            same = torch.equal(whole, alone)
+            log(f"  flash_sdpa_window_qkv {dt} batch of 2, {nw} windows x "
+                f"{win}, {h} heads x {d} against each half alone: "
+                f"{'bit for bit' if same else 'DIFFERS'}")
+            if not same:
+                fail("flash_sdpa_window_qkv: a batch element's result "
+                     "depends on its batch")
+    # the Hiera-L global blocks at a batch of two (two windows of 4096
+    # tokens in one packed qkv) against kernel 9 on each image's rows
+    h, d, win = 8, 72, 4096
+    qkv = rn(1, 2 * win, 3 * h * d, dtype=torch.bfloat16)
+    got = fa.flash_sdpa_window_qkv(qkv, h, win)
+    halves = []
+    for i in range(2):
+        q, k, v = qkv[:, i * win:(i + 1) * win].reshape(
+            1, win, 3, h, d).unbind(2)
+        halves.append(fa.flash_sdpa_bnhd(q, k, v).reshape(1, win, h * d))
+    same = torch.equal(got, torch.cat(halves, dim=1))
+    log(f"  flash_sdpa_window_qkv on two windows of {win} x {h} heads x {d} "
+        f"against flash_sdpa_bnhd on each: "
+        f"{'bit for bit' if same else 'DIFFERS'}")
+    if not same:
+        fail("two 4096-token windows differ from flash_sdpa_bnhd on each")
+
+
+def scoring_products(rn):
+    """The scoring products at the test step's shapes (1024 masks over
+    256^2 positions, 1024 feature columns; 800 selected masks): bf16
+    operands with a float32 result, which a CUDA tensor takes, against the
+    float32 product. 0 / 1 masks and bf16 features are exact in both, so
+    the two differ by the order of the float32 sums."""
+    import torch
+    from no_time_to_train_tpu_torch.models.matching import scoring
+    masks = rn(1024, 65536) > 0.5
+    feat = rn(65536, 1024, dtype=torch.bfloat16)
+    if not scoring.mask_product_on_bf16(masks, feat) \
+            or scoring.mask_product_on_bf16(masks, feat.float()):
+        fail("the scoring products pick their operands by device and dtype")
+    got = scoring.mask_product(masks, feat)
+    ref = masks.float() @ feat.float()
+    rel = float((got - ref).norm() / ref.norm())
+    inter = scoring.mask_product(masks[:800])
+    exact = torch.equal(inter, masks[:800].float() @ masks[:800].float().T)
+    ms = [cuda_ms(lambda: scoring.mask_product(masks, feat)),
+          cuda_ms(lambda: masks.float() @ feat.float()),
+          cuda_ms(lambda: scoring.mask_product(masks[:800])),
+          cuda_ms(lambda: masks[:800].float() @ masks[:800].float().T)]
+    log(f"  scoring products, bf16 operands -> float32 against float32: "
+        f"pooling [1024, 65536] x [65536, 1024] relative L2 {rel:.2e}, "
+        f"{ms[0]:.3f} against {ms[1]:.3f} ms; intersections [800, 65536] x "
+        f"its transpose {'equal' if exact else 'DIFFER'}, {ms[2]:.3f} "
+        f"against {ms[3]:.3f} ms")
+    if got.dtype != torch.float32 or rel > 1e-5 or not exact:
+        fail("the scoring products on bf16 operands disagree with float32")
 
 
 def edge_shapes(rn):
@@ -1008,6 +1203,8 @@ def edge_shapes(rn):
         attention_kernels(rn, dt, ONEPASS_EDGE, WINDOW_EDGE)
         memory_kernels(rn, dt, FLASH_EDGE, MASKED_EDGE)
     split_and_batch_checks(rn)
+    masked_and_window_checks(rn)
+    scoring_products(rn)
 
 
 def _counters():
@@ -1422,10 +1619,11 @@ def run_video(dev, profile=False):
     return warm, counts
 
 
-def same_result(what, got, ref):
+def same_result(what, got, ref, exact=False):
     """Two results of the test step on one image: the same valid flags and
     labels; scores and predicted IoUs within DECODE_IOU_BAND; the valid
-    masks' logits agree in sign on DECODE_SIGN_AGREE of the pixels."""
+    masks' logits agree in sign on DECODE_SIGN_AGREE of the pixels. With
+    `exact` every array has to be equal bit for bit."""
     import numpy as np
     v = ref["valid"]
     if not (got["valid"] == v).all() \
@@ -1442,7 +1640,7 @@ def same_result(what, got, ref):
         f"agreement {agree:.5f} (band {DECODE_SIGN_AGREE})"
         f"{', bit for bit' if equal else ''}")
     if d_score > DECODE_IOU_BAND or d_iou > DECODE_IOU_BAND \
-            or agree < DECODE_SIGN_AGREE:
+            or agree < DECODE_SIGN_AGREE or (exact and not equal):
         fail(f"{what}: results disagree")
 
 
@@ -1503,10 +1701,12 @@ def build_batched_matcher(dev):
 
 def profile_rows(dev_rows, top):
     """The `top` device rows of a profile by time, then every row of the
-    attention kernels that is not among them."""
+    attention kernels (tiles, merge, the masked kernel's pre-pass) that is
+    not among them."""
     rows = sorted(dev_rows, key=lambda e: -e.self_device_time_total)
     return rows[:top] + [e for e in rows[top:] if "attn" in e.key
-                         or "merge_kernel" in e.key]
+                         or "merge_kernel" in e.key
+                         or "tile_list_kernel" in e.key]
 
 
 def batch_profile(dev, smi):
@@ -1577,7 +1777,11 @@ def run_batched(dev, smi):
         if (sv <= 0).any() or (sv > 1.0 + 1e-3).any() \
                 or (np.diff(sv) > 1e-6).any():
             fail("valid scores must be positive, <= 1 and sorted")
-        same_result(f"batch image {k} vs test alone", one, singles[k])
+        # every kernel of the step gives an image the same bits in a batch
+        # as alone: at B = 2 the global blocks are two windows of kernel
+        # 10, which runs kernel 9's instance on each
+        same_result(f"batch image {k} vs test alone", one, singles[k],
+                    exact=True)
     with no_fusion():
         plain = matcher.fetch_test(matcher.test_batch_async(targets))
     if launch_counts() != mark:
@@ -1661,6 +1865,43 @@ def run_batched(dev, smi):
     return statistics.median(ms[1]), statistics.median(ms[2]), counts
 
 
+def kernel_registers():
+    """`--registers`: compile every source of csrc/ once more with
+    `-Xptxas -v` (all started together) and print, per kernel entry, the
+    registers of a thread and the bytes it spills."""
+    import re
+    import shutil
+    import tempfile
+    from no_time_to_train_tpu_torch.ops import _cuda
+    nvcc = _cuda._nvcc()
+    filt = shutil.which("cu++filt") or os.path.join(os.path.dirname(nvcc),
+                                                    "cu++filt")
+    with tempfile.TemporaryDirectory() as tmp:
+        jobs = [(src, subprocess.Popen(
+            [nvcc, *_cuda._ARCH, "-Xptxas", "-v", "-c", "-o",
+             os.path.join(tmp, src.stem + ".o"), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            for src in sorted(_cuda._CSRC.glob("*.cu"))]
+        for src, proc in jobs:
+            text = proc.communicate()[0]
+            if proc.returncode != 0:
+                fail(f"nvcc -Xptxas -v failed on {src.name}:\n{text}")
+            entries = re.findall(
+                r"Compiling entry function '(\S+)' for 'sm_90a'.*?"
+                r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                r"(\d+) bytes spill loads.*?Used (\d+) registers", text,
+                re.S)
+            names = [e[0] for e in entries]
+            if os.path.exists(filt):
+                names = subprocess.run([filt, *names], capture_output=True,
+                                       text=True).stdout.splitlines()
+            for name, (_, stack, st, ld, regs) in zip(names, entries):
+                short = re.sub(r"\((int|bool)\)", "", name)
+                short = re.sub(r"\([^()]*\)$", "", short).replace("void ", "")
+                log(f"  {src.name}: {short}: {regs} registers, stack {stack}, "
+                    f"spill stores {st}, loads {ld} bytes")
+
+
 def main():
     try:
         import torch
@@ -1688,6 +1929,11 @@ def main():
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     from no_time_to_train_tpu_torch.ops import _cuda
+    if sys.argv[1:] == ["--registers"]:
+        log("[2] registers and spills of every kernel, by nvcc -Xptxas -v")
+        kernel_registers()
+        print(smi)
+        return 0
     t_phase = time.perf_counter()
     _cuda.lib()
     log(f"[2] kernels built from no_time_to_train_tpu_torch/csrc in "
@@ -1751,9 +1997,9 @@ def main():
     if idle:
         fail(f"kernels that no path launched: {idle}")
     for k in kernels:
-        log(f"  {k['name']:21s} {k['ms']:.3f} ms, plain {k['plain_ms']:.3f}, "
-            f"bound {k['bound_ms']:.4f} by {k['bound_by']}, launches "
-            f"{k['launches']}; on {smi}")
+        log(f"  {k['name']:21s} {k['ms']:.3f} ms (device {k['device_ms']:.4f}), "
+            f"plain {k['plain_ms']:.3f}, bound {k['bound_ms']:.4f} by "
+            f"{k['bound_by']}, launches {k['launches']}; on {smi}")
     log(f"summary: warm fenced {'; '.join(summary)}; on {smi}")
     print(json.dumps({"kernels": kernels}))
     print(smi)

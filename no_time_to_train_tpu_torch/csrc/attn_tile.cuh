@@ -1,7 +1,10 @@
 // One tile of streaming attention, shared by the four attention kernels:
 // the single-pass kernel on [B, N, H, D] (onepass_attn.cu), the window
 // kernel on a packed qkv (window_attn.cu), and the unmasked and key-masked
-// kernels on [B, H, N, D] (flash_bh.cu, flash_masked.cu).
+// kernels on [B, H, N, D] (flash_bh.cu, flash_masked.cu). It serves their
+// float32 operands, and for bf16 operands the `_wmma` entries only: a second
+// implementation that the checks hold the tiles of attn_mma.cuh against and
+// time them beside. No model's bf16 call lands here.
 //
 // A block of 4 warps takes 64 query rows of one (batch, head); warp w owns
 // rows 16w..16w+15. The block walks its key range in tiles of BK rows,

@@ -45,8 +45,12 @@ _SIGNATURES = {
                       _I, _VP, _VP, _VP],
     "nttt_flash_bh_wmma": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _F,
                            _I, _VP],
-    "nttt_flash_masked": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
-                          _F, _I, _VP],
+    "nttt_window_attn_wmma": [_VP, _VP, _I, _I, _I, _I, _I, _F, _I, _VP],
+    "nttt_flash_masked": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I,
+                          _I, _F, _I, _I, _VP, _VP, _VP, _VP, _VP, _VP],
+    "nttt_flash_masked_wmma": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I,
+                               _I, _F, _I, _VP],
+    "nttt_masked_tile_list": [_VP, _VP, _VP, _VP, _I, _I, _VP],
 }
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC"]

@@ -21,22 +21,32 @@ On a CUDA tensor each launches its kernel; on a CPU tensor, or inside
 `no_fusion()`, each runs its plain version (`onepass_bnhd_plain`,
 `window_qkv_plain`, `flash_bh_plain`, `flash_masked_plain`). Which entry
 runs on which tile:
-  * `flash_sdpa` and `flash_sdpa_bnhd` on bf16 operands: the
-    register-accumulator tiles of `csrc/attn_mma.cuh` (the online softmax on
-    the accumulator registers of the products, operand tiles alone in shared
-    memory): `wgmma` products where the head dim pads to 64, 128 or 256
-    columns (D <= 64, 81..256), `mma.sync` products where it pads to 80
-    (65..80: Hiera's 72). At D > 128, where one head leaves most SMs idle,
-    the key range is cut into `key_splits(n_q, n_k, d)` runs of whole key
-    tiles whose partial results a second kernel merges in a fixed order;
-    `flash_bh_split_plain` is that arithmetic in plain PyTorch.
-  * the same two entries on float32 operands, and `flash_sdpa_window_qkv`
-    and `flash_sdpa_masked` on either dtype: the tile of
-    `csrc/attn_tile.cuh` (WMMA products in bf16, FMAs in float32, logits and
-    accumulators in shared memory). `flash_sdpa_wmma` and
-    `flash_sdpa_bnhd_wmma` run the first two entries on that tile for
-    either dtype: a second implementation to check and time against,
-    called by no model.
+  * all four entries on bf16 operands: the register-accumulator tiles of
+    `csrc/attn_mma.cuh` (the online softmax on the accumulator registers of
+    the products, operand tiles alone in shared memory): `wgmma` products
+    where the head dim pads to 64, 128 or 256 columns (D <= 64, 81..256),
+    `mma.sync` products where it pads to 80 (65..80: Hiera's 72). At
+    D > 128, where one head leaves most SMs idle, `flash_sdpa`,
+    `flash_sdpa_bnhd` and `flash_sdpa_masked` cut the keys into
+    `key_splits(n_q, n_k, d)` runs of whole key tiles whose partial results
+    a second kernel merges in a fixed order; `flash_bh_split_plain` and
+    `flash_masked_split_plain` are that arithmetic in plain PyTorch.
+  * `flash_sdpa_masked` on bf16 adds a pre-pass on the device that lists,
+    per batch element, the 64-key tiles with a valid key
+    (`masked_tile_list_plain`); the kernel walks that list and cuts its runs
+    over it, so masked tiles cost nothing and an element's result depends on
+    its own mask only. An element with no valid key takes every tile.
+  * `flash_sdpa_window_qkv` on bf16: windows of whole 128-row blocks (256,
+    4096 tokens) are batch elements of the kernel `flash_sdpa_bnhd` runs (at
+    D = 72 a window's result equals that entry's on the same rows bit for
+    bit); any other window length (64, 16, 196, 49) runs the tiles' window
+    mode, blocks of 64 rows of the flat token run with a key range per row.
+  * every entry on float32 operands: the tile of `csrc/attn_tile.cuh` (FMAs,
+    logits and accumulators in shared memory). `flash_sdpa_wmma`,
+    `flash_sdpa_bnhd_wmma`, `flash_sdpa_masked_wmma` and
+    `flash_sdpa_window_qkv_wmma` run the entries on that tile for either
+    dtype (WMMA products in bf16): a second implementation to check and
+    time against, called by no model.
 The kernels stream key tiles with an online softmax, so they round the
 unnormalized weights to bf16 and divide by the sum after the value product;
 the plain versions keep the TPU kernel's order (normalize, then round). The
@@ -52,10 +62,12 @@ from no_time_to_train_tpu_torch.ops.upscale_product import fusion_disabled
 
 __all__ = ["ONEPASS_MAX_NK", "MASKED_NEG", "MAX_SPLITS", "flash_sdpa_bnhd",
            "flash_sdpa_window_qkv", "flash_sdpa", "flash_sdpa_masked",
-           "flash_sdpa_wmma", "flash_sdpa_bnhd_wmma", "key_splits",
-           "onepass_bnhd_plain", "window_qkv_plain", "flash_bh_plain",
-           "flash_bh_split_plain", "merge_splits_plain",
-           "flash_masked_plain", "LAUNCHES"]
+           "flash_sdpa_wmma", "flash_sdpa_bnhd_wmma",
+           "flash_sdpa_masked_wmma", "flash_sdpa_window_qkv_wmma",
+           "key_splits", "masked_tile_list", "onepass_bnhd_plain",
+           "window_qkv_plain", "flash_bh_plain", "flash_bh_split_plain",
+           "merge_splits_plain", "flash_masked_plain",
+           "masked_tile_list_plain", "flash_masked_split_plain", "LAUNCHES"]
 
 # widest key range (padded to 128) the TPU's single-pass kernels take: the
 # gate of `flash_sdpa_bnhd`, and the least masked key range that the JAX
@@ -135,8 +147,9 @@ def _check_dtype_d(x, d):
 
 
 def key_splits(n_q, n_k, d):
-    """Runs of whole key tiles that the bf16 kernels of `flash_sdpa` and
-    `flash_sdpa_bnhd` cut the key range into. It depends on (n_q, n_k, d)
+    """Runs of whole key tiles that the bf16 kernels of `flash_sdpa`,
+    `flash_sdpa_bnhd` and `flash_sdpa_masked` (over its taken tiles) cut the
+    key range into. It depends on (n_q, n_k, d)
     only, never on batch or heads, so a batch element's result does not
     depend on its batch. Up to D = 128 the models bring 8 or 16 heads, whose
     blocks fill the card: one run. At D > 128 (the memory attention, one
@@ -227,11 +240,7 @@ def flash_sdpa_bnhd_wmma(q, k, v):
     return out
 
 
-def flash_sdpa_window_qkv(qkv, heads, win):
-    """Kernel 10: window-local attention on a packed qkv [B, N, 3C]
-    (window-major tokens, N a multiple of `win`). Returns [B, N, C]."""
-    if qkv.device.type == "cpu" or fusion_disabled():
-        return window_qkv_plain(qkv, heads, win)
+def _launch_window(name, qkv, heads, win):
     req = _cuda.require
     req(qkv.dim() == 3, "qkv [B, N, 3C]")
     b, n, c3 = qkv.shape
@@ -241,14 +250,34 @@ def flash_sdpa_window_qkv(qkv, heads, win):
     _check_dtype_d(qkv, d)
     req(qkv.is_cuda and qkv.is_contiguous() and qkv.data_ptr() % 16 == 0,
         "qkv must be a contiguous, 16-byte aligned CUDA tensor")
+    req(1 <= b <= 65535 and heads <= 65535,
+        "at most 65535 batch elements and heads")
     out = torch.empty((b, n, c), dtype=qkv.dtype, device=qkv.device)
-    err = _cuda.lib().nttt_window_attn(
+    err = getattr(_cuda.lib(), name)(
         qkv.data_ptr(), out.data_ptr(), b, n, c, heads, win,
         1.0 / math.sqrt(d), _cuda.dtype_code(qkv.dtype),
         _cuda.stream_ptr(qkv.device))
-    _cuda.check(err, "nttt_window_attn")
+    _cuda.check(err, name)
+    return out
+
+
+def flash_sdpa_window_qkv(qkv, heads, win):
+    """Kernel 10: window-local attention on a packed qkv [B, N, 3C]
+    (window-major tokens, N a multiple of `win`). Returns [B, N, C]. Any
+    window length and any D <= 256 in whole 16-byte pieces; the module's
+    docstring says which tile a bf16 call takes."""
+    if qkv.device.type == "cpu" or fusion_disabled():
+        return window_qkv_plain(qkv, heads, win)
+    out = _launch_window("nttt_window_attn", qkv, heads, win)
     LAUNCHES["flash_sdpa_window_qkv"] += 1
     return out
+
+
+def flash_sdpa_window_qkv_wmma(qkv, heads, win):
+    """`flash_sdpa_window_qkv` on the tile of `csrc/attn_tile.cuh` for
+    either dtype (CUDA tensors only): a second implementation to check and
+    time the bf16 kernel against. It counts no launch."""
+    return _launch_window("nttt_window_attn_wmma", qkv, heads, win)
 
 
 def flash_bh_plain(q, k, v):
@@ -316,6 +345,64 @@ def flash_masked_plain(q, k, v, key_valid):
     return (o / p.sum(dim=-1, keepdim=True)).to(q.dtype)
 
 
+def masked_tile_list_plain(key_valid, tile=_TILE_BK):
+    """What the bf16 kernel's pre-pass hands it. key_valid [B, Nk] bool ->
+    (tiles [B, ceil(Nk / tile)] int32, count [B] int32): per batch element
+    the `tile`-key tiles that hold a valid key, ascending, then -1; and how
+    many they are. Count 0 says that no key is valid: the kernel then takes
+    every tile (and ends as the mean of v)."""
+    b, nk = key_valid.shape
+    n_tiles = -(-nk // tile)
+    padded = torch.zeros((b, n_tiles * tile), dtype=torch.bool,
+                         device=key_valid.device)
+    padded[:, :nk] = key_valid
+    taken = padded.reshape(b, n_tiles, tile).any(dim=-1)
+    index = torch.arange(n_tiles, device=key_valid.device).expand(b, -1)
+    # taken tiles first, each group in ascending order
+    order = torch.argsort((~taken).to(torch.int8), dim=1, stable=True)
+    count = taken.sum(dim=1)
+    tiles = torch.where(index < count[:, None], order, -1)
+    return tiles.to(torch.int32), count.to(torch.int32)
+
+
+def flash_masked_split_plain(q, k, v, key_valid, splits, tile=_TILE_BK):
+    """`flash_sdpa_masked` as the bf16 kernel computes it: per batch element
+    the taken tiles of `masked_tile_list_plain` (every tile where none is
+    valid) cut into `splits` runs of ceil(taken / splits) tiles (the last
+    runs may be short or empty); per run the base-2 logits plus the bias
+    (0 / -1e30 log2(e)) of its tiles' real keys, their row maximum, the
+    unnormalised weights cast to v's dtype for the value product, their
+    float32 sum; then `merge_splits_plain`. q [B, H, Nq, D], k / v
+    [B, H, Nk, D], key_valid [B, Nk] bool."""
+    nk = k.shape[-2]
+    scale_log2 = math.log2(math.e) / math.sqrt(q.shape[-1])
+    tiles, count = masked_tile_list_plain(key_valid, tile)
+    bias2 = _key_bias(key_valid) * math.log2(math.e)
+    out = []
+    for b in range(q.shape[0]):
+        taken = tiles[b, :int(count[b])] if int(count[b]) \
+            else torch.arange(tiles.shape[1], device=q.device)
+        per = -(-taken.numel() // splits)
+        parts = []
+        for s in range(splits):
+            run = taken[s * per:(s + 1) * per].long()
+            keys = (run[:, None] * tile
+                    + torch.arange(tile, device=q.device)).reshape(-1)
+            keys = keys[keys < nk]
+            t = q[b].float() @ k[b][:, keys].float().transpose(-1, -2)
+            t = t * scale_log2 + bias2[b, keys]
+            if keys.numel() == 0:
+                m = t.new_full(t.shape[:-1] + (1,), -math.inf)
+                p = t
+            else:
+                m = t.amax(dim=-1, keepdim=True)
+                p = torch.exp2(t - m)
+            parts.append((p.to(v.dtype).float() @ v[b][:, keys].float(), m,
+                          p.sum(dim=-1, keepdim=True)))
+        out.append(merge_splits_plain(parts))
+    return torch.stack(out).to(q.dtype)
+
+
 def _key_bias(key_valid):
     zero = torch.zeros((), dtype=torch.float32, device=key_valid.device)
     return torch.where(key_valid, zero, zero + MASKED_NEG)
@@ -332,7 +419,7 @@ def _flash_operand(x, name):
     return x
 
 
-def _launch_flash(name, q, k, v, bias, splits=None):
+def _launch_flash(name, q, k, v, key_valid=None, splits=None):
     req = _cuda.require
     req(q.dim() >= 3 and k.dim() == q.dim() and v.dim() == q.dim(),
         "q [..., H, Nq, D], k / v [..., H, Nk, D]")
@@ -365,10 +452,25 @@ def _launch_flash(name, q, k, v, bias, splits=None):
         err = _cuda.lib().nttt_flash_bh_wmma(
             q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), out.data_ptr(),
             *tail)
-    else:
-        err = _cuda.lib().nttt_flash_masked(
+    elif name == "flash_masked_wmma":
+        bias = _key_bias(key_valid).contiguous()
+        err = _cuda.lib().nttt_flash_masked_wmma(
             q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), bias.data_ptr(),
             out.data_ptr(), *tail)
+    else:
+        splits, part_o, part_ml = _split_args(q, b * h, nq, nk, d, splits)
+        # bf16: the mask itself and the pre-pass's scratch; float32: the
+        # bias row that the tile of attn_tile.cuh adds per key
+        valid = bias = bias2 = tiles = count = None
+        if q.dtype == torch.bfloat16:
+            valid = key_valid.contiguous().view(torch.uint8)
+            bias2, tiles, count = _tile_list_scratch(b, nk, q.device)
+        else:
+            bias = _key_bias(key_valid).contiguous()
+        err = _cuda.lib().nttt_flash_masked(
+            q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), _ptr(valid),
+            _ptr(bias), out.data_ptr(), *tail[:-1], splits, _ptr(part_o),
+            _ptr(part_ml), _ptr(bias2), _ptr(tiles), _ptr(count), tail[-1])
     _cuda.check(err, f"nttt_{name}")
     return out.reshape(lead + (h, nq, d))
 
@@ -382,7 +484,7 @@ def flash_sdpa(q, k, v, *, splits=None):
     with it); the models leave it to `key_splits`."""
     if q.device.type == "cpu" or fusion_disabled():
         return flash_bh_plain(q, k, v)
-    out = _launch_flash("flash_bh", q, k, v, None, splits)
+    out = _launch_flash("flash_bh", q, k, v, splits=splits)
     LAUNCHES["flash_sdpa"] += 1
     return out
 
@@ -391,20 +493,70 @@ def flash_sdpa_wmma(q, k, v):
     """`flash_sdpa` on the tile of `csrc/attn_tile.cuh` for either dtype
     (CUDA tensors only): a second implementation to check and time the bf16
     kernel against. It counts no launch."""
-    return _launch_flash("flash_bh_wmma", q, k, v, None)
+    return _launch_flash("flash_bh_wmma", q, k, v)
 
 
-def flash_sdpa_masked(q, k, v, key_valid):
-    """Kernel 13: attention over q [B, H, Nq, D], k / v [B, H, Nk, D] with a
-    per-batch key-column mask key_valid [B, Nk] (bool, True = attend) shared
-    by the heads. A row with no valid key returns the mean of v."""
+def _tile_list_scratch(b, nk, device):
+    """What the masked kernel's pre-pass writes per batch element: the
+    base-2 bias of every key padded to whole tiles, the taken tiles, their
+    count."""
+    n_tiles = -(-nk // _TILE_BK)
+    n_bias, n_list = b * n_tiles * _TILE_BK, b * n_tiles
+    # one allocation, three views
+    flat = torch.empty((n_bias + n_list + b,), dtype=torch.int32,
+                       device=device)
+    return (flat[:n_bias].view(torch.float32).view(b, n_tiles * _TILE_BK),
+            flat[n_bias:n_bias + n_list].view(b, n_tiles),
+            flat[n_bias + n_list:])
+
+
+def masked_tile_list(key_valid):
+    """The pre-pass of the bf16 `flash_sdpa_masked` kernel alone (CUDA
+    tensors only; the checks hold it against `masked_tile_list_plain`):
+    key_valid [B, Nk] bool -> (tiles, count) as there, entries past an
+    element's count set to -1."""
+    _cuda.require(key_valid.is_cuda and key_valid.dim() == 2
+                  and key_valid.dtype == torch.bool,
+                  "key_valid: a CUDA tensor [B, Nk] bool")
+    b, nk = key_valid.shape
+    bias2, tiles, count = _tile_list_scratch(b, nk, key_valid.device)
+    tiles.fill_(-1)
+    err = _cuda.lib().nttt_masked_tile_list(
+        key_valid.contiguous().view(torch.uint8).data_ptr(),
+        bias2.data_ptr(), tiles.data_ptr(), count.data_ptr(), b, nk,
+        _cuda.stream_ptr(key_valid.device))
+    _cuda.check(err, "nttt_masked_tile_list")
+    return tiles, count
+
+
+def _check_masked(q, k, key_valid):
     _cuda.require(q.dim() == 4 and key_valid.dtype == torch.bool
                   and key_valid.shape == (q.shape[0], k.shape[-2]),
                   "q [B, H, Nq, D] and key_valid [B, Nk] bool")
+
+
+def flash_sdpa_masked(q, k, v, key_valid, *, splits=None):
+    """Kernel 13: attention over q [B, H, Nq, D], k / v [B, H, Nk, D] with a
+    per-batch key-column mask key_valid [B, Nk] (bool, True = attend) shared
+    by the heads. A row with no valid key returns the mean of v. Any D <= 256
+    in whole 16-byte pieces; the module's docstring says which tile a call
+    takes. One call is one launch in `LAUNCHES`, whatever runs behind it
+    (pre-pass, key runs, merge). `splits` forces a number of key runs on the
+    bf16 kernel (the checks cross the merge with it); the models leave it to
+    `key_splits`."""
+    _check_masked(q, k, key_valid)
     if q.device.type == "cpu" or fusion_disabled():
         return flash_masked_plain(q, k, v, key_valid)
     _cuda.require(key_valid.device == q.device, "key_valid on q's device")
-    out = _launch_flash("flash_masked", q, k, v,
-                        _key_bias(key_valid).contiguous())
+    out = _launch_flash("flash_masked", q, k, v, key_valid, splits)
     LAUNCHES["flash_sdpa_masked"] += 1
     return out
+
+
+def flash_sdpa_masked_wmma(q, k, v, key_valid):
+    """`flash_sdpa_masked` on the tile of `csrc/attn_tile.cuh` for either
+    dtype (CUDA tensors only): a second implementation to check and time
+    the bf16 kernel against. It counts no launch."""
+    _check_masked(q, k, key_valid)
+    _cuda.require(key_valid.device == q.device, "key_valid on q's device")
+    return _launch_flash("flash_masked_wmma", q, k, v, key_valid)

@@ -61,9 +61,12 @@ def test_onepass_plain_matches_pallas_interpret(dtype, d, n_q, n_k):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("heads,d,win,nw", [(2, 72, 64, 4), (4, 72, 16, 8),
-                                            (2, 72, 256, 2)])
+                                            (2, 72, 256, 2), (1, 96, 196, 2),
+                                            (2, 96, 49, 4), (2, 56, 196, 2)])
 def test_window_plain_matches_pallas_interpret(dtype, heads, d, win, nw):
-    """The Hiera-L window shapes: 64 tokens x 2 heads, 16 x 4, 256 x 2."""
+    """The Hiera-L window shapes: 64 tokens x 2 heads, 16 x 4, 256 x 2; and
+    the smaller topologies' windows of 196 and 49 tokens at head dims 96
+    and 56."""
     rng = np.random.default_rng(win)
     c = heads * d
     qkv = rng.standard_normal((1, nw * win, 3 * c)).astype(np.float32) * 0.5
@@ -299,6 +302,138 @@ def test_flash_masked_plain_all_masked_row_is_the_mean_of_v():
         *(jnp.asarray(x) for x in (q, k, v)), jnp.asarray(valid),
         block_q=8, block_k=128, interpret=True))
     np.testing.assert_allclose(got, ref, **F32_MASKED)
+
+
+def _mask_of(kind, b, n_k, rng):
+    """Key masks [b, n_k] for the tile list and the key runs (tiles of 64
+    keys): "ring" whole rows of 128 keys valid or not; "prefix" the first
+    tiles masked; "all_masked" one element with no valid key beside a
+    random one; "single" one valid key in the whole element; "last_partial"
+    valid keys in the last, partial tile only; "alternate" every other tile
+    fully masked."""
+    valid = rng.random((b, n_k)) < 0.6
+    if kind == "ring":
+        rows = rng.random((b, -(-n_k // 128))) < 0.5
+        rows[:, 0] = True
+        valid = np.repeat(rows, 128, axis=1)[:, :n_k]
+    elif kind == "prefix":
+        valid[0, :200] = False
+    elif kind == "all_masked":
+        valid[-1] = False
+    elif kind == "single":
+        valid[:] = False
+        valid[np.arange(b), rng.integers(0, n_k, b)] = True
+    elif kind == "last_partial":
+        valid[:, :n_k // 64 * 64] = False
+        valid[:, -1] = True
+    elif kind == "alternate":
+        valid[:, (np.arange(n_k) // 64) % 2 == 1] = False
+    return valid
+
+
+MASK_KINDS = ["ring", "prefix", "all_masked", "single", "last_partial",
+              "alternate"]
+
+
+@pytest.mark.parametrize("kind", MASK_KINDS)
+def test_masked_tile_list_plain(kind):
+    """The taken tiles are those with a valid key, in ascending order, then
+    -1; the count is their number, and 0 for an element with no valid key."""
+    rng = np.random.default_rng(len(kind))
+    b, n_k, tile = 3, 700, 64
+    valid = _mask_of(kind, b, n_k, rng)
+    tiles, count = fa.masked_tile_list_plain(torch.as_tensor(valid), tile)
+    n_tiles = -(-n_k // tile)
+    assert tiles.dtype == torch.int32 and tuple(tiles.shape) == (b, n_tiles)
+    assert count.dtype == torch.int32 and tuple(count.shape) == (b,)
+    for i in range(b):
+        want = [t for t in range(n_tiles)
+                if valid[i, t * tile:(t + 1) * tile].any()]
+        assert int(count[i]) == len(want)
+        assert tiles[i].tolist() == want + [-1] * (n_tiles - len(want))
+    if kind == "all_masked":
+        assert int(count[-1]) == 0
+    if kind == "single":
+        assert count.tolist() == [1] * b
+    if kind == "last_partial":
+        assert tiles[:, 0].tolist() == [n_tiles - 1] * b
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 4])
+@pytest.mark.parametrize("kind", MASK_KINDS)
+def test_masked_split_plain_matches_unsplit(kind, splits):
+    """The masked kernel's arithmetic (taken tiles in `splits` runs, base-2
+    exponent, merge) equals one softmax over the whole masked key range; a
+    "single" mask leaves all runs but one empty."""
+    rng = np.random.default_rng(splits + len(kind))
+    b, h, n_q, n_k, d = 2, 2, 37, 700, 16
+    q, k, v = (torch.as_tensor(rng.standard_normal((b, h, n, d))
+                               .astype(np.float32) * 0.5)
+               for n in (n_q, n_k, n_k))
+    valid = torch.as_tensor(_mask_of(kind, b, n_k, rng))
+    got = fa.flash_masked_split_plain(q, k, v, valid, splits)
+    ref = fa.flash_masked_plain(q, k, v, valid)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), **F32_MASKED)
+    if kind == "all_masked":
+        np.testing.assert_allclose(
+            got[-1].numpy(), np.broadcast_to(
+                v[-1].mean(dim=-2, keepdim=True).numpy(), got[-1].shape),
+            rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("splits", [1, 4])
+def test_masked_split_plain_matches_pallas_interpret(dtype, splits):
+    """`flash_masked_split_plain` against the JAX `flash_sdpa_masked` in
+    interpret mode, on the case of
+    `test_flash_masked_plain_matches_pallas_interpret`."""
+    rng = np.random.default_rng(21)
+    q, k, v, valid = _masked_case(rng, 2, 2, 50, 300, 32)
+    valid[1, :] = np.arange(300) < 200
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    ref = _np(jfa.flash_sdpa_masked(
+        *(jnp.asarray(x, jd) for x in (q, k, v)), jnp.asarray(valid),
+        block_q=16, block_k=128, interpret=True))
+    got = fa.flash_masked_split_plain(
+        *(torch.as_tensor(x).to(td) for x in (q, k, v)),
+        torch.as_tensor(valid), splits)
+    assert got.dtype == td
+    tol = F32_MASKED if dtype == "float32" else BF16_BAND
+    np.testing.assert_allclose(got.float().numpy(), ref, **tol)
+
+
+def test_masked_split_plain_batch_equals_its_elements_alone():
+    """An element's taken tiles and runs depend on its own mask only: a
+    batch of 3 different masks equals each element alone, exactly."""
+    rng = np.random.default_rng(5)
+    b, h, n_q, n_k, d = 3, 2, 20, 450, 16
+    q, k, v = (torch.as_tensor(rng.standard_normal((b, h, n, d))
+                               .astype(np.float32))
+               for n in (n_q, n_k, n_k))
+    valid = torch.as_tensor(np.stack([
+        _mask_of(kind, 1, n_k, rng)[0]
+        for kind in ("ring", "single", "all_masked")]))
+    whole = fa.flash_masked_split_plain(q, k, v, valid, 3)
+    for i in range(b):
+        alone = fa.flash_masked_split_plain(q[i:i + 1], k[i:i + 1],
+                                            v[i:i + 1], valid[i:i + 1], 3)
+        assert torch.equal(whole[i:i + 1], alone)
+
+
+def test_second_implementations_refuse_a_cpu_tensor():
+    """The `_wmma` entries and the pre-pass alone exist on the card only:
+    a CPU tensor raises, and nothing is counted."""
+    before = dict(fa.LAUNCHES)
+    qkv = torch.zeros((1, 32, 48))
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_sdpa_window_qkv_wmma(qkv, 2, 16)
+    q = torch.zeros((1, 2, 20, 8))
+    valid = torch.ones((1, 20), dtype=torch.bool)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_sdpa_masked_wmma(q, q, q, valid)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.masked_tile_list(valid)
+    assert fa.LAUNCHES == before
 
 
 def test_wrappers_take_the_plain_versions_on_cpu():

@@ -61,6 +61,50 @@ def test_scoring_matches_jax():
     np.testing.assert_allclose(ti.numpy(), np.asarray(ji), rtol=1e-5, atol=1e-6)
 
 
+def test_scoring_products_cpu_path_and_operand_choice(monkeypatch):
+    """bf16 features on the CPU still take the float32 product and equal
+    the JAX functions (which run bf16 operands with float32 accumulation:
+    0 / 1 masks and bf16 values are exact in both); the bf16 operands are
+    chosen by device and dtype alone, whatever the environment says."""
+    rng = np.random.default_rng(1)
+    feat = rng.standard_normal((64, 16)).astype(np.float32)
+    masks = rng.random((12, 64)) > 0.6
+    masks[3] = False
+    tf = torch.as_tensor(feat).to(torch.bfloat16)
+    tm = torch.as_tensor(masks)
+    jf = jnp.asarray(feat).astype(jnp.bfloat16)
+    got = tsc.masked_avg_feats(tf, tm)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(jsc.masked_avg_feats(jf, jnp.asarray(masks))),
+        rtol=1e-5, atol=1e-5)
+    assert torch.equal(tsc.mask_product(tm, tf), tm.float() @ tf.float())
+    assert torch.equal(tsc.mask_product(tm), tm.float() @ tm.float().T)
+    labels = rng.integers(0, 3, 12)
+    valid = rng.random(12) > 0.2
+    osim = np.clip(got.numpy() @ got.numpy().T, 0, None)
+    ji = jsc.semantic_ios(jnp.asarray(masks), jnp.asarray(labels),
+                          jnp.asarray(osim), valid=jnp.asarray(valid))
+    ti = tsc.semantic_ios(tm, torch.as_tensor(labels), torch.as_tensor(osim),
+                          valid=torch.as_tensor(valid))
+    np.testing.assert_allclose(ti.numpy(), np.asarray(ji), rtol=1e-5, atol=1e-6)
+
+    class OnCard:
+        """Stands for a tensor on a CUDA device: `mask_product_on_bf16`
+        reads `is_cuda` and `dtype` and nothing else."""
+
+        def __init__(self, dtype=None):
+            self.is_cuda, self.dtype = True, dtype
+
+    for name in ("NTTT_PROMPT_PAIR", "NTTT_PERPROMPT_PAIR"):
+        monkeypatch.setenv(name, "1")
+    assert not tsc.mask_product_on_bf16(tm, tf)            # CPU
+    assert not tsc.mask_product_on_bf16(tm, None)
+    assert tsc.mask_product_on_bf16(OnCard(), OnCard(torch.bfloat16))
+    assert tsc.mask_product_on_bf16(OnCard(), None)
+    assert not tsc.mask_product_on_bf16(OnCard(), OnCard(torch.float32))
+
+
 def test_scoring_with_neg_matches_jax():
     rng = np.random.default_rng(2)
     feat = rng.standard_normal((64, 16)).astype(np.float32)

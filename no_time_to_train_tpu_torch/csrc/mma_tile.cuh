@@ -113,18 +113,19 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Rows [r0, r0 + ROWS) of a [*, d] bf16 operand (row stride rs elements, d a
-// multiple of 8) into a Tile<DP> of ROWS rows, by all THREADS threads of the
-// block; rows at or past `rows` are zero-filled. Chunks d / 8 .. DP / 8 - 1
-// are not written: a thread whose chunk lies there sits the copy out, so
-// that the row and chunk of a thread come from divisions by constants.
+// multiple of 8) into a Tile<DP> of ROWS rows, by THREADS threads (thread
+// `tid` of them: threadIdx.x unless given); rows at or past `rows` are
+// zero-filled. Chunks d / 8 .. DP / 8 - 1 are not written: a thread whose
+// chunk lies there sits the copy out, so that the row and chunk of a thread
+// come from divisions by constants.
 template <int DP, int ROWS, int THREADS>
 __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int rs,
-                                          int r0, int rows, int d) {
+                                          int r0, int rows, int d, int tid) {
   constexpr int kChunks = Tile<DP>::kChunks;
   const int pieces = d >> 3;
 #pragma unroll
   for (int i0 = 0; i0 < ROWS * kChunks; i0 += THREADS) {
-    const int i = i0 + threadIdx.x;
+    const int i = i0 + tid;
     const int r = i / kChunks, c = i % kChunks;
     if ((ROWS * kChunks % THREADS == 0 || r < ROWS) && c < pieces) {
       const bool ok = r0 + r < rows;
@@ -132,6 +133,11 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int rs,
       cp_async16(dst + Tile<DP>::off(r, c), s, ok);
     }
   }
+}
+template <int DP, int ROWS, int THREADS>
+__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int rs,
+                                          int r0, int rows, int d) {
+  load_rows<DP, ROWS, THREADS>(dst, src, rs, r0, rows, d, threadIdx.x);
 }
 
 // A fragment of rows [row0, row0 + 16), columns [16 kk, 16 kk + 16) of a

@@ -26,7 +26,8 @@ from no_time_to_train_tpu_torch.models.sam2.pos_enc import (
     apply_rotary, axial_rope_cos_sin)
 from no_time_to_train_tpu_torch.ops.attention import sdpa
 from no_time_to_train_tpu_torch.ops.decoder_attention import (
-    fused_i2t_norm, fused_i2t_norm_pair, fused_t2i_attn, per_prompt)
+    fused_i2t_norm, fused_i2t_norm_pair, fused_shape_error, fused_t2i_attn,
+    per_prompt)
 from no_time_to_train_tpu_torch.ops.upscale_product import fusion_disabled
 
 __all__ = ["Attention", "RoPEAttention", "TwoWayAttentionBlock",
@@ -76,14 +77,15 @@ class Attention(nn.Module):
 
     def i2t_fusible(self, keys, key_pe, tok_q_in, skip_last_n_keys):
         """True when the fused image-side passes apply: no key masking,
-        outside no_fusion(), <= 16 tokens, a positional encoding shared by
-        every prompt, and the decoder's head geometry (H * 16 == internal
-        width, widths multiples of 128)."""
-        i = self.internal_dim
+        outside no_fusion(), a positional encoding shared by every prompt,
+        and a shape both kernels take (`fused_shape_error`: the decoder's
+        widths and heads, <= 16 tokens, whole 32-row tiles of image rows), so
+        that no shape admitted here is one the wrappers refuse."""
         return (skip_last_n_keys == 0 and not fusion_disabled()
-                and tok_q_in.shape[1] <= 16 and key_pe.shape[0] == 1
-                and self.num_heads * 16 == i and i % 128 == 0
-                and keys.shape[-1] % 128 == 0 and keys.shape[-2] % 8 == 0)
+                and key_pe.shape[0] == 1
+                and fused_shape_error(keys.shape[-2], keys.shape[-1],
+                                      self.internal_dim, self.num_heads,
+                                      tok_q_in.shape[1]) is None)
 
     def i2t_fused_with_norm(self, keys, key_pe, tok_q_in, tok_v_in, norm):
         """norm(keys + self(keys + key_pe, tok_q_in, tok_v_in)) through K3."""

@@ -29,11 +29,15 @@ _STATE = {"lib": None, "build_s": None}
 _VP, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _SIGNATURES = {
     "nttt_layer_norm": [_VP, _VP, _VP, _VP, _I, _I, _F, _I, _VP],
+    "nttt_layer_norm_warp": [_VP, _VP, _VP, _VP, _I, _I, _F, _I, _VP],
     "nttt_t2i_attn": [_VP, _VP, _VP, _VP, _VP, _VP, _VP,
                       _I, _I, _I, _I, _F, _I, _LL, _LL, _I, _I, _I, _VP],
     "nttt_i2t_norm": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                       _I, _I, _I, _I, _F, _F, _I, _LL, _LL, _LL, _I, _I, _I,
                       _VP],
+    "nttt_i2t_norm_wmma": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+                           _VP, _I, _I, _I, _I, _F, _F, _I, _LL, _LL, _LL,
+                           _I, _I, _I, _VP],
     "nttt_upscale_product": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                              _I, _I, _I, _I, _I, _F, _I, _VP],
     "nttt_onepass_attn": [_VP, _VP, _VP, _VP, _LL, _LL, _LL, _I, _I, _I,

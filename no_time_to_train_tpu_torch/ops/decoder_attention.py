@@ -13,6 +13,11 @@ weight: (keys + pe) @ W == keys @ W + pe @ W, and the projected form is half
 the width. On a CUDA tensor each launches its kernel (`csrc/i2t_norm.cu`,
 `csrc/t2i_attn.cu`); on a CPU tensor, or inside `no_fusion()`, each runs
 its plain version, the unfused formulation of the JAX package's XLA twin.
+`fused_i2t_norm_wmma` and `fused_i2t_norm_pair_wmma` run the first port's
+body of K3 (WMMA products, float32 tiles in shared memory) for either
+dtype: a second implementation to check and time the bf16 kernel against,
+called by no model. `fused_shape_error` is the shape rule of both kernels,
+which the transformer's gate reads too.
 
 Layer 0 passes keys shared by the prompts of an image: [1, n, C], or
 [Bi, n, C] for a batch of Bi images whose P / Bi prompts each lie together
@@ -38,7 +43,8 @@ from no_time_to_train_tpu_torch.ops.fused_ln import layer_norm_plain
 from no_time_to_train_tpu_torch.ops.upscale_product import fusion_disabled
 
 __all__ = ["fused_i2t_norm", "fused_i2t_norm_plain", "fused_i2t_norm_pair",
-           "fused_i2t_norm_pair_plain", "fused_t2i_attn",
+           "fused_i2t_norm_pair_plain", "fused_i2t_norm_wmma",
+           "fused_i2t_norm_pair_wmma", "fused_shape_error", "fused_t2i_attn",
            "fused_t2i_attn_plain", "per_prompt", "LAUNCHES"]
 
 LAUNCHES = {"fused_t2i_attn": 0, "fused_i2t_norm": 0,
@@ -120,6 +126,20 @@ def fused_t2i_attn_plain(keys, pe_k, tok_q, wk, bk, wv, bv, *, num_heads):
     return o.transpose(1, 2).reshape(p_, t, i)
 
 
+def fused_shape_error(n, c, i, num_heads, t):
+    """Why the K2 / K3 kernels refuse n image rows of width C against t
+    tokens of width I in `num_heads` heads, or None where they take it. The
+    bf16 K3 kernel takes any n; K2 takes whole 32-row tiles, and the two run
+    together, so both keep n % 32 == 0."""
+    if not (c == 256 and i == 128 and num_heads == 8):
+        return "kernel takes C=256, I=128, 8 heads"
+    if not 1 <= t <= 16:
+        return f"kernel takes 1..16 tokens, got {t}"
+    if n < 1 or n % 32:
+        return f"n={n} must be a positive multiple of 32"
+    return None
+
+
 def _check_common(keys, tok, pe, num_heads, shared=None):
     """Shapes the kernels take. Returns (P, T, I, Pk, n, C, shared): with
     `shared` the keys are one set per image (Pk images of P / Pk prompts),
@@ -128,11 +148,9 @@ def _check_common(keys, tok, pe, num_heads, shared=None):
     p_, t, i = tok.shape
     pk, n, c = keys.shape
     req(keys.is_cuda and keys.is_contiguous(), "keys: contiguous CUDA tensor")
-    req(c == 256 and i == 128 and num_heads == 8,
-        "kernel takes C=256, I=128, 8 heads")
-    req(1 <= t <= 16, f"kernel takes 1..16 tokens, got {t}")
+    err = fused_shape_error(n, c, i, num_heads, t)
+    req(err is None, err)
     req(p_ % pk == 0, f"keys batch {pk} must divide the {p_} prompts")
-    req(n % 32 == 0, f"n={n} must be a multiple of 32")
     if shared is None:
         shared = pk == 1 or pk < p_
     req(tuple(pe.shape) == (n, i)
@@ -144,12 +162,12 @@ def _check_common(keys, tok, pe, num_heads, shared=None):
     return p_, t, i, pk, n, c, shared
 
 
-def _launch_i2t(keys, peq, tok_k, tok_v, wq, bq, wout, bout, norm_w, norm_b,
-                out, *, p_, n, t, ppi, pre, pair, scale, eps):
-    """The image <- token kernel. pre: `peq` holds the scaled, rounded qi
-    [images, n, I] of the shared keys [images, n, C]; else the projected
-    positional term [n, I] beside per-prompt keys. pair: 0 one prompt a
-    block, 1 two prompts a block, 2 an image pair a block."""
+def _launch_i2t(entry, keys, peq, tok_k, tok_v, wq, bq, wout, bout, norm_w,
+                norm_b, out, *, p_, n, t, ppi, pre, pair, scale, eps):
+    """The image <- token kernel through C entry `entry`. pre: `peq` holds
+    the scaled, rounded qi [images, n, I] of the shared keys [images, n, C];
+    else the projected positional term [n, I] beside per-prompt keys. pair:
+    0 one prompt a work item, 1 two prompts, 2 an image pair."""
     dt, dev = keys.dtype, keys.device
     c, i = keys.shape[-1], peq.shape[-1]
     f32 = dict(device=dev, dtype=torch.float32)
@@ -161,14 +179,14 @@ def _launch_i2t(keys, peq, tok_k, tok_v, wq, bq, wout, bout, norm_w, norm_b,
     b_o = bout.to(**f32).contiguous()
     nw = norm_w.to(device=dev, dtype=dt).contiguous()
     nb = norm_b.to(device=dev, dtype=dt).contiguous()
-    err = _cuda.lib().nttt_i2t_norm(
+    err = getattr(_cuda.lib(), entry)(
         keys.data_ptr(), peq.data_ptr(), tk.data_ptr(), tv.data_ptr(),
         wq_t.data_ptr(), b_q.data_ptr(), wo.data_ptr(), b_o.data_ptr(),
         nw.data_ptr(), nb.data_ptr(), out.data_ptr(), p_, n, 8, t,
         float(scale), float(eps), int(pre), 0 if pre else n * c,
         n * c if pre else 0, n * i if pre else 0, ppi, pair,
         _cuda.dtype_code(dt), _cuda.stream_ptr(dev))
-    _cuda.check(err, "nttt_i2t_norm")
+    _cuda.check(err, entry)
 
 
 def _project_qi(keys, pe_q, wq, bq, scale):
@@ -179,13 +197,10 @@ def _project_qi(keys, pe_q, wq, bq, scale):
              + bq.float()) * scale).to(dt).contiguous()
 
 
-def fused_i2t_norm(keys, pe_q, tok_k, tok_v, wq, bq, wout, bout, norm_w,
-                   norm_b, *, num_heads, eps=1e-5):
-    """Kernel K3, shapes as `fused_i2t_norm_plain`."""
-    if keys.device.type == "cpu" or fusion_disabled():
-        return fused_i2t_norm_plain(keys, pe_q, tok_k, tok_v, wq, bq, wout,
-                                    bout, norm_w, norm_b,
-                                    num_heads=num_heads, eps=eps)
+def _i2t(entry, keys, pe_q, tok_k, tok_v, wq, bq, wout, bout, norm_w, norm_b,
+         num_heads, eps):
+    """K3 through C entry `entry`; returns the output and the name of the
+    body it took (a variant under its toggle)."""
     p_, t, i, pk, n, c, pre = _check_common(keys, tok_k, pe_q, num_heads)
     scale = 1.0 / ((i // num_heads) ** 0.5)
     ppi = p_ // pk if pre else 1
@@ -198,21 +213,37 @@ def fused_i2t_norm(keys, pe_q, tok_k, tok_v, wq, bq, wout, bout, norm_w,
         pair = p_ % 2 == 0 and _perprompt_pair_enabled()
         name = "fused_i2t_norm_p2" if pair else "fused_i2t_norm"
     out = torch.empty((p_, n, c), device=keys.device, dtype=keys.dtype)
-    _launch_i2t(keys, peq, tok_k, tok_v, wq, bq, wout, bout, norm_w, norm_b,
-                out, p_=p_, n=n, t=t, ppi=ppi, pre=pre, pair=int(pair),
-                scale=scale, eps=eps)
+    _launch_i2t(entry, keys, peq, tok_k, tok_v, wq, bq, wout, bout, norm_w,
+                norm_b, out, p_=p_, n=n, t=t, ppi=ppi, pre=pre,
+                pair=int(pair), scale=scale, eps=eps)
+    return out, name
+
+
+def fused_i2t_norm(keys, pe_q, tok_k, tok_v, wq, bq, wout, bout, norm_w,
+                   norm_b, *, num_heads, eps=1e-5):
+    """Kernel K3, shapes as `fused_i2t_norm_plain`."""
+    if keys.device.type == "cpu" or fusion_disabled():
+        return fused_i2t_norm_plain(keys, pe_q, tok_k, tok_v, wq, bq, wout,
+                                    bout, norm_w, norm_b,
+                                    num_heads=num_heads, eps=eps)
+    out, name = _i2t("nttt_i2t_norm", keys, pe_q, tok_k, tok_v, wq, bq, wout,
+                     bout, norm_w, norm_b, num_heads, eps)
     LAUNCHES[name] += 1
     return out
 
 
-def fused_i2t_norm_pair(keys2, pe_q2, tok_k2, tok_v2, wq, bq, wout, bout,
-                        norm_w, norm_b, *, num_heads, eps=1e-5):
-    """Layer 0's K3 for an image pair, one block serving prompt b of both
-    images; shapes as `fused_i2t_norm_pair_plain`."""
-    if keys2.device.type == "cpu" or fusion_disabled():
-        return fused_i2t_norm_pair_plain(
-            keys2, pe_q2, tok_k2, tok_v2, wq, bq, wout, bout, norm_w, norm_b,
-            num_heads=num_heads, eps=eps)
+def fused_i2t_norm_wmma(keys, pe_q, tok_k, tok_v, wq, bq, wout, bout, norm_w,
+                        norm_b, *, num_heads, eps=1e-5):
+    """`fused_i2t_norm` (and its prompt-pair variants, by the same toggles)
+    on the first port's body for either dtype (CUDA tensors only): a second
+    implementation to check and time the bf16 kernel against. It counts no
+    launch."""
+    return _i2t("nttt_i2t_norm_wmma", keys, pe_q, tok_k, tok_v, wq, bq, wout,
+                bout, norm_w, norm_b, num_heads, eps)[0]
+
+
+def _i2t_pair(entry, keys2, pe_q2, tok_k2, tok_v2, wq, bq, wout, bout,
+              norm_w, norm_b, num_heads, eps):
     req = _cuda.require
     req(tok_k2.dim() == 4 and tok_k2.shape[0] == 2 and keys2.shape[0] == 2
         and tok_v2.shape == tok_k2.shape, "an image pair: leading axis 2")
@@ -225,11 +256,33 @@ def fused_i2t_norm_pair(keys2, pe_q2, tok_k2, tok_v2, wq, bq, wout, bout,
     scale = 1.0 / ((i // num_heads) ** 0.5)
     peq = _project_qi(keys2, pe_q2, wq, bq, scale)
     out = torch.empty((2, ppi, n, c), device=keys2.device, dtype=keys2.dtype)
-    _launch_i2t(keys2, peq, tk, tv, wq, bq, wout, bout, norm_w, norm_b, out,
-                p_=p_, n=n, t=t, ppi=ppi, pre=True, pair=2, scale=scale,
-                eps=eps)
+    _launch_i2t(entry, keys2, peq, tk, tv, wq, bq, wout, bout, norm_w,
+                norm_b, out, p_=p_, n=n, t=t, ppi=ppi, pre=True, pair=2,
+                scale=scale, eps=eps)
+    return out
+
+
+def fused_i2t_norm_pair(keys2, pe_q2, tok_k2, tok_v2, wq, bq, wout, bout,
+                        norm_w, norm_b, *, num_heads, eps=1e-5):
+    """Layer 0's K3 for an image pair, one work item serving prompt b of
+    both images; shapes as `fused_i2t_norm_pair_plain`."""
+    if keys2.device.type == "cpu" or fusion_disabled():
+        return fused_i2t_norm_pair_plain(
+            keys2, pe_q2, tok_k2, tok_v2, wq, bq, wout, bout, norm_w, norm_b,
+            num_heads=num_heads, eps=eps)
+    out = _i2t_pair("nttt_i2t_norm", keys2, pe_q2, tok_k2, tok_v2, wq, bq,
+                    wout, bout, norm_w, norm_b, num_heads, eps)
     LAUNCHES["fused_i2t_norm_pair"] += 1
     return out
+
+
+def fused_i2t_norm_pair_wmma(keys2, pe_q2, tok_k2, tok_v2, wq, bq, wout,
+                             bout, norm_w, norm_b, *, num_heads, eps=1e-5):
+    """`fused_i2t_norm_pair` on the first port's body for either dtype
+    (CUDA tensors only): a second implementation to check and time the bf16
+    kernel against. It counts no launch."""
+    return _i2t_pair("nttt_i2t_norm_wmma", keys2, pe_q2, tok_k2, tok_v2, wq,
+                     bq, wout, bout, norm_w, norm_b, num_heads, eps)
 
 
 def fused_t2i_attn(keys, pe_k, tok_q, wk, bk, wv, bv, *, num_heads):

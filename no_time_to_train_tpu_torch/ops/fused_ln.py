@@ -3,8 +3,11 @@
 
 `layer_norm` normalizes the last axis with float32 statistics and the
 compute-dtype normalize and affine of `models/sam2/common._layer_norm`. On a
-CUDA tensor it launches the kernel in `csrc/layer_norm.cu`; on a CPU tensor,
-or inside `no_fusion()`, it runs `layer_norm_plain`.
+CUDA tensor it launches the kernel in `csrc/layer_norm.cu` (bf16: the
+row-slab kernel; float32: one warp a row); on a CPU tensor, or inside
+`no_fusion()`, it runs `layer_norm_plain`. `layer_norm_warp` runs the
+one-warp-a-row kernel for either dtype: a second implementation to check
+and time the bf16 kernel against, called by no model.
 """
 import math
 
@@ -13,7 +16,8 @@ import torch
 from no_time_to_train_tpu_torch.ops import _cuda
 from no_time_to_train_tpu_torch.ops.upscale_product import fusion_disabled
 
-__all__ = ["ln_fusible", "layer_norm", "layer_norm_plain", "LAUNCHES"]
+__all__ = ["ln_fusible", "layer_norm", "layer_norm_plain",
+           "layer_norm_warp", "LAUNCHES"]
 
 LAUNCHES = {"layer_norm": 0}
 _MAX_COLS = 2048
@@ -44,10 +48,7 @@ def layer_norm_plain(x, weight, bias, eps):
     return y * weight.to(dt) + bias.to(dt)
 
 
-def layer_norm(x, weight, bias, eps):
-    """Kernel K1 over the last axis of x (any leading shape)."""
-    if x.device.type == "cpu" or fusion_disabled():
-        return layer_norm_plain(x, weight, bias, eps)
+def _launch(name, x, weight, bias, eps):
     req = _cuda.require
     c = x.shape[-1]
     req(x.is_cuda and x.is_contiguous(), "x must be a contiguous CUDA tensor")
@@ -57,9 +58,24 @@ def layer_norm(x, weight, bias, eps):
     w = weight.to(device=x.device, dtype=x.dtype).contiguous()
     b = bias.to(device=x.device, dtype=x.dtype).contiguous()
     out = torch.empty_like(x)
-    err = _cuda.lib().nttt_layer_norm(
+    err = getattr(_cuda.lib(), name)(
         x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), rows, c,
         float(eps), _cuda.dtype_code(x.dtype), _cuda.stream_ptr(x.device))
-    _cuda.check(err, "nttt_layer_norm")
+    _cuda.check(err, name)
+    return out
+
+
+def layer_norm(x, weight, bias, eps):
+    """Kernel K1 over the last axis of x (any leading shape)."""
+    if x.device.type == "cpu" or fusion_disabled():
+        return layer_norm_plain(x, weight, bias, eps)
+    out = _launch("nttt_layer_norm", x, weight, bias, eps)
     LAUNCHES["layer_norm"] += 1
     return out
+
+
+def layer_norm_warp(x, weight, bias, eps):
+    """`layer_norm` on the one-warp-a-row kernel for either dtype (CUDA
+    tensors only): a second implementation to check and time the bf16
+    kernel against. It counts no launch."""
+    return _launch("nttt_layer_norm_warp", x, weight, bias, eps)

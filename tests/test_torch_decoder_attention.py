@@ -13,10 +13,10 @@ from no_time_to_train_tpu_torch.ops import decoder_attention as tda
 P, N, C, I = 4, 128, 256, 128
 
 
-def _np_inputs(seed, pk, t, i2t):
+def _np_inputs(seed, pk, t, i2t, n=N):
     rng = np.random.default_rng(seed)
-    d = dict(keys=rng.standard_normal((pk, N, C)) * 0.5,
-             pe=rng.standard_normal((N, I)) * 0.5)
+    d = dict(keys=rng.standard_normal((pk, n, C)) * 0.5,
+             pe=rng.standard_normal((n, I)) * 0.5)
     if i2t:
         d.update(tok_k=rng.standard_normal((P, t, I)) * 0.5,
                  tok_v=rng.standard_normal((P, t, I)) * 0.5,
@@ -49,11 +49,18 @@ def _to(d, dtype):
     return j, t
 
 
+# token counts, and image rows: the CUDA kernel's 64-row tiles, whole and
+# (96 rows) with the last one half full, at the fewest and the most tokens
+I2T_CASES = pytest.mark.parametrize(
+    "t,n", [(8, N), (11, N), (16, N), (1, 96), (16, 96)],
+    ids=["8", "11", "16", "1-n96", "16-n96"])
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("pk", [1, P])
-@pytest.mark.parametrize("t", [8, 11, 16])
-def test_i2t_norm_plain_matches_pallas(dtype, pk, t):
-    j, tt = _to(_np_inputs(10 + t, pk, t, True), dtype)
+@I2T_CASES
+def test_i2t_norm_plain_matches_pallas(dtype, pk, t, n):
+    j, tt = _to(_np_inputs(10 + t, pk, t, True, n), dtype)
     ref = jda.fused_i2t_norm(j["keys"], j["pe"], j["tok_k"], j["tok_v"],
                              j["wq"], j["bq"], j["wout"], j["bout"],
                              j["norm_w"], j["norm_b"], num_heads=8,
@@ -61,7 +68,7 @@ def test_i2t_norm_plain_matches_pallas(dtype, pk, t):
     got = tda.fused_i2t_norm(tt["keys"], tt["pe"], tt["tok_k"], tt["tok_v"],
                              tt["wq"], tt["bq"], tt["wout"], tt["bout"],
                              tt["norm_w"], tt["norm_b"], num_heads=8)
-    assert tuple(got.shape) == (P, N, C) and got.dtype == tt["keys"].dtype
+    assert tuple(got.shape) == (P, n, C) and got.dtype == tt["keys"].dtype
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(ref, np.float32),
                                rtol=TOL[dtype], atol=TOL[dtype])
@@ -94,20 +101,20 @@ def _i2t_args(d):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("t", [8, 11, 16])
-def test_i2t_norm_pair_matches_pallas(dtype, t):
+@I2T_CASES
+def test_i2t_norm_pair_matches_pallas(dtype, t, n):
     """Row 8: the image-pair entry against `_i2t_pre_pair_kernel` in
     interpret mode, and equal to one `fused_i2t_norm` call per image."""
     rng = np.random.default_rng(30 + t)
-    d = _np_inputs(30 + t, 2, t, True)
-    d["pe"] = (rng.standard_normal((2, N, I)) * 0.5).astype(np.float32)
+    d = _np_inputs(30 + t, 2, t, True, n)
+    d["pe"] = (rng.standard_normal((2, n, I)) * 0.5).astype(np.float32)
     for k in ("tok_k", "tok_v"):
         d[k] = (rng.standard_normal((2, P, t, I)) * 0.5).astype(np.float32)
     j, tt = _to(d, dtype)
     ref = jda.fused_i2t_norm_pair(*_i2t_args(j), num_heads=8, pos_block=64,
                                   interpret=True)
     got = tda.fused_i2t_norm_pair(*_i2t_args(tt), num_heads=8)
-    assert tuple(got.shape) == (2, P, N, C) and got.dtype == tt["keys"].dtype
+    assert tuple(got.shape) == (2, P, n, C) and got.dtype == tt["keys"].dtype
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(ref, np.float32),
                                rtol=PAIR_TOL[dtype], atol=PAIR_TOL[dtype])
@@ -202,3 +209,43 @@ def test_transformer_fused_routing_equals_classic():
             q_c, k_c = tr(img, pe, toks)
     np.testing.assert_allclose(q_f.numpy(), q_c.numpy(), rtol=2e-4, atol=2e-4)
     np.testing.assert_allclose(k_f.numpy(), k_c.numpy(), rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("entry", ["fused_i2t_norm_wmma",
+                                   "fused_i2t_norm_pair_wmma"])
+def test_wmma_routes_refuse_cpu_tensors(entry):
+    """The first body of K3 is a check route on the card: on a CPU tensor
+    it raises instead of running the plain version, and counts nothing."""
+    d = _np_inputs(70, 2, 8, True)
+    if entry.endswith("pair_wmma"):
+        d["pe"] = np.stack([d["pe"]] * 2)
+        for k in ("tok_k", "tok_v"):
+            d[k] = d[k][None].repeat(2, axis=0)
+    _, tt = _to(d, "bfloat16")
+    before = dict(tda.LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA"):
+        getattr(tda, entry)(*_i2t_args(tt), num_heads=8)
+    assert tda.LAUNCHES == before
+
+
+@pytest.mark.parametrize("n,admitted", [(784, False), (1024, True),
+                                        (4096, True)])
+def test_gate_and_wrappers_share_the_shape_rule(monkeypatch, n, admitted):
+    """`i2t_fusible` admits exactly the shapes `fused_shape_error` passes,
+    and the wrappers' checks refuse none of them: at n = 784 (a 448^2
+    image, 28^2 rows) both refuse, so the decoder takes its classic path."""
+    from no_time_to_train_tpu_torch.models.sam2.transformer import Attention
+    attn = Attention(C, 8, downsample_rate=2)
+    keys = torch.zeros(1, n, C)
+    key_pe = torch.zeros(1, n, C)
+    tok = torch.zeros(3, 8, C)
+    assert attn.i2t_fusible(keys, key_pe, tok, 0) is admitted
+    assert (tda.fused_shape_error(n, C, I, 8, 8) is None) is admitted
+    refused = []
+    monkeypatch.setattr(tda._cuda, "require",
+                        lambda cond, msg: cond or refused.append(msg))
+    tda._check_common(keys, torch.zeros(3, 8, I), torch.zeros(n, I), 8)
+    # on the CPU the one refusal of an admitted shape is the device's
+    assert [m for m in refused if "CUDA" not in m] == (
+        [] if admitted else [tda.fused_shape_error(n, C, I, 8, 8)])
+    assert not attn.i2t_fusible(keys, key_pe, torch.zeros(3, 17, C), 0)

@@ -20,7 +20,9 @@ def _inputs(seed, shape):
             (rng.standard_normal(c) * 0.1).astype(np.float32))
 
 
-@pytest.mark.parametrize("shape", [(64, 144), (8, 16, 288), (1024, 256)])
+# every C of the path: Hiera-L's four stages, DINO-L, the decoder tokens
+@pytest.mark.parametrize("shape", [(64, 144), (8, 16, 288), (1024, 256),
+                                   (16, 576), (8, 1152), (8, 1024)])
 def test_plain_bf16_matches_pallas_interpret(shape):
     """bf16: identical cast points, so the outputs agree to one bf16 unit
     in the last place (statistics summed in another order)."""
@@ -64,4 +66,15 @@ def test_cpu_wrapper_takes_plain_and_counts_nothing():
     got = fused_ln.layer_norm(xt, torch.as_tensor(w), torch.as_tensor(b), 1e-6)
     assert torch.equal(got, fused_ln.layer_norm_plain(
         xt, torch.as_tensor(w), torch.as_tensor(b), 1e-6))
+    assert fused_ln.LAUNCHES["layer_norm"] == before
+
+
+def test_warp_route_refuses_cpu_tensors():
+    """K1's first body is a check route on the card: on a CPU tensor it
+    raises instead of running the plain version, and counts nothing."""
+    x, w, b = _inputs(3, (2048, 144))
+    before = fused_ln.LAUNCHES["layer_norm"]
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_ln.layer_norm_warp(torch.as_tensor(x).bfloat16(),
+                                 torch.as_tensor(w), torch.as_tensor(b), 1e-6)
     assert fused_ln.LAUNCHES["layer_norm"] == before

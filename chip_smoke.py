@@ -15,9 +15,12 @@ Run from the root of a checkout. Phases, each of which raises on failure:
      flash_sdpa_window_qkv) also with forced key splits, a batch against its
      elements alone bit for bit, the masked kernel's tile list against its
      plain version, and in turns with their parent on the WMMA tile; K1 at
-     four shapes and K3 (per-prompt and shared keys) with rows 7 and 8 in
-     turns with their parents (`layer_norm_warp`, the `_wmma` routes); the
-     scoring products on bf16 operands against their float32 form;
+     four shapes, K3 (per-prompt and shared keys) with rows 7 and 8, K2
+     (per-prompt keys, shared keys, the video's 2 prompts) with row 6, and
+     K4 with row 5 in turns with their parents (`layer_norm_warp`, the
+     `_wmma` routes); rows 6 and 5 bit for bit K2 and K4 (row 5 where t1 is
+     exact in bf16); the scoring products on bf16 operands against their
+     float32 form;
   4. the 10-shot test step on three paths, each a SAM2 Hiera-L matcher in
      bf16 with seeded random weights: DINOv2-L under attention_impl="xla",
      DINOv2-L under "pallas" and DINOv3-L under "pallas". Each fills the
@@ -205,7 +208,8 @@ MEMORY_FEAT_REL_BAND = 0.02
 # first bodies that remain as float32 paths and check routes, the WMMA and
 # FMA tiles, are not held to it)
 NO_SPILL = ("attn_mma::", "<unnamed>::i2t_mma_kernel",
-            "<unnamed>::ln_slab_kernel")
+            "<unnamed>::ln_slab_kernel", "<unnamed>::t2i_mma_kernel",
+            "<unnamed>::post_t1_mma_kernel")
 
 # published peaks of one H100 SXM (dense): device memory bytes / s, bf16
 # tensor-core and float32 CUDA-core operations / s
@@ -427,10 +431,8 @@ def compare(name, dt, got, ref):
     g, r = got.float(), ref.float()
     if not torch.isfinite(g).all():
         fail(f"{name} {dt}: kernel output is not finite")
-    err = (g - r).abs()
-    excess = float((err - rtol * r.abs()).max())
-    max_err = float(err.max())
-    ok = excess <= atol
+    max_err = float((g - r).abs().max())
+    ok = not outside_band(name, dt, g, r)[0]
     log(f"  {name:21s} {str(dt):15s} shape {tuple(got.shape)} "
         f"max_abs_err {max_err:.3e} (atol {atol}, rtol {rtol}; mean |plain| "
         f"{float(r.abs().mean()):.3f}) {'ok' if ok else 'FAIL'}")
@@ -454,27 +456,82 @@ def toggled(var):
             os.environ[var] = old
 
 
-def decoder_args(rn, dt, pk, p_, n, t):
-    """Operands of K2 and of K3 for p_ prompts of t tokens against pk sets
-    of n keys (C = 256, I = 128)."""
+def t2i_args(rn, dt, pk, p_, n, t):
+    """Operands of K2 for p_ prompts of t tokens against pk sets of n keys
+    (C = 256, I = 128), fed as the flash rows are: q and the keys at scale
+    1.5 give logits of std about 2, so a prompt's softmax over n keys rests
+    on a few dozen of them, and vv = keys @ Wv (bv = 0) is of unit size.
+    The output then depends on which keys win, not on bv: a kernel that
+    drops or mis-weights a run of keys, or skips the attention, lies
+    outside the band (`k2_faults`)."""
+    c, i = 256, 128
+    return (rn(pk, n, c, scale=1.5, dtype=dt), rn(n, i, scale=0.5, dtype=dt),
+            rn(p_, t, i, scale=1.5, dtype=dt), rn(c, i, scale=0.05),
+            rn(i, scale=0.1), rn(c, i, scale=0.05), rn(i, scale=0.0))
+
+
+def i2t_args(rn, dt, pk, p_, n, t):
+    """Operands of K3 for p_ prompts of t tokens against pk sets of n keys
+    (C = 256, I = 128)."""
     c, i = 256, 128
     keys = rn(pk, n, c, scale=0.5, dtype=dt)
     pe = rn(n, i, scale=0.5, dtype=dt)
-    tok_q = rn(p_, t, i, scale=0.5, dtype=dt)
+    tok_k = rn(p_, t, i, scale=0.5, dtype=dt)
     tok_v = rn(p_, t, i, scale=0.5, dtype=dt)
-    wk, wv = rn(c, i, scale=0.05), rn(c, i, scale=0.05)
-    bk, bv = rn(i, scale=0.1), rn(i, scale=0.1)
+    wq, bq = rn(c, i, scale=0.05), rn(i, scale=0.1)
     wout, bout = rn(i, c, scale=0.05), rn(c, scale=0.1)
     nw, nb = rn(c, scale=0.2) + 1.0, rn(c, scale=0.1)
-    return ((keys, pe, tok_q, wk, bk, wv, bv),
-            (keys, pe, tok_q, tok_v, wk, bk, wout, bout, nw, nb))
+    return (keys, pe, tok_k, tok_v, wq, bq, wout, bout, nw, nb)
 
 
-def t2i_bound(args, p_, n, t):
-    """K2 with per-prompt keys: the k and v projections of every key, then
-    logits and the value product against t tokens per prompt."""
+def outside_band(name, dt, got, ref):
+    """Whether `got` lies outside the band of `name` around `ref`, and by
+    how much its worst element exceeds atol + rtol * |ref|."""
+    atol, rtol = TOL[(name, str(dt).split(".")[-1])]
+    err = (got.float() - ref.float()).abs()
+    excess = float((err - rtol * ref.float().abs()).max()) - atol
+    return excess > 0, excess
+
+
+def k2_faults(args, dt, label):
+    """The power of K2's band: three faults planted in the output (not in
+    the kernel) that a wrong run merge or a skipped attention would make:
+    the merge of the first run of keys alone, the runs merged with equal
+    weights, and the output = bv. Each has to lie outside the band around
+    the plain version, or the check could not tell such a kernel from a
+    right one."""
+    import torch
+    from no_time_to_train_tpu_torch.ops import _cuda
+    from no_time_to_train_tpu_torch.ops import decoder_attention as da
+    keys, pe, tok_q, wk, bk, wv, bv = args
+    n = keys.shape[1]
+    run = -(-n // _cuda.lib().nttt_t2i_runs(n))
+
+    def plain(a, b):
+        return da.fused_t2i_attn_plain(keys[:, a:b], pe[a:b], tok_q, wk, bk,
+                                       wv, bv, num_heads=8)
+
+    ref = plain(0, n)
+    runs = [plain(a, min(n, a + run)).float() for a in range(0, n, run)]
+    faults = {"first run only": runs[0].to(dt),
+              "runs of equal weight": (sum(runs) / len(runs)).to(dt),
+              "output = bv": bv.to(dt).expand_as(ref)}
+    for fault, bad in faults.items():
+        out, excess = outside_band("fused_t2i_attn", dt, bad, ref)
+        log(f"    planted fault in K2, {label}: {fault}: worst element "
+            f"{excess:+.3f} beyond the band {'FAIL (as it must)' if out else 'passes'}")
+        if not out:
+            fail(f"fused_t2i_attn {label}: the band cannot tell a kernel "
+                 f"with the fault '{fault}' from a right one")
+
+
+def t2i_bound(args, p_, n, t, images=0):
+    """K2: the k and v projections of every key (per prompt with per-prompt
+    keys, else once per image), then logits and the value product against
+    t tokens per prompt."""
+    proj = images if images else p_
     return bound(nbytes(*args) + p_ * t * 128 * args[0].element_size(),
-                 2 * p_ * n * 128 * (2 * 256 + 2 * t), PEAK_BF16)
+                 2 * n * 128 * (proj * 2 * 256 + p_ * 2 * t), PEAK_BF16)
 
 
 def i2t_bound(args, p_, n, t, images=0):
@@ -487,11 +544,36 @@ def i2t_bound(args, p_, n, t, images=0):
                  + 8 * p_ * n * 256, PEAK_BF16)
 
 
-def check_pair(name, single_name, dt, fn, plain, results, bnd, parent=None):
+def k2_row(label, args, err, p_, n, t, images=0):
+    """K2 at one shape: one call on an idle card beside the plain version,
+    device ms in turns with its parent `fused_t2i_attn_wmma`, the bound."""
+    from no_time_to_train_tpu_torch.ops import decoder_attention as da
+
+    def k2():
+        return da.fused_t2i_attn(*args, num_heads=8)
+
+    def parent():
+        return da.fused_t2i_attn_wmma(*args, num_heads=8)
+
+    log(f"    fused_t2i_attn vs its parent fused_t2i_attn_wmma, {label}: max "
+        f"|d| {float((k2().float() - parent().float()).abs().max()):.3e}")
+    row = dict(max_abs_err=err, ms=cuda_ms(k2),
+               plain_ms=cuda_ms(
+                   lambda: da.fused_t2i_attn_plain(*args, num_heads=8)),
+               library_ms=None, shape=label,
+               **t2i_bound(args, p_, n, t, images))
+    row["device_ms"], row["parent_device_ms"] = in_turns(
+        "fused_t2i_attn", label, k2, parent)
+    return row
+
+
+def check_pair(name, single_name, dt, fn, plain, results, bnd, parent=None,
+               exact=False):
     """One prompt-pair variant: `fn` run with its toggle set against the
     plain version at the band of the single-prompt kernel, and against
     `fn` with the toggle unset (the JAX package's tests call the two
-    bit-identical on the TPU; the gap found here is logged). With
+    bit-identical on the TPU; the gap found here is logged, and with
+    `exact` it has to be 0). With
     `results`, both are timed in turns, and with `parent` (the variant on
     the body the entry launched before its redesign, run under the same
     toggle) the variant in turns with that parent too."""
@@ -507,6 +589,8 @@ def check_pair(name, single_name, dt, fn, plain, results, bnd, parent=None):
     err = compare(name, dt, pair, plain())
     gap = float((pair.float() - single.float()).abs().max())
     log(f"    {name} vs {single_name} on the same operands: max |d| {gap:.3e}")
+    if exact and gap != 0:
+        fail(f"{name} is not bit for bit {single_name} on the same operands")
 
     def paired():
         with toggled(PAIR_TOGGLE[name]):
@@ -542,11 +626,14 @@ def pair_kernels(rn, dt, shapes, results=None):
     timed = results is not None and dt == torch.bfloat16
     for p_, n, t in shapes:
         # per-prompt keys: rows 6 and 7
-        t2i, i2t = decoder_args(rn, dt, p_, p_, n, t)
+        t2i = t2i_args(rn, dt, p_, p_, n, t)
+        i2t = i2t_args(rn, dt, p_, p_, n, t)
         check_pair("fused_t2i_attn_p2", "fused_t2i_attn", dt,
                    lambda: da.fused_t2i_attn(*t2i, num_heads=8),
                    lambda: da.fused_t2i_attn_plain(*t2i, num_heads=8),
-                   results, t2i_bound(t2i, p_, n, t))
+                   results, t2i_bound(t2i, p_, n, t),
+                   parent=lambda: da.fused_t2i_attn_wmma(*t2i, num_heads=8),
+                   exact=dt == torch.bfloat16)
         check_pair("fused_i2t_norm_p2", "fused_i2t_norm", dt,
                    lambda: da.fused_i2t_norm(*i2t, num_heads=8),
                    lambda: da.fused_i2t_norm_plain(*i2t, num_heads=8),
@@ -554,7 +641,7 @@ def pair_kernels(rn, dt, shapes, results=None):
                    parent=lambda: da.fused_i2t_norm_wmma(*i2t, num_heads=8))
         del t2i, i2t
         # keys shared by the prompts: row 7's other body
-        _, i2t = decoder_args(rn, dt, 1, p_, n, t)
+        i2t = i2t_args(rn, dt, 1, p_, n, t)
         check_pair("fused_i2t_norm_pre_p2", "fused_i2t_norm", dt,
                    lambda: da.fused_i2t_norm(*i2t, num_heads=8),
                    lambda: da.fused_i2t_norm_plain(*i2t, num_heads=8),
@@ -562,7 +649,7 @@ def pair_kernels(rn, dt, shapes, results=None):
                    parent=lambda: da.fused_i2t_norm_wmma(*i2t, num_heads=8))
         # row 8: an image pair, every operand of the image side different
         # per image, so a swapped image index cannot pass
-        _, i2t = decoder_args(rn, dt, 2, 2 * p_, n, t)
+        i2t = i2t_args(rn, dt, 2, 2 * p_, n, t)
         keys2, _, tok_k, tok_v, *rest = i2t
         pe2 = rn(2, n, 128, scale=0.5, dtype=dt)
         tk2, tv2 = (z.reshape(2, p_, t, 128) for z in (tok_k, tok_v))
@@ -624,18 +711,38 @@ def pair_kernels(rn, dt, shapes, results=None):
         k4 = up.fused_post_t1(src, k1, s1p, lw, lb, k2, s0p, hyper)
         log(f"    fused_post_t1_from_t1 vs fused_post_t1 (t1 kept in float32 "
             f"there): max |d| {float((got.float() - k4.float()).abs().max()):.3e}")
-        del src, k4, got
+        gap = float((got.float() - up.fused_post_t1_from_t1_wmma(*a5).float())
+                    .abs().max())
+        log(f"    fused_post_t1_from_t1 vs its parent: max |d| {gap:.3e}")
+        # where t1 agrees (K1 a permutation times 1/2, so that src @ K1 is
+        # exact in bf16) the chain from t1 is K4's chain bit for bit
+        perm = torch.randperm(256, generator=torch.Generator().manual_seed(p_))
+        kp = torch.zeros(256, 256)
+        kp[perm, torch.arange(256)] = 0.5
+        kp = kp.to(src.device)
+        tp = (src.float() @ kp).to(dt)
+        gap = float((up.fused_post_t1_from_t1(tp, *a5[1:]).float()
+                     - up.fused_post_t1(src, kp, *a5[1:-1], hyper).float())
+                    .abs().max())
+        log(f"    fused_post_t1_from_t1 vs fused_post_t1 where t1 is exact in "
+            f"{dt}: max |d| {gap:.3e}")
+        if dt == torch.bfloat16 and gap != 0:
+            fail("fused_post_t1_from_t1 is not bit for bit K4's chain")
+        del src, k4, got, tp
         if timed:
             # the second deconvolution as four [hw, 64] x [64, 128]
             # products and the hypernetwork product; t1 is read once
-            results["fused_post_t1_from_t1"] = dict(
+            row = results["fused_post_t1_from_t1"] = dict(
                 max_abs_err=err,
                 ms=cuda_ms(lambda: up.fused_post_t1_from_t1(*a5)),
-                device_ms=queued_ms(lambda: up.fused_post_t1_from_t1(*a5)),
                 plain_ms=cuda_ms(lambda: up.fused_post_t1_from_t1_plain(*a5)),
                 library_ms=None,
                 **bound(nbytes(*a5) + p_ * 16 * hw * t1.element_size(),
                         2 * p_ * hw * (4 * 64 * 128 + 16 * 32), PEAK_BF16))
+            row["device_ms"], row["parent_device_ms"] = in_turns(
+                "fused_post_t1_from_t1", f"{p_} x {hw}",
+                lambda: up.fused_post_t1_from_t1(*a5),
+                lambda: up.fused_post_t1_from_t1_wmma(*a5))
         del t1, a5
         torch.cuda.empty_cache()
 
@@ -647,7 +754,8 @@ def image_batches(rn, dt, p_img, n, t):
     from no_time_to_train_tpu_torch.ops import upscale_product as up
     for bi in (1, 2, 3):
         p_ = bi * p_img
-        t2i, i2t = decoder_args(rn, dt, bi, p_, n, t)
+        t2i = t2i_args(rn, dt, bi, p_, n, t)
+        i2t = i2t_args(rn, dt, bi, p_, n, t)
         compare("fused_t2i_attn", dt, da.fused_t2i_attn(*t2i, num_heads=8),
                 da.fused_t2i_attn_plain(*t2i, num_heads=8))
         compare("fused_i2t_norm", dt, da.fused_i2t_norm(*i2t, num_heads=8),
@@ -731,42 +839,29 @@ def kernel_phase(dev):
         # and final) and shared keys (layer 0)
         p_, n, c, i, t = 256, 4096, 256, 128, 8
         for pk in (p_, 1):
-            keys = rn(pk, n, c, scale=0.5, dtype=dt)
-            pe = rn(n, i, scale=0.5, dtype=dt)
-            tok_q = rn(p_, t, i, scale=0.5, dtype=dt)
-            wk, wv = rn(c, i, scale=0.05), rn(c, i, scale=0.05)
-            bk, bv = rn(i, scale=0.1), rn(i, scale=0.1)
-            args = (keys, pe, tok_q, wk, bk, wv, bv)
+            label = ("256 x 4096, per-prompt keys" if pk == p_
+                     else "256 x 4096, shared keys (layer 0)")
+            args = t2i_args(rn, dt, pk, p_, n, t)
             err = compare("fused_t2i_attn", dt,
                           da.fused_t2i_attn(*args, num_heads=8),
                           da.fused_t2i_attn_plain(*args, num_heads=8))
-            if pk == p_ and dt == torch.bfloat16:
-                # k and v projections of every key, then logits and the
-                # value product against t tokens per prompt
-                results["fused_t2i_attn"] = dict(
-                    max_abs_err=err,
-                    ms=cuda_ms(lambda: da.fused_t2i_attn(*args, num_heads=8)),
-                    device_ms=queued_ms(
-                        lambda: da.fused_t2i_attn(*args, num_heads=8)),
-                    plain_ms=cuda_ms(
-                        lambda: da.fused_t2i_attn_plain(*args, num_heads=8)),
-                    library_ms=None,
-                    **bound(nbytes(*args) + p_ * t * i * 2,
-                            2 * p_ * n * i * (2 * c + 2 * t), PEAK_BF16))
-            tok_k = rn(p_, t, i, scale=0.5, dtype=dt)
-            tok_v = rn(p_, t, i, scale=0.5, dtype=dt)
-            wq, wout = rn(c, i, scale=0.05), rn(i, c, scale=0.05)
-            bq, bout = rn(i, scale=0.1), rn(c, scale=0.1)
-            nw, nb = rn(c, scale=0.2) + 1.0, rn(c, scale=0.1)
-            args = (keys, pe, tok_k, tok_v, wq, bq, wout, bout, nw, nb)
+            if dt == torch.bfloat16:
+                k2_faults(args, dt, label)
+                row = k2_row(label, args, err, p_, n, t,
+                             0 if pk == p_ else pk)
+                if pk == p_:
+                    results["fused_t2i_attn"] = row
+                else:
+                    results["fused_t2i_attn"]["also"] = [row]
+            del args
+            args = i2t_args(rn, dt, pk, p_, n, t)
+            keys = args[0]
             got = da.fused_i2t_norm(*args, num_heads=8)
             err = compare("fused_i2t_norm", dt, got,
                           da.fused_i2t_norm_plain(*args, num_heads=8))
             if dt != torch.bfloat16:
                 del keys, got
                 continue
-            label = ("256 x 4096, per-prompt keys" if pk == p_
-                     else "256 x 4096, shared keys (layer 0)")
             gap = float((got.float() - da.fused_i2t_norm_wmma(
                 *args, num_heads=8).float()).abs().max())
             log(f"    fused_i2t_norm vs its parent fused_i2t_norm_wmma, "
@@ -793,6 +888,17 @@ def kernel_phase(dev):
             else:
                 results["fused_i2t_norm"].setdefault("also", []).append(row)
             del keys
+        if dt == torch.bfloat16:
+            # K2 in the video: 2 objects, per-prompt keys (layers 1 and the
+            # final attention of the SAM heads)
+            args = t2i_args(rn, dt, 2, 2, n, t)
+            err = compare("fused_t2i_attn", dt,
+                          da.fused_t2i_attn(*args, num_heads=8),
+                          da.fused_t2i_attn_plain(*args, num_heads=8))
+            results["fused_t2i_attn"]["also"].append(
+                k2_row("2 x 4096, per-prompt keys (video)", args, err, 2, n,
+                       t))
+            del args
 
         # K4: one decode chunk, B = 256 prompts, 64^2 positions, d = 256
         b, hw = 256, 4096
@@ -809,14 +915,21 @@ def kernel_phase(dev):
             # first deconvolution [hw, 256] x [256, 256], the second as four
             # [hw, 64] x [64, 128] products, the hypernetwork product over
             # 16 phases x 32 channels; the result is [b, 16, hw]
-            results["fused_post_t1"] = dict(
+            row = results["fused_post_t1"] = dict(
                 max_abs_err=err, ms=cuda_ms(lambda: up.fused_post_t1(*args)),
-                device_ms=queued_ms(lambda: up.fused_post_t1(*args)),
                 plain_ms=cuda_ms(lambda: up.fused_post_t1_plain(*args)),
                 library_ms=None,
                 **bound(nbytes(*args) + b * 16 * hw * src.element_size(),
                         2 * b * hw * (256 * 256 + 4 * 64 * 128 + 16 * 32),
                         PEAK_BF16))
+            gap = float((up.fused_post_t1(*args).float()
+                         - up.fused_post_t1_wmma(*args).float()).abs().max())
+            log(f"    fused_post_t1 vs its parent fused_post_t1_wmma: max |d| "
+                f"{gap:.3e}")
+            row["device_ms"], row["parent_device_ms"] = in_turns(
+                "fused_post_t1", f"{b} x {hw}",
+                lambda: up.fused_post_t1(*args),
+                lambda: up.fused_post_t1_wmma(*args))
         del src
         torch.cuda.empty_cache()
         # rows 5 to 8 at one decode chunk, and K2 / K3 / K4 at a batch of
@@ -886,9 +999,11 @@ def in_turns(name, label, fn, parent, allow=0.0):
     function on the body the entry launched before its redesign: an
     attention entry's `_wmma` route on the WMMA tile of csrc/attn_tile.cuh,
     `fused_i2t_norm_wmma` / `fused_i2t_norm_pair_wmma` on K3's first body,
-    `layer_norm_warp` for K1), timed parent, kernel, kernel, parent in one
-    process. The kernel has to be the faster or, with `allow`, at most that
-    share slower (the launch-bound shapes)."""
+    `fused_t2i_attn_wmma` on K2's, `fused_post_t1_wmma` /
+    `fused_post_t1_from_t1_wmma` on K4's, `layer_norm_warp` for K1), timed
+    parent, kernel, kernel, parent in one process. The kernel has to be the
+    faster or, with `allow`, at most that share slower (the launch-bound
+    shapes)."""
     ms = [queued_ms(parent), queued_ms(fn), queued_ms(fn), queued_ms(parent)]
     log(f"  time {name} {label}: device ms, parent {ms[0]:.4f} / {ms[3]:.4f}, "
         f"kernel {ms[1]:.4f} / {ms[2]:.4f} (parent, kernel, kernel, parent)")
@@ -1262,18 +1377,20 @@ def edge_shapes(rn):
         w, b = rn(144) + 1.0, rn(144)
         compare("layer_norm", dt, fl.layer_norm(x, w, b, 1e-5),
                 fl.layer_norm_plain(x, w, b, 1e-5))
-        # K2 / K3 at 64 keys and at 96 (K3's last 64-row tile half full)
-        for t, n_e in ((1, 64), (11, 96), (16, 64), (16, 96)):
+        # K2 / K3 at 64 keys, at 96 and 784 (the last 64-row tile part
+        # full; 784: a 448^2 image), at 40 (under one tile) and at 4096, at
+        # 1 to 16 tokens and an odd prompt count
+        for t, n_e in ((1, 64), (11, 96), (16, 64), (16, 96), (1, 784),
+                       (16, 784), (5, 40), (1, 4096), (16, 4096)):
             for pk in (3, 1):
                 keys = rn(pk, n_e, 256, scale=0.5, dtype=dt)
                 pe = rn(n_e, 128, scale=0.5, dtype=dt)
                 tq = rn(3, t, 128, scale=0.5, dtype=dt)
                 tv = rn(3, t, 128, scale=0.5, dtype=dt)
-                w1, w2 = rn(256, 128, scale=0.05), rn(256, 128, scale=0.05)
-                wo = rn(128, 256, scale=0.05)
-                b1, b2, bo = rn(128, scale=0.1), rn(128, scale=0.1), rn(256)
+                w1, wo = rn(256, 128, scale=0.05), rn(128, 256, scale=0.05)
+                b1, bo = rn(128, scale=0.1), rn(256)
                 nw, nb = rn(256, scale=0.2) + 1.0, rn(256, scale=0.1)
-                a = (keys, pe, tq, w1, b1, w2, b2)
+                a = t2i_args(rn, dt, pk, 3, n_e, t)
                 compare("fused_t2i_attn", dt, da.fused_t2i_attn(*a, num_heads=8),
                         da.fused_t2i_attn_plain(*a, num_heads=8))
                 a = (keys, pe, tq, tv, w1, b1, wo, bo, nw, nb)
@@ -1284,11 +1401,25 @@ def edge_shapes(rn):
              rn(64, 128, scale=0.1), rn(32, 512, scale=0.3), rn(37, 32))
         compare("fused_post_t1", dt, up.fused_post_t1(*a),
                 up.fused_post_t1_plain(*a))
-        # rows 5 to 8: 11 and 16 tokens, 2 and 6 prompts, 96 keys; K2 / K3 /
-        # K4 at 1, 2 and 3 images of 3 and of 2 prompts
-        pair_kernels(rn, dt, [(2, 96, 11), (6, 96, 16), (6, 64, 8)])
+        # K4 and row 5 at 37 prompts x 784 positions and at 40 positions
+        for hw_e in (784, 40):
+            a = (rn(37, hw_e, 256, scale=0.5, dtype=dt),
+                 rn(256, 256, scale=1 / 16), rn(hw_e, 256, scale=0.3),
+                 rn(64, scale=0.2) + 1.0, rn(64, scale=0.1),
+                 rn(64, 128, scale=0.1), rn(hw_e, 512, scale=0.3), rn(37, 32))
+            compare("fused_post_t1", dt, up.fused_post_t1(*a),
+                    up.fused_post_t1_plain(*a))
+            t1 = (a[0].float() @ a[1].to(dt).float()).to(dt)
+            compare("fused_post_t1_from_t1", dt,
+                    up.fused_post_t1_from_t1(t1, *a[2:]),
+                    up.fused_post_t1_from_t1_plain(t1, *a[2:]))
+        # rows 5 to 8: 1, 11 and 16 tokens, 2 and 6 prompts, 96 and 784
+        # keys; K2 / K3 / K4 at 1, 2 and 3 images of 3 and of 2 prompts
+        pair_kernels(rn, dt, [(2, 96, 11), (6, 96, 16), (6, 64, 8),
+                              (2, 784, 1), (6, 784, 16)])
         image_batches(rn, dt, 3, 96, 11)
         image_batches(rn, dt, 2, 64, 16)
+        image_batches(rn, dt, 3, 784, 1)
         attention_kernels(rn, dt, ONEPASS_EDGE, WINDOW_EDGE)
         memory_kernels(rn, dt, FLASH_EDGE, MASKED_EDGE)
     split_and_batch_checks(rn)
@@ -1845,12 +1976,14 @@ def build_batched_matcher(dev):
 
 def profile_rows(dev_rows, top):
     """The `top` device rows of a profile by time, then every row of the
-    attention kernels (tiles, merge, the masked kernel's pre-pass) that is
-    not among them."""
+    attention kernels (tiles, merge, the masked kernel's pre-pass) and of
+    the decoder kernels K2-K4 that is not among them."""
     rows = sorted(dev_rows, key=lambda e: -e.self_device_time_total)
     return rows[:top] + [e for e in rows[top:] if "attn" in e.key
                          or "merge_kernel" in e.key
-                         or "tile_list_kernel" in e.key]
+                         or "tile_list_kernel" in e.key
+                         or "t2i" in e.key or "i2t" in e.key
+                         or "post_t1" in e.key or "upscale" in e.key]
 
 
 def batch_profile(dev, smi):

@@ -92,12 +92,15 @@ __device__ __forceinline__ void warp_gemm_bf16(const __nv_bfloat16* A,
 }
 
 // Copy n bf16 values (n a multiple of 8, both pointers 16-byte aligned) in
-// 16-byte pieces, all threads of the block taking part.
+// 16-byte pieces, all threads of the block taking part; values from `valid`
+// on (a multiple of 8) are not read and written as zeros.
 __device__ __forceinline__ void copy_bf16(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src, int n) {
+                                          const __nv_bfloat16* src, int n,
+                                          int valid) {
   const uint4* s = (const uint4*)src;
   uint4* d = (uint4*)dst;
-  for (int i = threadIdx.x; i < n / 8; i += blockDim.x) d[i] = s[i];
+  for (int i = threadIdx.x; i < n / 8; i += blockDim.x)
+    d[i] = i < valid / 8 ? s[i] : make_uint4(0u, 0u, 0u, 0u);
 }
 
 #define NTTT_DTYPE_F32 0

@@ -160,6 +160,7 @@ i2t_kernel(const T* __restrict__ keys, const T* __restrict__ peq,
   __syncthreads();
 
   for (int n0 = row0; n0 < min(row0 + kRowsPerBlock, n); n0 += kBR) {
+  const int nv = min(kBR, n - n0);   // rows of the tile inside n
 #pragma unroll
   for (int j = 0; j < kNP; ++j) {
     const T* kp = chain_keys[j];
@@ -171,14 +172,14 @@ i2t_kernel(const T* __restrict__ keys, const T* __restrict__ peq,
     // pre, the qi tile already in shared memory
     const bool staged = j > 0 && kp == chain_keys[0] && peq == chain_peq[0];
     if constexpr (Num<T>::is_bf16) {
-      if (!staged) copy_bf16(xb_s, kp + (long long)n0 * kC, kBR * kC);
+      if (!staged) copy_bf16(xb_s, kp + (long long)n0 * kC, kBR * kC, nv * kC);
     } else {
       for (int i = tid; i < kBR * kC; i += kThreads)
-        x_s[i] = Num<T>::to_f(kp[(long long)n0 * kC + i]);
+        x_s[i] = i < nv * kC ? Num<T>::to_f(kp[(long long)n0 * kC + i]) : 0.f;
     }
     if (pre && !staged) {
       for (int i = tid; i < kBR * kI; i += kThreads)
-        q_s[i] = Num<T>::to_f(peq[(long long)n0 * kI + i]);
+        q_s[i] = i < nv * kI ? Num<T>::to_f(peq[(long long)n0 * kI + i]) : 0.f;
     }
     __syncthreads();
 
@@ -192,7 +193,8 @@ i2t_kernel(const T* __restrict__ keys, const T* __restrict__ peq,
         __syncthreads();
         for (int i = tid; i < kBR * kI; i += kThreads) {
           const int r = i / kI, j = i % kI;
-          const float pv = Num<T>::to_f(peq[(long long)(n0 + r) * kI + j]);
+          const float pv =
+              r < nv ? Num<T>::to_f(peq[(long long)(n0 + r) * kI + j]) : 0.f;
           q_s[i] = Num<T>::round((q_s[i] + pv + bq[j]) * scale);
         }
         __syncthreads();
@@ -224,7 +226,8 @@ i2t_kernel(const T* __restrict__ keys, const T* __restrict__ peq,
 #pragma unroll
         for (int jj = 0; jj < 4; ++jj) {
           const int j = j0 + jj;
-          const float pv = Num<T>::to_f(peq[(long long)(n0 + r) * kI + j]);
+          const float pv =
+              r < nv ? Num<T>::to_f(peq[(long long)(n0 + r) * kI + j]) : 0.f;
           q_s[r * kI + j] = Num<T>::round((a[i][jj] + pv + bq[j]) * scale);
         }
       }
@@ -313,7 +316,7 @@ i2t_kernel(const T* __restrict__ keys, const T* __restrict__ peq,
     __syncthreads();
 
     // LayerNorm: one warp a row
-    for (int r = warp; r < kBR; r += kThreads / 32) {
+    for (int r = warp; r < nv; r += kThreads / 32) {
       float v[8];
       float s = 0.f;
 #pragma unroll
@@ -399,12 +402,9 @@ struct MmaSmem {
 using WqBlocks = wg::Blocks<kI, kC>;
 using WoBlocks = wg::Blocks<kC, kI>;
 
-__device__ __forceinline__ float lo_f(uint32_t v) {
-  return __uint_as_float(v << 16);
-}
-__device__ __forceinline__ float hi_f(uint32_t v) {
-  return __uint_as_float(v & 0xffff0000u);
-}
+using mma::hi_f;
+using mma::lo_f;
+using wg::prefetch_l2;
 // Two bf16 operations with one rounding each, never contracted into an FMA:
 // on bf16 operands the same values as the operation in float32 rounded to
 // bf16 (a product of two bf16 is exact in float32; a sum is exact there
@@ -424,14 +424,8 @@ __device__ __forceinline__ uint32_t mul_bf16x2(uint32_t a, uint32_t b) {
   asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
   return d;
 }
-// Bytes [p, p + bytes) into L2 (bytes a multiple of 16), by one thread.
-__device__ __forceinline__ void prefetch_l2(const void* p, int bytes) {
-  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(p),
-               "r"(bytes)
-               : "memory");
-}
 __device__ __forceinline__ void team_sync(int team) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + team), "n"(kTeamThreads));
+  wg::bar_sync(1 + team, kTeamThreads);
 }
 
 __device__ __forceinline__ uint32_t& at_smem(bf16* tile, int row, int col) {
@@ -777,7 +771,8 @@ bool bad_shape(int P, int n, int heads, int ntok, int ppi, int pair) {
 // peq_img_stride = n * 128. pair: 0 for one prompt an item; 1 for two
 // prompts an item (2b, 2b + 1; P even); 2 for an image pair (prompt b of
 // image 0 and of image 1; P = 2 * ppi). bf16 takes the register-tile
-// kernel (any n >= 1), float32 the first port's body (n % 32 == 0).
+// kernel (any n >= 1), float32 the first port's body (n % 8 == 0; its last
+// 32-row tile may be part full).
 extern "C" int nttt_i2t_norm(const void* keys, const void* peq,
                              const void* tok_k, const void* tok_v,
                              const void* wq, const float* bq,
@@ -789,7 +784,7 @@ extern "C" int nttt_i2t_norm(const void* keys, const void* peq,
                              long long peq_img_stride, int ppi, int pair,
                              int dtype, void* stream) {
   if (bad_shape(P, n, heads, ntok, ppi, pair) ||
-      (dtype != NTTT_DTYPE_BF16 && n % kBR))
+      (dtype != NTTT_DTYPE_BF16 && n % 8))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int chain_a = pair == 1 ? 2 : 1;
@@ -812,7 +807,7 @@ extern "C" int nttt_i2t_norm(const void* keys, const void* peq,
 }
 
 // The first port's body for either dtype, arguments as `nttt_i2t_norm`
-// (n % 32 == 0): the parent the bf16 kernel is checked and timed against.
+// (n % 8 == 0): the parent the bf16 kernel is checked and timed against.
 extern "C" int nttt_i2t_norm_wmma(const void* keys, const void* peq,
                                   const void* tok_k, const void* tok_v,
                                   const void* wq, const float* bq,
@@ -824,7 +819,7 @@ extern "C" int nttt_i2t_norm_wmma(const void* keys, const void* peq,
                                   long long key_img_stride,
                                   long long peq_img_stride, int ppi,
                                   int pair, int dtype, void* stream) {
-  if (bad_shape(P, n, heads, ntok, ppi, pair) || n % kBR)
+  if (bad_shape(P, n, heads, ntok, ppi, pair) || n % 8)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int chain_a = pair == 1 ? 2 : 1;

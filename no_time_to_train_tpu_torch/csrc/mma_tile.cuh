@@ -62,6 +62,25 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// The low and high bf16 of a packed pair as floats.
+__device__ __forceinline__ float lo_f(uint32_t v) {
+  return __uint_as_float(v << 16);
+}
+__device__ __forceinline__ float hi_f(uint32_t v) {
+  return __uint_as_float(v & 0xffff0000u);
+}
+
+// The 8x8 b16 matrix a warp holds one register a lane in the C / A layout
+// (lane l: row l / 4, columns 2 (l % 4), + 1), transposed in that layout:
+// lane l then holds rows 2 (l % 4), + 1 of column l / 4.
+__device__ __forceinline__ uint32_t trans8x8(uint32_t a) {
+  uint32_t d;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n"
+               : "=r"(d)
+               : "r"(a));
+  return d;
+}
+
 // 2^x on the special-function unit; 2^-inf = 0.
 __device__ __forceinline__ float fast_exp2(float x) {
   float y;

@@ -44,15 +44,16 @@ struct Blocks {
   }
 };
 
-// mma::load_rows into the column-block layout.
+// mma::load_rows into the column-block layout, by THREADS threads (thread
+// `tid` of them: threadIdx.x unless given).
 template <int DP, int ROWS, int THREADS>
 __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int rs,
-                                          int r0, int rows, int d) {
+                                          int r0, int rows, int d, int tid) {
   constexpr int kChunks = DP / 8;
   const int pieces = d >> 3;
 #pragma unroll
   for (int i0 = 0; i0 < ROWS * kChunks; i0 += THREADS) {
-    const int i = i0 + threadIdx.x;
+    const int i = i0 + tid;
     const int r = i / kChunks, c = i % kChunks;
     if ((ROWS * kChunks % THREADS == 0 || r < ROWS) && c < pieces) {
       const bool ok = r0 + r < rows;
@@ -61,6 +62,23 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int rs,
     }
   }
 }
+template <int DP, int ROWS, int THREADS>
+__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int rs,
+                                          int r0, int rows, int d) {
+  load_rows<DP, ROWS, THREADS>(dst, src, rs, r0, rows, d, threadIdx.x);
+}
+
+// Bytes [p, p + bytes) into L2 (bytes a multiple of 16), by one thread.
+__device__ __forceinline__ void prefetch_l2(const void* p, int bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(p),
+               "r"(bytes)
+               : "memory");
+}
+
+// Named barrier `id` (1..15; 0 is __syncthreads) over `threads` threads.
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
 
 // Descriptor of a 128-byte-swizzled operand at `p` with the leading and
 // stride byte offsets `lbo` and `sbo`.
@@ -68,6 +86,24 @@ __device__ __forceinline__ uint64_t desc(const void* p, int lbo, int sbo) {
   const uint64_t a = mma::smem_addr(p);
   return ((a & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
          ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// A descriptor `d` moved by `bytes` (a multiple of 16, staying inside the
+// shared memory window): the start address is the low field.
+__device__ __forceinline__ uint64_t desc_at(uint64_t d, int bytes) {
+  return d + (uint64_t)(bytes >> 4);
+}
+
+// `d` through an opaque move: the descriptors or addresses derived from it
+// are computed where they are used, not hoisted out of the loop around them
+// and held in registers for its whole length.
+__device__ __forceinline__ uint64_t pinned(uint64_t d) {
+  asm volatile("mov.b64 %0, %0;\n" : "+l"(d));
+  return d;
+}
+__device__ __forceinline__ int pinned(int v) {
+  asm volatile("mov.b32 %0, %0;\n" : "+r"(v));
+  return v;
 }
 
 __device__ __forceinline__ void proxy_fence() {
@@ -118,17 +154,49 @@ __device__ __forceinline__ void mma_ss_n64(float (&d)[8][4], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// d [64, N] += A [64, 16] B: A K-major and B [16, N] MN-major, both in
+// shared memory (the projection of a tile of rows by a resident weight);
+// `accumulate` 0 overwrites d.
+template <int N>
+__device__ __forceinline__ void mma_ss_t(float (&d)[N / 8][4], uint64_t da,
+                                         uint64_t db, int accumulate = 1);
+
+template <>
+__device__ __forceinline__ void mma_ss_t<64>(float (&d)[8][4],
+                                            uint64_t da, uint64_t db,
+                                            int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      :
+        "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // d [64, N] += A [64, 16] B: A in registers, B [16, N] MN-major in shared
-// memory. The A registers must stay untouched until the product is waited
-// for.
+// memory; `accumulate` 0 overwrites d. The A registers must stay untouched
+// until the product is waited for.
 template <int N>
 __device__ __forceinline__ void mma_rs(float (&d)[N / 8][4],
-                                       const uint32_t (&a)[4], uint64_t db);
+                                       const uint32_t (&a)[4], uint64_t db,
+                                       int accumulate = 1);
 
 template <>
 __device__ __forceinline__ void mma_rs<64>(float (&d)[8][4],
                                           const uint32_t (&a)[4],
-                                          uint64_t db) {
+                                          uint64_t db, int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
@@ -146,13 +214,13 @@ __device__ __forceinline__ void mma_rs<64>(float (&d)[8][4],
         "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
         "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
         "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 
 template <>
 __device__ __forceinline__ void mma_rs<128>(float (&d)[16][4],
                                           const uint32_t (&a)[4],
-                                          uint64_t db) {
+                                          uint64_t db, int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
@@ -182,13 +250,13 @@ __device__ __forceinline__ void mma_rs<128>(float (&d)[16][4],
         "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
         "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
         "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 
 template <>
 __device__ __forceinline__ void mma_rs<256>(float (&d)[32][4],
                                           const uint32_t (&a)[4],
-                                          uint64_t db) {
+                                          uint64_t db, int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
@@ -242,7 +310,7 @@ __device__ __forceinline__ void mma_rs<256>(float (&d)[32][4],
         "+f"(d[29][0]), "+f"(d[29][1]), "+f"(d[29][2]), "+f"(d[29][3]),
         "+f"(d[30][0]), "+f"(d[30][1]), "+f"(d[30][2]), "+f"(d[30][3]),
         "+f"(d[31][0]), "+f"(d[31][1]), "+f"(d[31][2]), "+f"(d[31][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 
 }  // namespace wg

@@ -79,8 +79,9 @@ class Attention(nn.Module):
         """True when the fused image-side passes apply: no key masking,
         outside no_fusion(), a positional encoding shared by every prompt,
         and a shape both kernels take (`fused_shape_error`: the decoder's
-        widths and heads, <= 16 tokens, whole 32-row tiles of image rows), so
-        that no shape admitted here is one the wrappers refuse."""
+        widths and heads, <= 16 tokens, image rows n % 8 == 0 as in the JAX
+        package's gate), so that no shape admitted here is one the wrappers
+        refuse."""
         return (skip_last_n_keys == 0 and not fusion_disabled()
                 and key_pe.shape[0] == 1
                 and fused_shape_error(keys.shape[-2], keys.shape[-1],

@@ -30,8 +30,12 @@ _VP, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longl
 _SIGNATURES = {
     "nttt_layer_norm": [_VP, _VP, _VP, _VP, _I, _I, _F, _I, _VP],
     "nttt_layer_norm_warp": [_VP, _VP, _VP, _VP, _I, _I, _F, _I, _VP],
-    "nttt_t2i_attn": [_VP, _VP, _VP, _VP, _VP, _VP, _VP,
+    "nttt_t2i_attn": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                       _I, _I, _I, _I, _F, _I, _LL, _LL, _I, _I, _I, _VP],
+    "nttt_t2i_runs": [_I],
+    "nttt_t2i_attn_wmma": [_VP, _VP, _VP, _VP, _VP, _VP, _VP,
+                           _I, _I, _I, _I, _F, _I, _LL, _LL, _I, _I, _I,
+                           _VP],
     "nttt_i2t_norm": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                       _I, _I, _I, _I, _F, _F, _I, _LL, _LL, _LL, _I, _I, _I,
                       _VP],
@@ -40,6 +44,8 @@ _SIGNATURES = {
                            _I, _I, _I, _VP],
     "nttt_upscale_product": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                              _I, _I, _I, _I, _I, _F, _I, _VP],
+    "nttt_upscale_product_wmma": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+                                  _VP, _I, _I, _I, _I, _I, _F, _I, _VP],
     "nttt_onepass_attn": [_VP, _VP, _VP, _VP, _LL, _LL, _LL, _I, _I, _I,
                           _I, _I, _I, _I, _I, _F, _I, _I, _VP, _VP, _VP],
     "nttt_onepass_attn_wmma": [_VP, _VP, _VP, _VP, _LL, _LL, _LL, _I, _I, _I,

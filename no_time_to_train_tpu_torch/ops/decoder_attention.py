@@ -13,11 +13,11 @@ weight: (keys + pe) @ W == keys @ W + pe @ W, and the projected form is half
 the width. On a CUDA tensor each launches its kernel (`csrc/i2t_norm.cu`,
 `csrc/t2i_attn.cu`); on a CPU tensor, or inside `no_fusion()`, each runs
 its plain version, the unfused formulation of the JAX package's XLA twin.
-`fused_i2t_norm_wmma` and `fused_i2t_norm_pair_wmma` run the first port's
-body of K3 (WMMA products, float32 tiles in shared memory) for either
-dtype: a second implementation to check and time the bf16 kernel against,
-called by no model. `fused_shape_error` is the shape rule of both kernels,
-which the transformer's gate reads too.
+`fused_i2t_norm_wmma`, `fused_i2t_norm_pair_wmma` and `fused_t2i_attn_wmma`
+run the first port's bodies of K3 and K2 (WMMA products, float32 tiles in
+shared memory) for either dtype: second implementations to check and time
+the bf16 kernels against, called by no model. `fused_shape_error` is the
+shape rule of both kernels, which the transformer's gate reads too.
 
 Layer 0 passes keys shared by the prompts of an image: [1, n, C], or
 [Bi, n, C] for a batch of Bi images whose P / Bi prompts each lie together
@@ -45,7 +45,8 @@ from no_time_to_train_tpu_torch.ops.upscale_product import fusion_disabled
 __all__ = ["fused_i2t_norm", "fused_i2t_norm_plain", "fused_i2t_norm_pair",
            "fused_i2t_norm_pair_plain", "fused_i2t_norm_wmma",
            "fused_i2t_norm_pair_wmma", "fused_shape_error", "fused_t2i_attn",
-           "fused_t2i_attn_plain", "per_prompt", "LAUNCHES"]
+           "fused_t2i_attn_plain", "fused_t2i_attn_wmma", "per_prompt",
+           "LAUNCHES"]
 
 LAUNCHES = {"fused_t2i_attn": 0, "fused_i2t_norm": 0,
             "fused_t2i_attn_p2": 0, "fused_i2t_norm_p2": 0,
@@ -129,14 +130,14 @@ def fused_t2i_attn_plain(keys, pe_k, tok_q, wk, bk, wv, bv, *, num_heads):
 def fused_shape_error(n, c, i, num_heads, t):
     """Why the K2 / K3 kernels refuse n image rows of width C against t
     tokens of width I in `num_heads` heads, or None where they take it. The
-    bf16 K3 kernel takes any n; K2 takes whole 32-row tiles, and the two run
-    together, so both keep n % 32 == 0."""
+    JAX package's decoder gate admits n % 8 == 0; the kernels mask a part
+    full last tile of rows, so they take the same n."""
     if not (c == 256 and i == 128 and num_heads == 8):
         return "kernel takes C=256, I=128, 8 heads"
     if not 1 <= t <= 16:
         return f"kernel takes 1..16 tokens, got {t}"
-    if n < 1 or n % 32:
-        return f"n={n} must be a positive multiple of 32"
+    if n < 1 or n % 8:
+        return f"n={n} must be a positive multiple of 8"
     return None
 
 
@@ -285,11 +286,9 @@ def fused_i2t_norm_pair_wmma(keys2, pe_q2, tok_k2, tok_v2, wq, bq, wout,
                      bq, wout, bout, norm_w, norm_b, num_heads, eps)
 
 
-def fused_t2i_attn(keys, pe_k, tok_q, wk, bk, wv, bv, *, num_heads):
-    """Kernel K2, shapes as `fused_t2i_attn_plain`."""
-    if keys.device.type == "cpu" or fusion_disabled():
-        return fused_t2i_attn_plain(keys, pe_k, tok_q, wk, bk, wv, bv,
-                                    num_heads=num_heads)
+def _t2i(entry, keys, pe_k, tok_q, wk, bk, wv, bv, num_heads):
+    """K2 through C entry `entry`; returns the output and the name of the
+    body it took (the prompt-pair variant under its toggle)."""
     p_, t, i, pk, n, c, pre = _check_common(keys, tok_q, pe_k, num_heads)
     dt, dev = keys.dtype, keys.device
     scale = 1.0 / ((i // num_heads) ** 0.5)
@@ -311,12 +310,44 @@ def fused_t2i_attn(keys, pe_k, tok_q, wk, bk, wv, bv, *, num_heads):
         pair = p_ % 2 == 0 and _perprompt_pair_enabled()
     tq = tok_q.contiguous()
     out = torch.empty((p_, t, i), device=dev, dtype=dt)
-    err = _cuda.lib().nttt_t2i_attn(
-        src0.data_ptr(), src1.data_ptr(), tq.data_ptr(), wkv.data_ptr(),
-        b_k.data_ptr(), b_v.data_ptr(), out.data_ptr(), p_, n, num_heads, t,
-        float(scale), int(pre), 0 if pre else n * c, n * i if pre else 0,
-        p_ // pk if pre else 1, int(pair), _cuda.dtype_code(dt),
-        _cuda.stream_ptr(dev))
-    _cuda.check(err, "nttt_t2i_attn")
-    LAUNCHES["fused_t2i_attn_p2" if pair else "fused_t2i_attn"] += 1
+    head = (src0.data_ptr(), src1.data_ptr(), tq.data_ptr(), wkv.data_ptr(),
+            b_k.data_ptr(), b_v.data_ptr(), out.data_ptr())
+    tail = (p_, n, num_heads, t, float(scale), int(pre), 0 if pre else n * c,
+            n * i if pre else 0, p_ // pk if pre else 1, int(pair),
+            _cuda.dtype_code(dt), _cuda.stream_ptr(dev))
+    fn = getattr(_cuda.lib(), entry)
+    if entry == "nttt_t2i_attn":
+        # scratch of the bf16 kernel's runs of keys: each (prompt, run)
+        # leaves a float32 partial that a second kernel merges; the source
+        # decides the run count (the float32 body reads no scratch)
+        part_o = part_ml = None
+        if dt == torch.bfloat16:
+            runs = _cuda.lib().nttt_t2i_runs(n)
+            part_o = torch.empty((p_ * runs, 16, i), **f32)
+            part_ml = torch.empty((p_ * runs, 16, num_heads, 2), **f32)
+        err = fn(*head, None if part_o is None else part_o.data_ptr(),
+                 None if part_ml is None else part_ml.data_ptr(), *tail)
+    else:
+        err = fn(*head, *tail)
+    _cuda.check(err, entry)
+    return out, "fused_t2i_attn_p2" if pair else "fused_t2i_attn"
+
+
+def fused_t2i_attn(keys, pe_k, tok_q, wk, bk, wv, bv, *, num_heads):
+    """Kernel K2, shapes as `fused_t2i_attn_plain`."""
+    if keys.device.type == "cpu" or fusion_disabled():
+        return fused_t2i_attn_plain(keys, pe_k, tok_q, wk, bk, wv, bv,
+                                    num_heads=num_heads)
+    out, name = _t2i("nttt_t2i_attn", keys, pe_k, tok_q, wk, bk, wv, bv,
+                     num_heads)
+    LAUNCHES[name] += 1
     return out
+
+
+def fused_t2i_attn_wmma(keys, pe_k, tok_q, wk, bk, wv, bv, *, num_heads):
+    """`fused_t2i_attn` (and its prompt-pair variant, by the same toggle)
+    on the first port's body for either dtype (CUDA tensors only): a second
+    implementation to check and time the bf16 kernel against. It counts no
+    launch."""
+    return _t2i("nttt_t2i_attn_wmma", keys, pe_k, tok_q, wk, bk, wv, bv,
+                num_heads)[0]

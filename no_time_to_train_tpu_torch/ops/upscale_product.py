@@ -11,6 +11,10 @@ the same function in plain torch with the kernel's cast points (tanh GELU in
 bf16, erf GELU in float32). `fused_post_t1_from_t1` is the same chain from
 the raw first-deconv output t1 [B, hw, 4*c1] on (the JAX function called
 with `k1mat=None`): the caller computes the first product.
+`fused_post_t1_wmma` and `fused_post_t1_from_t1_wmma` run the first port's
+body (WMMA products, float32 tiles in shared memory) for either dtype: a
+second implementation to check and time the bf16 kernel against, called by
+no model.
 
 The skips are [hw, ...] for one image, or [Bi, hw, ...] for a batch of Bi
 images whose B / Bi prompts each lie together.
@@ -29,7 +33,8 @@ from no_time_to_train_tpu_torch.ops import _cuda
 
 __all__ = ["no_fusion", "fusion_disabled", "fused_post_t1",
            "fused_post_t1_plain", "fused_post_t1_from_t1",
-           "fused_post_t1_from_t1_plain", "fold_skips", "LAUNCHES"]
+           "fused_post_t1_from_t1_plain", "fused_post_t1_wmma",
+           "fused_post_t1_from_t1_wmma", "fold_skips", "LAUNCHES"]
 
 # a contextvar, not a module global, so that a no_fusion() region in one
 # thread does not change dispatch in another
@@ -123,7 +128,10 @@ def fused_post_t1(src, k1mat, s1p, ln_w, ln_b, k2mat, s0p, hyper, *,
     if src.device.type == "cpu" or fusion_disabled():
         return fused_post_t1_plain(src, k1mat, s1p, ln_w, ln_b, k2mat, s0p,
                                    hyper, eps=eps)
-    return _launch(src, k1mat, s1p, ln_w, ln_b, k2mat, s0p, hyper, eps)
+    out = _launch("nttt_upscale_product", src, k1mat, s1p, ln_w, ln_b, k2mat,
+                  s0p, hyper, eps)
+    LAUNCHES["fused_post_t1"] += 1
+    return out
 
 
 def fused_post_t1_from_t1(t1, s1p, ln_w, ln_b, k2mat, s0p, hyper, *,
@@ -133,11 +141,32 @@ def fused_post_t1_from_t1(t1, s1p, ln_w, ln_b, k2mat, s0p, hyper, *,
     if t1.device.type == "cpu" or fusion_disabled():
         return fused_post_t1_from_t1_plain(t1, s1p, ln_w, ln_b, k2mat, s0p,
                                            hyper, eps=eps)
-    return _launch(t1, None, s1p, ln_w, ln_b, k2mat, s0p, hyper, eps)
+    out = _launch("nttt_upscale_product", t1, None, s1p, ln_w, ln_b, k2mat,
+                  s0p, hyper, eps)
+    LAUNCHES["fused_post_t1_from_t1"] += 1
+    return out
 
 
-def _launch(src, k1mat, s1p, ln_w, ln_b, k2mat, s0p, hyper, eps):
-    """k1mat None: `src` is t1 and the first product is left out."""
+def fused_post_t1_wmma(src, k1mat, s1p, ln_w, ln_b, k2mat, s0p, hyper, *,
+                       eps=1e-6):
+    """`fused_post_t1` on the first port's body for either dtype (CUDA
+    tensors only): a second implementation to check and time the bf16
+    kernel against. It counts no launch."""
+    return _launch("nttt_upscale_product_wmma", src, k1mat, s1p, ln_w, ln_b,
+                   k2mat, s0p, hyper, eps)
+
+
+def fused_post_t1_from_t1_wmma(t1, s1p, ln_w, ln_b, k2mat, s0p, hyper, *,
+                               eps=1e-6):
+    """`fused_post_t1_from_t1` on the first port's body, as
+    `fused_post_t1_wmma`."""
+    return _launch("nttt_upscale_product_wmma", t1, None, s1p, ln_w, ln_b,
+                   k2mat, s0p, hyper, eps)
+
+
+def _launch(entry, src, k1mat, s1p, ln_w, ln_b, k2mat, s0p, hyper, eps):
+    """K4 through C entry `entry`; k1mat None: `src` is t1 and the first
+    product is left out."""
     req = _cuda.require
     dt = src.dtype
     dev = src.device
@@ -147,7 +176,7 @@ def _launch(src, k1mat, s1p, ln_w, ln_b, k2mat, s0p, hyper, eps):
     req((d, k2mat.shape[0], k2mat.shape[1]) == (256, 64, 128)
         and (from_t1 or tuple(k1mat.shape) == (256, 256)),
         "kernel takes d=256, c1=64, c2=32")
-    req(hw % 16 == 0, f"hw={hw} must be a multiple of 16")
+    req(hw >= 8 and hw % 8 == 0, f"hw={hw} must be a positive multiple of 8")
     if s1p.dim() == 2:
         s1p, s0p = s1p[None], s0p[None]
     n_img = s1p.shape[0]
@@ -164,11 +193,10 @@ def _launch(src, k1mat, s1p, ln_w, ln_b, k2mat, s0p, hyper, eps):
     lb = ln_b.to(**f32).contiguous()
     hy = hyper.to(**f32).contiguous()
     out = torch.empty((b, 16, hw), device=dev, dtype=dt)
-    err = _cuda.lib().nttt_upscale_product(
+    err = getattr(_cuda.lib(), entry)(
         src.data_ptr(), k1.data_ptr(), s1.data_ptr(), lw.data_ptr(),
         lb.data_ptr(), k2.data_ptr(), s0.data_ptr(), hy.data_ptr(),
         out.data_ptr(), b, hw, 32, b // n_img, int(from_t1), float(eps),
         _cuda.dtype_code(dt), _cuda.stream_ptr(dev))
-    _cuda.check(err, "nttt_upscale_product")
-    LAUNCHES["fused_post_t1_from_t1" if from_t1 else "fused_post_t1"] += 1
+    _cuda.check(err, entry)
     return out

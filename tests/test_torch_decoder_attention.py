@@ -2,6 +2,8 @@
 prompt-pair variants and of the image-pair entry) vs the JAX package's Pallas
 kernels in interpret mode, and the transformer's fused routing vs its classic
 path."""
+import types
+
 import numpy as np
 import pytest
 import jax.numpy as jnp
@@ -228,12 +230,24 @@ def test_wmma_routes_refuse_cpu_tensors(entry):
     assert tda.LAUNCHES == before
 
 
-@pytest.mark.parametrize("n,admitted", [(784, False), (1024, True),
-                                        (4096, True)])
+def test_t2i_wmma_route_refuses_cpu_tensors():
+    """The first body of K2 is a check route on the card: on a CPU tensor
+    it raises instead of running the plain version, and counts nothing."""
+    _, tt = _to(_np_inputs(71, P, 8, False), "bfloat16")
+    before = dict(tda.LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA"):
+        tda.fused_t2i_attn_wmma(tt["keys"], tt["pe"], tt["tok_q"], tt["wk"],
+                                tt["bk"], tt["wv"], tt["bv"], num_heads=8)
+    assert tda.LAUNCHES == before
+
+
+@pytest.mark.parametrize("n,admitted", [(780, False), (784, True),
+                                        (1024, True), (4096, True)])
 def test_gate_and_wrappers_share_the_shape_rule(monkeypatch, n, admitted):
     """`i2t_fusible` admits exactly the shapes `fused_shape_error` passes,
-    and the wrappers' checks refuse none of them: at n = 784 (a 448^2
-    image, 28^2 rows) both refuse, so the decoder takes its classic path."""
+    and the wrappers' checks refuse none of them: the JAX package's rule,
+    n % 8 == 0, so n = 784 (a 448^2 image, 28^2 rows) takes the fused path
+    and n = 780 the classic one."""
     from no_time_to_train_tpu_torch.models.sam2.transformer import Attention
     attn = Attention(C, 8, downsample_rate=2)
     keys = torch.zeros(1, n, C)
@@ -249,3 +263,91 @@ def test_gate_and_wrappers_share_the_shape_rule(monkeypatch, n, admitted):
     assert [m for m in refused if "CUDA" not in m] == (
         [] if admitted else [tda.fused_shape_error(n, C, I, 8, 8)])
     assert not attn.i2t_fusible(keys, key_pe, torch.zeros(3, 17, C), 0)
+
+
+# 784 image rows (a 448^2 image): the kernels' last 64-row tile part full;
+# the Pallas kernel streams them in blocks of 112
+N_EDGE, POS_EDGE = 784, 112
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pk", [1, P])
+@pytest.mark.parametrize("t", [1, 16])
+def test_t2i_attn_plain_matches_pallas_at_784_rows(dtype, pk, t):
+    """K2's plain version at n = 784 and the fewest and most tokens, per
+    prompt and shared keys, against the Pallas kernel in interpret mode."""
+    j, tt = _to(_np_inputs(80 + t, pk, t, False, n=N_EDGE), dtype)
+    ref = jda.fused_t2i_attn(j["keys"], j["pe"], j["tok_q"], j["wk"],
+                             j["bk"], j["wv"], j["bv"], num_heads=8,
+                             pos_block=POS_EDGE, interpret=True)
+    got = tda.fused_t2i_attn(tt["keys"], tt["pe"], tt["tok_q"], tt["wk"],
+                             tt["bk"], tt["wv"], tt["bv"], num_heads=8)
+    assert tuple(got.shape) == (P, t, I)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(ref, np.float32),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t", [1, 16])
+def test_t2i_attn_shared_keys_two_images_match_pallas(dtype, t):
+    """Keys shared by the prompts of each of 2 images [2, 784, C] (prompt p
+    reads image p // P): K2's plain version against the Pallas layer-0
+    kernel in interpret mode on each image alone."""
+    d = _np_inputs(90 + t, 2, t, False, n=N_EDGE)
+    d["tok_q"] = (np.random.default_rng(t).standard_normal((2 * P, t, I))
+                  * 0.5).astype(np.float32)
+    j, tt = _to(d, dtype)
+    got = tda.fused_t2i_attn(tt["keys"], tt["pe"], tt["tok_q"], tt["wk"],
+                             tt["bk"], tt["wv"], tt["bv"], num_heads=8)
+    assert tuple(got.shape) == (2 * P, t, I)
+    for i in range(2):
+        ref = jda.fused_t2i_attn(j["keys"][i:i + 1], j["pe"],
+                                 j["tok_q"][i * P:(i + 1) * P], j["wk"],
+                                 j["bk"], j["wv"], j["bv"], num_heads=8,
+                                 pos_block=POS_EDGE, interpret=True)
+        np.testing.assert_allclose(got[i * P:(i + 1) * P].float().numpy(),
+                                   np.asarray(ref, np.float32),
+                                   rtol=TOL[dtype], atol=TOL[dtype])
+
+
+def test_transformer_takes_fused_route_at_784_rows_as_jax(monkeypatch):
+    """At n = 784 image rows the JAX package's decoder gate admits its fused
+    kernels (its shape rule read with the device check lifted), and the
+    port's two-way transformer takes K2 and K3 too, equal to its classic
+    path under no_fusion()."""
+    from no_time_to_train_tpu.models.sam2 import transformer as jtr
+    from no_time_to_train_tpu.ops import upscale_product as jup
+    from no_time_to_train_tpu_torch.models.sam2 import transformer as ttr
+    from no_time_to_train_tpu_torch.ops.upscale_product import no_fusion
+    from no_time_to_train_tpu_torch.utils.init import init_random_
+    monkeypatch.setattr(jup, "default_device_is_cpu", lambda: False)
+    gate = types.SimpleNamespace(internal_dim=I, num_heads=8,
+                                 is_initializing=lambda: False)
+    assert jtr.Attention.i2t_fusible(gate, jnp.zeros((1, N_EDGE, C)),
+                                     jnp.zeros((3, 8, C)), 0)
+    calls = {"fused_t2i_attn": 0, "fused_i2t_norm": 0}
+
+    def counted(name):
+        fn = getattr(ttr, name)
+
+        def wrapper(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return wrapper
+
+    for name in calls:
+        monkeypatch.setattr(ttr, name, counted(name))
+    tr = ttr.TwoWayTransformer(2, 256, 8, 512)
+    init_random_(tr, torch.Generator().manual_seed(5))
+    rng = np.random.default_rng(5)
+    img = torch.as_tensor(rng.standard_normal((1, 28, 28, 256)) * 0.5).float()
+    pe = torch.as_tensor(rng.standard_normal((1, 28, 28, 256)) * 0.5).float()
+    toks = torch.as_tensor(rng.standard_normal((3, 8, 256)) * 0.5).float()
+    with torch.no_grad():
+        q_f, k_f = tr(img, pe, toks)
+        assert calls["fused_t2i_attn"] > 0 and calls["fused_i2t_norm"] > 0
+        with no_fusion():
+            q_c, k_c = tr(img, pe, toks)
+    np.testing.assert_allclose(q_f.numpy(), q_c.numpy(), rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(k_f.numpy(), k_c.numpy(), rtol=2e-4, atol=2e-4)

@@ -115,6 +115,60 @@ def test_skips_per_image_equal_single_image_calls(n_img):
         torch.testing.assert_close(got_t1[sl], one, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("dtype,tol", [("float32", 3e-5), ("bfloat16", 0.1)])
+@pytest.mark.parametrize("from_t1", [False, True], ids=["src", "t1"])
+def test_two_images_odd_prompt_count_match_pallas(dtype, tol, from_t1):
+    """Two images of 3 prompts each (skips [2, hw, ...], prompt p reads
+    image p // 3): the plain versions of K4 and of the chain from t1
+    against the Pallas bodies in interpret mode on each image alone, at the
+    JAX package's tolerances (float32 3e-5, bf16 0.1)."""
+    ppi, hw = 3, 64
+    kw = {k: v.astype(np.float32)
+          for k, v in _inputs(40 + from_t1, 2 * ppi, hw).items()}
+    rng = np.random.default_rng(41)
+    kw["s1f"] = (rng.standard_normal((2, hw, 256)) * 0.3).astype(np.float32)
+    kw["s0f16"] = (rng.standard_normal((2, hw, 512)) * 0.3).astype(np.float32)
+    first = "t1" if from_t1 else "src"
+    kw["t1"] = kw["src"] @ kw["k1"]
+    act = (first, "k1", "k2", "s1f", "s0f16")
+    j = {k: jnp.asarray(v, getattr(jnp, dtype) if k in act else jnp.float32)
+         for k, v in kw.items()}
+    t = {k: torch.as_tensor(v).to(getattr(torch, dtype) if k in act
+                                  else torch.float32) for k, v in kw.items()}
+    s1p, s0p = up.fold_skips(t["bias1_4"], t["s1f"], t["bias2"], t["s0f16"])
+    rest = (t["ln_w"], t["ln_b"], t["k2"], s0p, t["hyper"])
+    got = (up.fused_post_t1_from_t1(t["t1"], s1p, *rest) if from_t1
+           else up.fused_post_t1(t["src"], t["k1"], s1p, *rest))
+    assert tuple(got.shape) == (2 * ppi, 16, hw)
+    for i in range(2):
+        sl = slice(i * ppi, (i + 1) * ppi)
+        ref = j_post(j[first][sl], j["bias1_4"], j["s1f"][i], j["ln_w"],
+                     j["ln_b"], j["k2"], j["bias2"], j["s0f16"][i],
+                     j["hyper"][sl], k1mat=None if from_t1 else j["k1"],
+                     out_16pt=True, interpret=True)
+        np.testing.assert_allclose(got[sl].float().numpy(),
+                                   np.asarray(ref, np.float32), rtol=tol,
+                                   atol=tol)
+
+
+@pytest.mark.parametrize("entry", ["fused_post_t1_wmma",
+                                   "fused_post_t1_from_t1_wmma"])
+def test_wmma_routes_refuse_cpu_tensors(entry):
+    """The first body of K4 is a check route on the card: on a CPU tensor
+    it raises instead of running the plain version, and counts nothing."""
+    kw = {k: torch.as_tensor(v.astype(np.float32))
+          for k, v in _inputs(50, 4, 64).items()}
+    s1p, s0p = up.fold_skips(kw["bias1_4"], kw["s1f"], kw["bias2"],
+                             kw["s0f16"])
+    rest = (s1p, kw["ln_w"], kw["ln_b"], kw["k2"], s0p, kw["hyper"])
+    first = ((kw["src"] @ kw["k1"],) if entry.endswith("from_t1_wmma")
+             else (kw["src"], kw["k1"]))
+    before = dict(up.LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA"):
+        getattr(up, entry)(*first, *rest)
+    assert up.LAUNCHES == before
+
+
 def test_no_fusion_is_scoped_and_per_thread():
     assert not up.fusion_disabled()
     seen = {}

@@ -45,8 +45,24 @@ Run from the root of a checkout. Phases, each of which raises on failure:
      batch under no_fusion(); `test_async` twice then `fetch_test` twice;
      one image under each prompt-pair toggle; the upscale chain from t1 on
      one decoded chunk's operands; B = 1 against B = 2 timed in turns with
-     the peak device memory of each.
+     the peak device memory of each;
+  9. the CLI runner: a COCO-format data set fabricated under a temporary
+     directory (the 20 few-shot classes, 40 train PNGs, 6 test PNGs of
+     assorted sizes), references sampled with `few_shot_sampling`, then
+     `cli.main` in process on configs/coco_fewshot_10shot_Sam2L.yaml with
+     the overrides of few_shot_full_pipeline.sh (seeded random weights):
+     fill_memory, postprocess_memory, test with an export; checks (a) the
+     launches per test image are phase 4's, (b) the export equals
+     finalize_records(test(img)) of a matcher built here with the same
+     seed and the checkpoint's bank, bit for bit, (c) the fill checkpoint
+     loads back bit for bit, (d) a test call with iou_thr 0, NMS off and
+     every class within 0.6 of the best per mask keeps 20 or more masks
+     over 2 labels on an image, and every exported box is its decoded
+     mask's tight box, (e) COCOeval ran and the CSV row and
+     analysis dumps exist; then an 80-class bank at 1369 x 1024 is
+     post-processed and its peak device memory printed.
 `python3 chip_smoke.py --kernels` runs phases 1 to 3 only;
+`python3 chip_smoke.py --runner` runs phases 1, 2 and 9 only;
 `python3 chip_smoke.py --registers` runs phase 1 and prints each kernel's
 registers and spills as `nvcc -Xptxas -v` reports them, and fails on a
 spill of a register-tile kernel (NO_SPILL);
@@ -1523,7 +1539,8 @@ def synthetic_target(rng, size=1024, n_obj=6):
 
 def run_path(dev, label, encoder, impl, n_test):
     """One path of phase 4, then its phases 5 and 6. Returns the warm
-    fenced ms/img, n_valid per image and the path's launch counts."""
+    fenced ms/img, n_valid per image, the path's launch counts and the
+    launches per test image."""
     import numpy as np
     import torch
     from no_time_to_train_tpu_torch.models.matching.pipeline import (
@@ -1686,7 +1703,7 @@ def run_path(dev, label, encoder, impl, n_test):
     del matcher
     torch.cuda.empty_cache()
     return (statistics.mean(times[1:]), [int(o["valid"].sum()) for o in outs],
-            counts)
+            counts, {k: v // n_test for k, v in in_test.items()})
 
 
 def synthetic_clip(n_frames, size=1024):
@@ -2142,6 +2159,334 @@ def run_batched(dev, smi):
     return statistics.median(ms[1]), statistics.median(ms[2]), counts
 
 
+# phase 9: the CLI runner on a fabricated COCO-format data set. The config
+# is the 10-shot SAM2-L + DINOv2-L one (bf16, "pallas", 20 classes x 10
+# shots); the overrides are those of few_shot_full_pipeline.sh.
+RUNNER_CONFIG = "configs/coco_fewshot_10shot_Sam2L.yaml"
+RUNNER_SPLIT, RUNNER_SHOTS, RUNNER_SEED = "few_shot_classes", 10, 33
+RUNNER_TRAIN = 40                  # train images of 640 x 480, 6 objects each
+RUNNER_TEST_WH = [(640, 480), (480, 640), (500, 375), (333, 500), (640, 427),
+                  (1024, 1024)]
+# launches per test image on the runner's path: the DINOv2-L "pallas" step
+# of phase 4 (K1's count is phase 4's by shape)
+RUNNER_PER_IMAGE = dict(layer_norm=173, **STEP_SINGLE, **FLASH_PER_IMAGE)
+# (d): the tail with many masks (ROADMAP C.1). Random weights give masks
+# that cover most of the image, so iou_thr 0 alone keeps one mask an image
+# (NMS at 0.5 leaves one per label); the call also turns NMS off and labels
+# a mask with every class within 0.6 of its best. One image must then keep
+# this many masks over this many labels.
+RUNNER_MANY = ["--model.init_args.model_cfg.sam2_infer_cfgs.iou_thr", "0.0",
+               "--model.init_args.model_cfg.sam2_infer_cfgs.nms_thr", "1.0",
+               "--model.init_args.model_cfg.sam2_infer_cfgs.cls_num_per_mask",
+               "-1"]
+RUNNER_MANY_MASKS, RUNNER_MANY_LABELS = 20, 2
+# C.11: an 80-class bank at DINOv2-L's 1369 x 1024, post-processed
+C11_CLASSES = 80
+
+
+def _ellipse(img, cx, cy, rx, ry, color):
+    """Paint an ellipse; returns its 16-vertex polygon annotation fields."""
+    import numpy as np
+    h, w = img.shape[:2]
+    yy, xx = np.mgrid[0:h, 0:w]
+    inside = ((xx + 0.5 - cx) / rx) ** 2 + ((yy + 0.5 - cy) / ry) ** 2 < 1.0
+    img[inside] = (0.8 * color + 0.2 * img[inside]).astype(np.uint8)
+    t = np.arange(16) * 2 * np.pi / 16
+    poly = np.stack([cx + rx * np.cos(t), cy + ry * np.sin(t)], 1)
+    (x0, y0), (x1, y1) = poly.min(0), poly.max(0)
+    return {"bbox": [float(x0), float(y0), float(x1 - x0), float(y1 - y0)],
+            "area": float(np.pi * rx * ry), "iscrowd": 0,
+            "segmentation": [[round(float(v), 2) for v in poly.ravel()]]}
+
+
+def fabricate_coco(root):
+    """A COCO-format data set under root: the 20 few-shot classes, 40 train
+    PNGs of 640 x 480 with 6 objects of 6 classes each (every class in 12
+    images, each instance valid for sampling), and 6 test PNGs of the sizes
+    in RUNNER_TEST_WH with 3 objects each. Returns the paths."""
+    import numpy as np
+    from no_time_to_train_tpu_torch.data.image_io import save_png
+    from no_time_to_train_tpu_torch.data.metainfo import METAINFO
+    names = METAINFO[RUNNER_SPLIT]
+    cats = [{"id": i + 1, "name": n, "supercategory": "object"}
+            for i, n in enumerate(names)]
+    colors = [np.array([(c * 53 + 40) % 256, (c * 97 + 20) % 256,
+                        (c * 151 + 60) % 256], np.float64)
+              for c in range(len(names))]
+    rng = np.random.default_rng(9)
+    out = {}
+    for split, sizes in (("train", [(640, 480)] * RUNNER_TRAIN),
+                         ("test", RUNNER_TEST_WH)):
+        img_dir = os.path.join(root, split)
+        os.makedirs(img_dir)
+        images, anns = [], []
+        for j, (w, h) in enumerate(sizes):
+            img = rng.integers(0, 80, (h, w, 3)).astype(np.uint8)
+            if split == "train":
+                objs = [((6 * j + t) % 20, 213 * (t % 3) + 106,
+                         240 * (t // 3) + 120, 50 + 10 * ((j + t) % 4),
+                         45 + 8 * ((j + 2 * t) % 5)) for t in range(6)]
+            else:
+                objs = [((5 * j + 7 * t) % 20, w * (0.25 + 0.25 * t),
+                         h * (0.35 + 0.15 * t), 0.1 * w, 0.12 * h)
+                        for t in range(3)]
+            for cls, cx, cy, rx, ry in objs:
+                ann = _ellipse(img, cx, cy, rx, ry, colors[cls])
+                anns.append(dict(ann, id=len(anns) + 1, image_id=j + 1,
+                                 category_id=cls + 1))
+            name = f"{split}_{j:03d}.png"
+            save_png(os.path.join(img_dir, name), img)
+            images.append({"id": j + 1, "file_name": name, "height": h,
+                           "width": w})
+        json_file = os.path.join(root, f"{split}.json")
+        with open(json_file, "w") as f:
+            json.dump({"images": images, "annotations": anns,
+                       "categories": cats}, f)
+        out[split] = (img_dir, json_file)
+    return out
+
+
+def run_runner(dev, smi, phase4=None):
+    """Phase 9: fill_memory -> postprocess_memory -> test through the CLI,
+    in process, and its checks (a) to (e), then C.11's 80-class bank.
+    phase4: (warm fenced ms/img, launches per test image) of phase 4's
+    DINOv2-L "pallas" path, when it ran. Returns (mean ms per image of the
+    runner's test loop, launch counts of the phase)."""
+    import csv
+    import gc
+    import tempfile
+    import numpy as np
+    import torch
+    from no_time_to_train_tpu_torch import cli
+    from no_time_to_train_tpu_torch.config import yaml_lite
+    from no_time_to_train_tpu_torch.data import rle
+    from no_time_to_train_tpu_torch.data.datasets import COCORefTestDataset
+    from no_time_to_train_tpu_torch.data.few_shot_sampling import (
+        sample_memory_dataset)
+    from no_time_to_train_tpu_torch.models.matching import memory_bank as mb
+    from no_time_to_train_tpu_torch.models.matching.pipeline import (
+        finalize_records)
+    from no_time_to_train_tpu_torch.runner import MatcherRunner
+    from no_time_to_train_tpu_torch.utils import checkpoint as ckpt_io
+    from no_time_to_train_tpu_torch.utils import native
+
+    if not native.has_finalize():
+        fail("the native finalize (native/libnttt.so) is not available")
+    faults = []
+
+    def check(ok, msg):
+        """Record a failed check; the phase fails after the last one."""
+        if not ok:
+            log(f"  FAILED {msg}")
+            faults.append(msg)
+        return ok
+
+    totals = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        data = fabricate_coco(tmp)
+        (train_dir, train_json), (test_dir, test_json) = (data["train"],
+                                                          data["test"])
+        pkl = os.path.join(tmp, "refs.pkl")
+        sample_memory_dataset(train_json, pkl, RUNNER_SHOTS, remove_bad=True,
+                              dataset=RUNNER_SPLIT, seed=RUNNER_SEED)
+        log(f"  data set: {RUNNER_TRAIN} train + {len(RUNNER_TEST_WH)} test "
+            f"PNGs, references sampled, {time.perf_counter() - t0:.1f} s")
+        cfg_path = os.path.join(REPO, RUNNER_CONFIG)
+        save_dir = os.path.join(tmp, "results")
+        f = {k: os.path.join(tmp, k) for k in (
+            "memory.ckpt", "memory_post.ckpt", "export.json",
+            "export_many.json", "missing_sam2.pt")}
+        ds_args = "--model.init_args.dataset_cfgs"
+        base = ["test", "--config", cfg_path,
+                "--model.init_args.model_cfg.memory_bank_cfg.length",
+                str(RUNNER_SHOTS),
+                "--model.init_args.model_cfg.sam2_ckpt_path",
+                f["missing_sam2.pt"], "--trainer.devices", "1"]
+        fill = ["--model.test_mode", "fill_memory", "--out_path",
+                f["memory.ckpt"], f"{ds_args}.fill_memory.memory_pkl", pkl,
+                f"{ds_args}.fill_memory.memory_length", str(RUNNER_SHOTS),
+                f"{ds_args}.fill_memory.class_split", RUNNER_SPLIT,
+                f"{ds_args}.fill_memory.root", train_dir,
+                f"{ds_args}.fill_memory.json_file", train_json,
+                "--trainer.logger.save_dir", save_dir + "/"]
+        post = ["--model.test_mode", "postprocess_memory", "--ckpt_path",
+                f["memory.ckpt"], "--out_path", f["memory_post.ckpt"]]
+        test = ["--ckpt_path", f["memory_post.ckpt"], "--model.test_mode",
+                "test", "--model.init_args.model_cfg.dataset_name",
+                RUNNER_SPLIT, f"{ds_args}.test.class_split", RUNNER_SPLIT,
+                f"{ds_args}.test.root", test_dir,
+                f"{ds_args}.test.json_file", test_json,
+                "--trainer.logger.save_dir", save_dir + "/"]
+
+        def call(what, args):
+            reset_counts()
+            t0 = time.perf_counter()
+            runner = cli.main(base + args)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            counts = launch_counts()
+            for k, v in counts.items():
+                totals[k] = totals.get(k, 0) + v
+            log(f"  cli {what}: {sec:.2f} s (weight init "
+                f"{runner.seconds['init']:.2f} s, run "
+                f"{runner.seconds['run']:.2f} s); on {smi}")
+            return runner, counts
+
+        runner, _ = call("fill_memory", fill)
+        filled = runner.matcher.bank
+        check(filled.fill_counts.tolist() == [RUNNER_SHOTS] * 20,
+              f"fill counts {filled.fill_counts.tolist()}")
+        del runner
+        call("postprocess_memory", post)
+        runner, counts = call("test", test + ["--export_result",
+                                              f["export.json"]])
+        n_img = len(RUNNER_TEST_WH)
+        ms_img = 1e3 * float(np.mean(runner.time_queue))
+        del runner
+
+        # (a) the runner's path launches what phase 4's step does
+        per_image = {k: v / n_img for k, v in counts.items() if v}
+        check(per_image == RUNNER_PER_IMAGE,
+              f"(a) launches per test image {per_image}, expected "
+              f"{RUNNER_PER_IMAGE}")
+        if phase4 is not None:
+            check({k: v for k, v in phase4[1].items() if v}
+                  == RUNNER_PER_IMAGE,
+                  f"(a) phase 4's launches per image {phase4[1]}")
+        log(f"  (a) launches per test image {per_image}; rows 5-8 and 11-13 "
+            f"none")
+
+        # (b) the export is finalize_records(fetch_test(test(img))) of a
+        # matcher built here with the same seed and the checkpoint's bank
+        cfg = yaml_lite.load_file(cfg_path)
+        model_cfg = cfg["model"]["init_args"]["model_cfg"]
+        model_cfg["sam2_ckpt_path"] = f["missing_sam2.pt"]
+        ref = MatcherRunner(model_cfg, {}, test_mode="test",
+                            seed=int(cfg["seed_everything"]), device=dev)
+        ref.load_ckpt(f["memory_post.ckpt"])
+        with open(f["export.json"]) as fh:
+            exported = json.load(fh)
+        ds = COCORefTestDataset(
+            test_dir, test_json,
+            cfg["model"]["init_args"]["dataset_cfgs"]["test"]["image_size"],
+            class_split=RUNNER_SPLIT)
+        n_rec, per_img = 0, []
+        for i in range(len(ds)):
+            item = ds[i]
+            info = item["target_img_info"]
+            raw = ref.matcher.test(item["target_img"])
+            fin = finalize_records(raw, info["ori_height"], info["ori_width"])
+            want = ds.encode_results([dict(
+                img_id=info["id"], scores=fin["scores"], labels=fin["labels"],
+                boxes=fin["bboxes"], segs=fin["segs"])])
+            got = [r for r in exported if r["image_id"] == info["id"]]
+            check(json.loads(json.dumps(want)) == got,
+                  f"(b) image {info['id']}: the runner's export differs "
+                  f"from finalize_records(test(img))")
+            n_rec += len(got)
+            per_img.append(len(got))
+        check(n_rec > 0, "(b) the export holds no result")
+        log(f"  (b) export equals finalize_records(fetch_test(test(img))) "
+            f"bit for bit on {len(ds)} images (records per image "
+            f"{per_img})")
+
+        # (c) the fill checkpoint loads back into a fresh bank bit for bit
+        fresh = mb.create(20, RUNNER_SHOTS, filled.feats.shape[2],
+                          filled.feats.shape[3], device=dev)
+        loaded, _ = ckpt_io.load_memory_bank(f["memory.ckpt"], fresh)
+        for name in ckpt_io.BANK_FIELDS:
+            a, b = getattr(loaded, name), getattr(filled, name)
+            check(torch.equal(a, b) if torch.is_tensor(a) else a == b,
+                  f"(c) bank field {name} does not load back bit for bit")
+        log("  (c) memory.ckpt loads back into a fresh bank bit for bit")
+        del filled, fresh, loaded
+
+        # (d) many masks (RUNNER_MANY), every exported RLE's tight box is
+        # the exported box
+        call("test, many masks", test + RUNNER_MANY + [
+            "--export_result", f["export_many.json"]])
+        with open(f["export_many.json"]) as fh:
+            many = json.load(fh)
+        by_img, bad_boxes = {}, []
+        for r in many:
+            by_img.setdefault(r["image_id"], []).append(r)
+            m = rle.decode_rle(r["segmentation"])
+            ys, xs = np.nonzero(m)
+            box = ([float(xs.min()), float(ys.min()),
+                    float(xs.max() - xs.min()), float(ys.max() - ys.min())]
+                   if len(xs) else [0.0, 0.0, 0.0, 0.0])
+            if box != r["bbox"]:
+                bad_boxes.append((r["image_id"], r["bbox"], box))
+        check(not bad_boxes, f"(d) exported boxes that are not the decoded "
+              f"mask's tight box (image, exported, tight): {bad_boxes[:5]}")
+        rich = {i: (len(rs), len({r["category_id"] for r in rs}))
+                for i, rs in by_img.items()}
+        check(any(n >= RUNNER_MANY_MASKS and labels >= RUNNER_MANY_LABELS
+                  for n, labels in rich.values()),
+              f"(d) no image keeps {RUNNER_MANY_MASKS} masks over "
+              f"{RUNNER_MANY_LABELS} labels: (masks, labels) per image {rich}")
+        log(f"  (d) {' '.join(RUNNER_MANY)}: (masks, labels) per image "
+            f"{rich}; every "
+            f"decoded mask's tight box equals its exported box "
+            f"({len(many)} records)")
+
+        # (e) COCOeval ran for both types, the CSV row and the dumps exist
+        with open(os.path.join(save_dir, "metrics_log.csv")) as fh:
+            rows = list(csv.DictReader(fh))
+        check(len(rows) == 2 and all(r.get(f"{k}_AP") for r in rows
+                                     for k in ("bbox", "segm")),
+              f"(e) metrics_log.csv rows {rows}")
+        for name in ("scalars_all.pkl", "triplets_all.pkl"):
+            check(os.path.exists(os.path.join(save_dir, name)),
+                  f"(e) {name} was not written")
+        log(f"  (e) COCOeval bbox / segm AP {rows[0]['bbox_AP']} / "
+            f"{rows[0]['segm_AP']} (random weights), metrics_log.csv rows "
+            f"{len(rows)}, scalars_all.pkl and triplets_all.pkl written")
+        p4 = (f"; phase 4's DINOv2-L pallas step {phase4[0]:.1f} ms/img warm "
+              f"fenced" if phase4 is not None else "")
+        log(f"  runner's test loop: {ms_img:.1f} ms per image, "
+            f"{1e3 / ms_img:.2f} images/s (mean of {n_img}, first included, "
+            f"completion fence on the scores){p4}; on {smi}")
+        del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # C.11: post-process an 80-class bank at DINOv2-L's shapes
+    g = torch.Generator(device=dev).manual_seed(11)
+    bank = mb.create(C11_CLASSES, RUNNER_SHOTS, 1369, 1024, device=dev)
+    bank.feats.normal_(generator=g)
+    bank.masks.copy_((torch.rand(bank.masks.shape, generator=g, device=dev)
+                      > 0.5).float())
+    bank.fill_counts.fill_(RUNNER_SHOTS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    post_bank = mb.postprocess(bank,
+                               torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    for name in ("feats_avg", "feats_ins_avg", "feats_covariances",
+                 "feats_centers", "pca_components", "ins_sim_avg"):
+        check(bool(torch.isfinite(getattr(post_bank, name)).all()),
+              f"C.11: {name} is not finite")
+    log(f"  C.11: postprocess of a {C11_CLASSES} x {RUNNER_SHOTS} bank at "
+        f"1369 x 1024 (feats {bank.feats.numel() * 4 / 2**30:.2f} GiB): "
+        f"peak allocated {peak / 2**30:.2f} GiB of {total / 2**30:.2f} GiB "
+        f"({100 * peak / total:.1f} %; {before / 2**30:.2f} GiB allocated "
+        f"before it, the bank included), {sec:.2f} s; on {smi}")
+    check(peak <= total / 2,
+          "C.11: the 80-class postprocess takes more than half the card")
+    del bank, post_bank
+    torch.cuda.empty_cache()
+    if faults:
+        fail(f"phase 9: {len(faults)} checks failed: {faults}")
+    return ms_img, totals
+
+
 def kernel_registers():
     """`--registers`: compile every source of csrc/ once more with
     `-Xptxas -v` (all started together) and print, per kernel entry, the
@@ -2239,6 +2584,13 @@ def main():
         print(smi)
         return 0
 
+    if sys.argv[1:] == ["--runner"]:
+        log("[9] the CLI runner on a fabricated COCO-format data set")
+        run_runner(dev, smi)
+        phase_done("9")
+        print(smi)
+        return 0
+
     log("[3] kernels vs plain versions at the slice's shapes")
     kres = kernel_phase(dev)
     phase_done("3")
@@ -2248,12 +2600,16 @@ def main():
 
     totals = {}
     summary = []
+    phase4 = None
     for label, encoder, impl, n_test in PATHS:
         log(f"[4-6] 10-shot test step, SAM2-L + {encoder}, bf16, "
             f"attention_impl={impl}")
-        ms_img, n_valid, counts = run_path(dev, label, encoder, impl, n_test)
+        ms_img, n_valid, counts, per_image = run_path(dev, label, encoder,
+                                                      impl, n_test)
         for k, v in counts.items():
             totals[k] = totals.get(k, 0) + v
+        if label == "dinov2_l pallas":
+            phase4 = (ms_img, per_image)
         summary.append(f"{label} {ms_img:.1f} ms/img (n_valid {n_valid})")
         phase_done(f"4-6 {label}")
 
@@ -2273,6 +2629,14 @@ def main():
     summary.append(f"negative refs B = 1 {ms_b1:.1f} ms/img, B = 2 "
                    f"{ms_b2:.1f} ms/img")
     phase_done("8")
+
+    log("[9] the CLI runner, SAM2-L + dinov2_large, bf16, "
+        "attention_impl=pallas, on a fabricated COCO-format data set")
+    ms_runner, counts = run_runner(dev, smi, phase4)
+    for k, v in counts.items():
+        totals[k] = totals.get(k, 0) + v
+    summary.append(f"runner test loop {ms_runner:.1f} ms/img")
+    phase_done("9")
 
     kernels = [dict(k, launches=totals[k["name"]], **kres[k["name"]])
                for k in KERNELS]

@@ -21,7 +21,8 @@ from functools import partial
 import numpy as np
 import torch
 
-from no_time_to_train_tpu_torch.config.presets import ENCODER_PRESETS, SAM2_PRESETS
+from no_time_to_train_tpu_torch.config.hydra_yaml import resolve_sam2_cfg
+from no_time_to_train_tpu_torch.config.presets import ENCODER_PRESETS
 from no_time_to_train_tpu_torch.models.dino import DinoV2
 from no_time_to_train_tpu_torch.models.dino_v3 import DinoV3, uses_gated_mlp
 from no_time_to_train_tpu_torch.models.matching import memory_bank as mb
@@ -85,7 +86,8 @@ class NoAMGMatcher:
                  device):
         self.device = torch.device(device)
         check_attention_impl(matching.attention_impl)
-        self.sam2_cfg = (SAM2_PRESETS[sam2_cfg] if isinstance(sam2_cfg, str)
+        # a preset basename or a reference hydra YAML topology on disk
+        self.sam2_cfg = (resolve_sam2_cfg(sam2_cfg) if isinstance(sam2_cfg, str)
                          else sam2_cfg)
         self.enc_cfg = (ENCODER_PRESETS[encoder_cfg]
                         if isinstance(encoder_cfg, str) else encoder_cfg)
@@ -355,8 +357,9 @@ def finalize_records(out, ori_h, ori_w):
 def finalize_results(out, ori_h, ori_w, exact_resize=False):
     """Upsample the winning low-resolution logits to the original size
     (reference antialiased bilinear + >0, :657-663), box them and drop the
-    padding. exact_resize=True uses the torch-parity separable weights in
-    numpy; otherwise the native library or cv2 upsample."""
+    padding. exact_resize=True, an image smaller than the logits or a
+    missing native library use the torch-parity separable weights in numpy;
+    otherwise the native library upsamples."""
     valid = np.asarray(out["valid"])
     n = int(valid.sum())
     logits = np.asarray(out["lr_logits"][:n], np.float32)
@@ -367,20 +370,15 @@ def finalize_results(out, ori_h, ori_w, exact_resize=False):
                     bboxes=np.zeros((0, 4), np.float32),
                     scores=scores, labels=labels)
     lr = logits.shape[-1]
-    if exact_resize or ori_h < lr or ori_w < lr:
+    masks = None
+    if not (exact_resize or ori_h < lr or ori_w < lr):
+        from no_time_to_train_tpu_torch.utils import native
+        masks = native.upsample_binarize(logits, ori_h, ori_w)
+    if masks is None:
         wh = _resize_matrix_np(lr, ori_h, "bilinear", ori_h < lr).astype(np.float32)
         ww = _resize_matrix_np(lr, ori_w, "bilinear", ori_w < lr).astype(np.float32)
         up = np.einsum("oh,nhw->now", wh, logits)
         masks = np.einsum("ow,nhw->nho", ww, up) > 0
-    else:
-        from no_time_to_train_tpu_torch.utils import native
-        masks = (native.upsample_binarize(logits, ori_h, ori_w)
-                 if native.available() else None)
-        if masks is None:
-            import cv2
-            masks = np.stack([cv2.resize(m, (ori_w, ori_h),
-                                         interpolation=cv2.INTER_LINEAR) > 0
-                              for m in logits])
     masks = np.ascontiguousarray(masks)
     rows = masks.any(axis=2)
     cols = masks.any(axis=1)

@@ -1,0 +1,397 @@
+"""Phase runner (port of `no_time_to_train_tpu/runner.py`) — the
+orchestration layer replacing the reference's Lightning wrapper
+(no_time_to_train/pl_wrapper/sam2matcher_pl.py) and the phase logic of
+run_lightning.py's after_test, on one device.
+
+Modes (reference test_step dispatch, sam2matcher_pl.py:163-200):
+  fill_memory / fill_memory_neg -> feature extraction + bank writes, then a
+      memory checkpoint at --out_path;
+  postprocess_memory / postprocess_memory_neg -> one postprocess on the
+      device;
+  test / test_support -> per-image test steps, a loader thread and a
+      two-deep pipeline, COCO RLE encoding, FPS report (the reference's
+      format, run_lightning.py:152-161), optional json export, COCOeval.
+Not ported: the data-parallel test and fill (several devices or
+processes), the finalize pool, `vis_memory` and online visualization.
+"""
+import copy
+import csv
+import json
+import os
+import pickle
+import time
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import torch
+
+from no_time_to_train_tpu_torch.config.presets import ENCODER_PRESETS
+from no_time_to_train_tpu_torch.data.datasets import (
+    COCOMemoryFillCropDataset, COCORefOracleTestDataset)
+from no_time_to_train_tpu_torch.data.metainfo import METAINFO
+from no_time_to_train_tpu_torch.models.matching.pipeline import (
+    MatchingConfig, NoAMGMatcher, finalize_records, finalize_results)
+from no_time_to_train_tpu_torch.utils import checkpoint as ckpt_io
+
+
+def _apply_dotted_hacks(model_cfg, dataset_cfgs):
+    """The reference allows dotted keys to arrive inside dicts and re-maps
+    them (sam2matcher_pl.py:90-127). Generalized: any 'a.b' key in model_cfg /
+    dataset_cfgs is folded into its nested dict."""
+    for cfgs in (model_cfg, dataset_cfgs):
+        for key in [k for k in list(cfgs) if "." in k]:
+            head, tail = key.split(".", 1)
+            val = cfgs.pop(key)
+            if head in ("memory_bank_cfg", "sam2_infer_cfgs", "fill_memory",
+                        "test", "support") and isinstance(
+                            cfgs.get(head), dict):
+                if tail == "cat_names" and isinstance(val, str):
+                    val = val.split(",")
+                if tail == "class_split":
+                    cfgs[head]["cat_names"] = list(METAINFO[val])
+                cfgs[head][tail] = val
+            elif head == "test" and cfgs is model_cfg:
+                mapping = {"imgs_path": "dataset_imgs_path",
+                           "online_vis": "online_vis", "vis_thr": "vis_thr"}
+                model_cfg[mapping.get(tail, tail)] = val
+            else:
+                cfgs[key] = val  # leave unknown keys visible
+    return model_cfg, dataset_cfgs
+
+
+def get_dataset(dataset_cfg, stage):
+    """Stage -> dataset class map (sam2matcher_pl.py:42-69)."""
+    cfg = dict(dataset_cfg)
+    name = cfg.pop("name", None)
+    if name != "coco":
+        raise ValueError(f"unknown dataset {name}")
+    if stage in ("fill_memory", "fill_memory_neg"):
+        # test-grid key; the fill dataset class does not accept it
+        cfg.pop("n_points_per_edge", None)
+        if stage != "fill_memory":
+            cfg["custom_data_mode"] = stage
+        return COCOMemoryFillCropDataset(**cfg)
+    if stage in ("test", "test_support"):
+        if stage == "test_support":
+            cfg["custom_data_mode"] = stage
+        return COCORefOracleTestDataset(**cfg)
+    raise NotImplementedError(stage)
+
+
+# sam2_infer_cfgs keys of the JAX package's matcher that the port does not
+# have, with the one value it computes
+_NOT_PORTED = {"decoder_impl": "dense", "encoder_quant": "none"}
+
+
+class MatcherRunner:
+    def __init__(self, model_cfg, dataset_cfgs, data_load_cfgs=None,
+                 test_mode="none", seed=42, devices=1, save_dir=".",
+                 device="cuda"):
+        t0 = time.perf_counter()
+        model_cfg = copy.deepcopy(model_cfg)
+        dataset_cfgs = copy.deepcopy(dataset_cfgs)
+        model_cfg, dataset_cfgs = _apply_dotted_hacks(model_cfg, dataset_cfgs)
+        self.test_mode = test_mode
+        self.model_cfg = model_cfg
+        self.dataset_cfgs = dataset_cfgs
+        self.data_load_cfgs = data_load_cfgs or {}
+        self.save_dir = save_dir
+
+        name = model_cfg.get("name", "matching_baseline_noAMG").lower()
+        if name != "matching_baseline_noamg":
+            raise ValueError(f"unknown model {name}")
+        if int(devices) != 1:
+            raise NotImplementedError(
+                f"devices={devices}: the port's runner drives one device "
+                f"(its data-parallel runner is not ported)")
+        if model_cfg.get("online_vis", False):
+            raise NotImplementedError("online visualization is not ported")
+
+        infer = dict(model_cfg.get("sam2_infer_cfgs", {}))
+        for key, only in _NOT_PORTED.items():
+            if str(infer.get(key, only)) != only:
+                raise NotImplementedError(
+                    f"sam2_infer_cfgs.{key}={infer[key]!r}: the port "
+                    f"computes {only!r} only")
+        mb_cfg = dict(model_cfg.get("memory_bank_cfg", {}))
+        if not mb_cfg.pop("enable", True):
+            raise ValueError("memory_bank_cfg.enable must be true")
+
+        enc_cfg = model_cfg.get("encoder_cfg", "dinov2_large")
+        if isinstance(enc_cfg, dict):
+            enc_cfg = enc_cfg.get("name", "dinov2_large")
+        enc = ENCODER_PRESETS[enc_cfg]
+
+        matching = MatchingConfig(
+            points_per_side=int(infer.get("points_per_side", 32)),
+            testing_point_bs=int(infer.get("testing_point_bs", 256)),
+            iou_thr=float(infer.get("iou_thr", 0.4)),
+            nms_thr=float(infer.get("nms_thr", 0.5)),
+            num_out_instance=int(infer.get("num_out_instance", 100)),
+            kmeans_k=int(infer.get("kmeans_k", 4)),
+            n_pca_components=int(infer.get("n_pca_components", 3)),
+            cls_num_per_mask=int(infer.get("cls_num_per_mask", 1)),
+            with_negative_refs=bool(infer.get("with_negative_refs", False)),
+            compute_dtype=str(infer.get("compute_dtype", "float32")),
+            attention_impl=str(infer.get("attention_impl", "pallas")),
+        )
+
+        # weights from the checkpoints where the files exist, else from
+        # `seed`
+        sam2_ckpt = model_cfg.get("sam2_ckpt_path")
+        sam2_sd = (ckpt_io.load_sam2_torch_checkpoint(sam2_ckpt)
+                   if sam2_ckpt and os.path.exists(sam2_ckpt) else None)
+        enc_ckpt = model_cfg.get("encoder_ckpt_path")
+        dino_sd = (ckpt_io.load_dino_checkpoint(enc_ckpt)
+                   if enc_ckpt and os.path.exists(str(enc_ckpt)) else None)
+
+        # sam2_cfg_file: a preset basename, or a reference hydra YAML
+        # topology on disk (build_sam.py:34-36)
+        self.matcher = NoAMGMatcher(
+            model_cfg.get("sam2_cfg_file", "sam2_hiera_l.yaml"), enc,
+            matching, n_classes=int(mb_cfg.get("category_num", 20)),
+            memory_length=int(mb_cfg.get("length", 10)),
+            sam2_state_dict=sam2_sd, dino_state_dict=dino_sd, seed=seed,
+            device=device)
+        dev = self.matcher.device
+        # fetches of a finished image run here, beside the next image's work
+        self._copy_stream = (torch.cuda.Stream(dev) if dev.type == "cuda"
+                             else None)
+        # wall seconds of the weight set-up and of each run(), device work
+        # included
+        self.seconds = {"init": self._since(t0)}
+
+        self.output_queue = []
+        self.scalars_queue = []
+        self.triplets_queue = []
+        self.time_queue = []
+
+    # ----------------------------------------------------------------- phases
+    def load_ckpt(self, ckpt_path):
+        if ckpt_path:
+            self.matcher.bank, self.matcher.bank_neg = ckpt_io.load_memory_bank(
+                ckpt_path, self.matcher.bank, self.matcher.bank_neg)
+
+    def save_ckpt(self, out_path, msg):
+        ckpt_io.save_memory_bank(out_path, self.matcher.bank,
+                                 self.matcher.bank_neg)
+        print(f"{msg} {out_path}")
+
+    def _since(self, t0):
+        if self.matcher.device.type == "cuda":
+            torch.cuda.synchronize(self.matcher.device)
+        return time.perf_counter() - t0
+
+    def run(self, ckpt_path=None, out_path=None, export_result=None,
+            output_name="", progress=True):
+        t0 = time.perf_counter()
+        try:
+            return self._run(ckpt_path, out_path, export_result, output_name,
+                             progress)
+        finally:
+            self.seconds["run"] = self._since(t0)
+
+    def _run(self, ckpt_path, out_path, export_result, output_name,
+             progress):
+        mode = self.test_mode
+        self.load_ckpt(ckpt_path)
+        if mode in ("fill_memory", "fill_memory_neg"):
+            self._fill(positive=(mode == "fill_memory"), progress=progress)
+            if out_path:
+                self.save_ckpt(out_path, "Checkpoint with memory is saved to")
+        elif mode in ("postprocess_memory", "postprocess_memory_neg"):
+            self.matcher.postprocess_memory(
+                positive=(mode == "postprocess_memory"))
+            if out_path:
+                self.save_ckpt(
+                    out_path,
+                    "Checkpoint with post-processed memory is saved to")
+        elif mode in ("test", "test_support"):
+            return self._test(mode, export_result, output_name, progress)
+        else:
+            raise NotImplementedError(f"Unrecognized test mode {mode}")
+        return None
+
+    def _fill(self, positive, progress):
+        """Batches of 8 references; the next two batches load while the
+        device encodes the current one, one worker thread per reference
+        (the crop resizes release the interpreter lock)."""
+        ds = get_dataset(self.dataset_cfgs["fill_memory"],
+                         "fill_memory" if positive else "fill_memory_neg")
+        bs = 8
+        batches = [list(range(i, min(i + bs, len(ds))))
+                   for i in range(0, len(ds), bs)]
+
+        with ThreadPoolExecutor(max_workers=bs) as pool:
+            def load(ix):
+                return [pool.submit(ds.__getitem__, j) for j in ix]
+
+            futs = [load(b) for b in batches[:2]]
+            for bi in range(len(batches)):
+                items = [f.result() for f in futs.pop(0)]
+                if bi + 2 < len(batches):
+                    futs.append(load(batches[bi + 2]))
+                self.matcher.fill_memory(
+                    np.stack([it["img"] for it in items]),
+                    np.stack([it["mask"] for it in items]),
+                    [it["cat_ind"] for it in items], positive=positive)
+                if progress:
+                    print(f"fill {min((bi + 1) * bs, len(ds))}/{len(ds)}")
+
+    def _fetch(self, out):
+        """fetch_test of an image whose work has finished. On a GPU the
+        copies run on a side stream, so they do not queue behind the next
+        image's kernels."""
+        if self._copy_stream is None:
+            return self.matcher.fetch_test(out)
+        with torch.cuda.stream(self._copy_stream):
+            return self.matcher.fetch_test(out)
+
+    def _test(self, mode, export_result, output_name, progress):
+        """A loader thread keeps two images ahead; the device pipeline is two
+        deep: image i + 1 is queued before image i is fetched and finalized
+        on the host."""
+        stage_cfg = self.dataset_cfgs["test" if mode == "test" else "support"]
+        ds = get_dataset(stage_cfg, mode)
+        # the bank's instance similarity, on the host once (a read of it
+        # per image would wait for the image in flight)
+        self._ins_sim = self.matcher.bank.ins_sim_avg.double().cpu().numpy()
+        workers = max(1, int(self.data_load_cfgs.get("workers", 0)) or 1)
+        n = len(ds)
+
+        def finalize(item, device_out, dt):
+            self.time_queue.append(dt)
+            raw = self._fetch(device_out)
+            self.output_queue.append(self._finalize_one(ds, item, raw))
+
+        with ThreadPoolExecutor(max_workers=workers) as pool:
+            futures = [pool.submit(ds.__getitem__, j) for j in range(min(2, n))]
+            pending = None  # (item, device_out, dt)
+            for pos in range(n):
+                item = futures.pop(0).result()
+                if pos + 2 < n:
+                    futures.append(pool.submit(ds.__getitem__, pos + 2))
+                t0 = time.time()
+                out = self.matcher.test_async(item["target_img"])
+                if pending is not None:
+                    finalize(*pending)  # host work overlaps this compute
+                out["scores"].cpu()     # completion fence (timed like the
+                dt = time.time() - t0   # reference's synchronized forward)
+                pending = (item, out, dt)
+                if progress and (pos + 1) % 20 == 0:
+                    print(f"test {pos + 1}/{n}")
+            if pending is not None:
+                finalize(*pending)
+
+        return self._report_and_evaluate(ds, self.output_queue, export_result,
+                                         output_name,
+                                         np.array(self.time_queue))
+
+    def _finalize_one(self, ds, item, raw):
+        """Per-image tail of the test loop: finalize the raw device output
+        at the original resolution, COCO-encode it and queue the analysis
+        scalars. Returns the encoded per-image results."""
+        info = item["target_img_info"]
+        # fused native finalize: upsample + binarize + RLE + box in one pass
+        # per mask, full-res masks never materialized
+        fin = finalize_records(raw, info["ori_height"], info["ori_width"])
+        if fin is None:
+            fin = finalize_results(raw, info["ori_height"], info["ori_width"])
+        per_img = dict(img_id=info["id"], scores=fin["scores"],
+                       labels=fin["labels"], boxes=fin["bboxes"])
+        if "segs" in fin:
+            per_img["segs"] = fin["segs"]
+        else:
+            per_img["masks"] = fin["binary_masks"]
+        encoded = ds.encode_results([per_img])
+        self._queue_scalars(item, raw, fin)
+        return encoded
+
+    def _report_and_evaluate(self, ds, results, export_result, output_name,
+                             times_np):
+        """Tail of the test loop: FPS report (reference sam2matcher_pl.py
+        summary format), analysis pkl dumps, result export, COCO evaluation,
+        metrics CSV."""
+        print("\n[Validation] Inference Time Benchmark:")
+        print(f"  Total images: {len(times_np)}")
+        print(f"  Total time: {np.sum(times_np):.4f} s")
+        print(f"  Average time per image: {np.mean(times_np):.4f} s")
+        print(f"  FPS: {1.0 / np.mean(times_np):.2f}")
+
+        results_unpacked = [r for per_img in results for r in per_img]
+        for fname, rows in (("scalars_all.pkl", self.scalars_queue),
+                            ("triplets_all.pkl", self.triplets_queue)):
+            if rows:
+                os.makedirs(self.save_dir, exist_ok=True)
+                with open(os.path.join(self.save_dir, fname), "wb") as f:
+                    pickle.dump(rows, f)
+        if export_result:
+            with open(export_result, "w") as f:
+                json.dump(results_unpacked, f)
+        stats = ds.evaluate(results_unpacked, output_name=output_name)
+        self._write_metrics_csv(stats, times_np)
+        return stats
+
+    def _queue_scalars(self, item, raw, fin):
+        """Score dumps for the offline analysis layer (reference
+        run_lightning.py:163-168 + tools/analysis_scripts/*):
+
+        scalars_all.pkl rows [sim, category, oracle_iou, mem_ins_sim] and
+        triplets_all.pkl rows [sim, pred_iou, oracle_iou], one array per
+        image. Oracle IoU (best IoU vs a same-class GT instance) is computed
+        at the low-res mask resolution from the Oracle dataset's GT; without
+        GT (plain test dataset) oracle columns are NaN."""
+        n = len(fin["scores"])
+        if n == 0:
+            return
+        cats = np.asarray(fin["labels"], np.int64)
+        sims = np.asarray(fin["scores"], np.float64)
+        pred_ious = np.asarray(raw["pred_ious"][:n], np.float64)
+        anns = item.get("tar_anns_by_cat")
+        oracle = np.full(n, np.nan)
+        if anns is not None:
+            lr = np.asarray(raw["lr_logits"][:n], np.float32)
+            lr_res = lr.shape[-1]
+            pred = (lr > 0).reshape(n, -1)
+            gt_small = {}
+            for cat_ind, e in anns.items():
+                ms = np.asarray(e["masks"])
+                step = max(1, ms.shape[-1] // lr_res)
+                gt_small[cat_ind] = (
+                    ms[:, ::step, ::step][:, :lr_res, :lr_res] > 0.5
+                ).reshape(ms.shape[0], -1)
+            for i in range(n):
+                g = gt_small.get(int(cats[i]))
+                if g is None:
+                    oracle[i] = 0.0
+                    continue
+                inter = (pred[i][None] & g).sum(1)
+                union = (pred[i][None] | g).sum(1)
+                oracle[i] = float(
+                    (inter / np.maximum(union, 1)).max())
+        self.scalars_queue.append(
+            np.stack([sims, cats.astype(np.float64), oracle,
+                      self._ins_sim[cats]], axis=1))
+        self.triplets_queue.append(np.stack([sims, pred_ious, oracle],
+                                            axis=1))
+
+    def _write_metrics_csv(self, stats, times_np, path=None):
+        """CSV metrics record (replaces the reference's Lightning CSVLogger,
+        new_exps/*.yaml:59-63)."""
+        row = {"images": len(times_np),
+               "mean_time_s": float(np.mean(times_np)),
+               "fps": float(1.0 / np.mean(times_np))}
+        if stats:
+            for iou_type, st in stats.items():
+                row[f"{iou_type}_AP"] = float(st[0])
+                row[f"{iou_type}_AP50"] = float(st[1])
+                row[f"{iou_type}_AP75"] = float(st[2])
+        if path is None:
+            os.makedirs(self.save_dir, exist_ok=True)
+            path = os.path.join(self.save_dir, "metrics_log.csv")
+        write_header = not os.path.exists(path)
+        with open(path, "a", newline="") as f:
+            w = csv.DictWriter(f, fieldnames=list(row))
+            if write_header:
+                w.writeheader()
+            w.writerow(row)

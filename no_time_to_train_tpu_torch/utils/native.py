@@ -5,23 +5,30 @@ the JAX package.
 
 The library is built with `make` on first use when a toolchain is there.
 Every entry point returns None when the library is missing, and its callers
-then take a numpy or cv2 path: RLE encode / decode, mask IoU, and the
+then take a numpy path: RLE encode / decode, mask IoU, and the
 per-image mask finalize upsample.
 """
 import ctypes
 import os
 import subprocess
+import threading
 
 import numpy as np
 
 _LIB = None
 _TRIED = False
+_LOAD_LOCK = threading.Lock()
 
 _NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.dirname(os.path.abspath(__file__)))), "native")
 
 
 def _load():
+    with _LOAD_LOCK:            # first use may come from several threads
+        return _load_locked()
+
+
+def _load_locked():
     global _LIB, _TRIED
     if _TRIED:
         return _LIB
@@ -114,7 +121,9 @@ def mask_iou(dt_masks, gt_masks, iscrowd):
     return out
 
 
-_FIN_BUF = None
+# finalize_mask's output buffer, one per thread: the runner finalizes on
+# its own thread while a loader thread runs
+_TLS = threading.local()
 
 
 def has_finalize():
@@ -128,21 +137,21 @@ def finalize_mask(logits, out_h, out_w, threshold=0.0):
     XYXY box and pixel count — without materializing the full-res mask
     (one native column-major pass, see native/nttt_native.cpp). Returns
     (counts_str, box float32[4], n_pixels) or None when the lib is absent."""
-    global _FIN_BUF
     lib = _load()
     if lib is None or not hasattr(lib, "finalize_mask"):
         return None
     x = np.ascontiguousarray(logits, np.float32)
     in_h, in_w = x.shape
     need = 8 * out_h * out_w + 16
-    if _FIN_BUF is None or len(_FIN_BUF) < need:
-        _FIN_BUF = ctypes.create_string_buffer(need)
+    buf = getattr(_TLS, "buf", None)
+    if buf is None or len(buf) < need:
+        buf = _TLS.buf = ctypes.create_string_buffer(need)
     box = np.zeros(4, np.int32)
     npix = ctypes.c_int64(0)
     n = lib.finalize_mask(x.ctypes.data, in_h, in_w, out_h, out_w,
-                          ctypes.c_float(threshold), _FIN_BUF,
+                          ctypes.c_float(threshold), buf,
                           box.ctypes.data, ctypes.byref(npix))
-    return (_FIN_BUF.raw[:n].decode("ascii"), box.astype(np.float32),
+    return (buf.raw[:n].decode("ascii"), box.astype(np.float32),
             int(npix.value))
 
 

@@ -2,12 +2,18 @@
 
 The port (`no_time_to_train_tpu_torch/`, `chip_smoke.py`) imports torch and
 nothing of the JAX package, not even a module there that does not import
-JAX; only the tests import both.
+JAX; only the tests import both. Nor does it import the packages the
+machine with the GPU lacks (PyYAML, cv2, safetensors, transformers,
+pycocotools), or PIL anywhere but inside the JPEG branch of
+`data/image_io.py`.
 """
+import ast
 import pathlib
 import re
 import subprocess
 import sys
+import threading
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -32,6 +38,42 @@ def test_port_file_names_neither_jax_nor_the_jax_package(path):
     assert "no_time_to_train_tpu." not in text, path
 
 
+FORBIDDEN = ("yaml", "cv2", "safetensors", "transformers", "pycocotools")
+# the one place PIL may be imported: inside a function of this file
+PIL_HOME = ROOT / "no_time_to_train_tpu_torch" / "data" / "image_io.py"
+
+
+def _imports(tree):
+    """(top-level module name, inside a function) of every import."""
+    out = []
+
+    def visit(node, in_function):
+        for child in ast.iter_child_nodes(node):
+            inner = in_function or isinstance(
+                child, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda))
+            if isinstance(child, ast.Import):
+                out.extend((a.name.split(".")[0], inner) for a in child.names)
+            elif isinstance(child, ast.ImportFrom) and child.module \
+                    and not child.level:
+                out.append((child.module.split(".")[0], inner))
+            visit(child, inner)
+
+    visit(tree, False)
+    return out
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_file_imports_no_package_the_gpu_machine_lacks(path):
+    found = _imports(ast.parse(path.read_text()))
+    assert not [m for m, _ in found if m in FORBIDDEN], path
+    pil = [inner for m, inner in found if m == "PIL"]
+    if path == PIL_HOME:
+        assert pil and all(pil), "PIL is imported inside the JPEG branch only"
+    else:
+        assert not pil, path
+
+
 _IMPORT_ALL = r"""
 import importlib, pkgutil, sys
 import no_time_to_train_tpu_torch as pkg
@@ -41,7 +83,9 @@ for m in mods:
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax",
-                                    "no_time_to_train_tpu"))
+                                    "no_time_to_train_tpu", "yaml", "PIL",
+                                    "cv2", "safetensors", "transformers",
+                                    "pycocotools"))
 assert not bad, bad
 print(len(mods))
 """
@@ -49,7 +93,8 @@ print(len(mods))
 
 def test_importing_every_port_module_loads_no_jax():
     """A fresh interpreter that imports every module of the port and
-    chip_smoke.py ends with neither jax nor the JAX package loaded."""
+    chip_smoke.py ends with neither jax nor the JAX package loaded, nor any
+    of the packages the GPU machine lacks."""
     res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
@@ -100,3 +145,33 @@ def test_native_finalize_matches_the_numpy_path():
     assert (up == ref["binary_masks"]).mean() > 0.999
     # the image smaller than the logits: the native path declines
     assert pipeline.finalize_records(out, 16, 20) is None
+
+
+def test_finalize_mask_from_threads_equals_serial():
+    """The finalize buffer is per thread (ROADMAP C.3): 4 threads at once on
+    distinct inputs and output sizes give the serial results."""
+    assert native.has_finalize()
+    rng = np.random.default_rng(3)
+    jobs = [(rng.standard_normal((32, 32)).astype(np.float32) * 3,
+             40 + 7 * i, 33 + 5 * (i % 9)) for i in range(48)]
+    serial = [native.finalize_mask(*job) for job in jobs]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        start = threading.Barrier(4)
+
+        def run(part):
+            start.wait(timeout=60)
+            return [native.finalize_mask(*jobs[i]) for i in part]
+
+        with ThreadPoolExecutor(max_workers=4) as pool:
+            futs = [pool.submit(run, range(k, len(jobs), 4))
+                    for k in range(4)]
+            parts = [f.result(timeout=120) for f in futs]
+    finally:
+        sys.setswitchinterval(interval)
+    for k, part in enumerate(parts):
+        for i, got in zip(range(k, len(jobs), 4), part):
+            want = serial[i]
+            assert got[0] == want[0] and got[2] == want[2], i
+            np.testing.assert_array_equal(got[1], want[1])

@@ -61,8 +61,29 @@ Run from the root of a checkout. Phases, each of which raises on failure:
      mask's tight box, (e) COCOeval ran and the CSV row and
      analysis dumps exist; then an 80-class bank at 1369 x 1024 is
      post-processed and its peak device memory printed.
+  10. the image path's other entries, on seeded random weights in bf16
+     under "pallas": (a) SAM2ImagePredictor on SAM2-L (one point, three
+     points with multimask, a batch of 4 boxes, a box with a mask input,
+     the hole and sprinkle postprocess), each call against itself under
+     no_fusion(); (b) the automatic mask generator on SAM2-L (32^2 points in
+     chunks of 256, thresholds at the medians of a probe decode): exact
+     launches per image, 20 or more candidates into the NMS, one chunk's
+     decode against no_fusion(), every record's box its mask's tight box,
+     with the box NMS off coco_rle bit for bit the binary masks, then
+     use_m2m, crop_n_layers=1 and min_mask_region_area, with fenced ms and
+     peak memory; (c)
+     Matcher-AMG: select with 5 points without and with a box, the box as
+     corner points against the prompt encoder's box path, dense_pred,
+     extra_mask_data in the NMS; (d) kmeans_decouple at 10 x 1369 x 1024 on
+     the device against the host from the same start; (e) the model of
+     configs/coco_fewshot_10shot_Sam2S.yaml (Hiera-S + DINOv2-L) built as
+     the CLI builds it, the test step on 2 images with exact launches and
+     phase 5's checks; (f) Hiera-B+ and (g) DINOv2-giant at 518^2 against
+     no_fusion(). The kernel table gains each kernel's launches per AMG
+     image.
 `python3 chip_smoke.py --kernels` runs phases 1 to 3 only;
 `python3 chip_smoke.py --runner` runs phases 1, 2 and 9 only;
+`python3 chip_smoke.py --image-entries` runs phases 1, 2 and 10 only;
 `python3 chip_smoke.py --registers` runs phase 1 and prints each kernel's
 registers and spills as `nvcc -Xptxas -v` reports them, and fails on a
 spill of a register-tile kernel (NO_SPILL);
@@ -295,7 +316,12 @@ ONEPASS_EDGE = [("n 513", 1, 513, 513, 16, 64, False),
                 ("nq 129 nk 63", 2, 129, 63, 4, 64, False),
                 ("nq 128 nk 64", 2, 128, 64, 4, 64, False),
                 ("nq 127 nk 65, packed", 2, 127, 127, 4, 72, True),
-                ("one query row", 1, 1, 777, 16, 64, False)]
+                ("one query row", 1, 1, 777, 16, 64, False),
+                # the global blocks of Hiera-S (D 96, padded to 128 columns
+                # on wgmma) and Hiera-B+ (D 56, padded to 64), DINOv2-giant
+                ("hiera_s global", 1, 4096, 4096, 4, 96, True),
+                ("hiera_b+ global", 1, 4096, 4096, 8, 56, True),
+                ("dinov2_g test", 1, 1370, 1370, 24, 64, False)]
 # flash_sdpa (rows 11 + 12): (label, B, H, Nq, Nk, D, strided views of a
 # [B, N, H, D] tensor); the memory attention's self-attention for 1 and 2
 # objects (row 11's range) and a key range that the TPU sends to row 12,
@@ -401,6 +427,32 @@ WINDOW_EDGE = [("T 16 x 3 windows", 1, 4, 72, 16, 3),
 # D, window tokens, windows)
 WINDOW_BATCH_EDGE = [(2, 72, 64, 5), (4, 72, 16, 9), (2, 72, 256, 2),
                      (2, 96, 49, 7)]
+
+
+# K2 and K3 at the prompt counts of phase 10's paths: the image predictor's
+# 1, Matcher-AMG's select of 5, 64 (the reference AMG's points_per_batch);
+# 8 tokens (a point and its padding point) and 10 (three points and the
+# padding point, or a point, a box's two corners and the padding point);
+# keys per prompt (layer 0 of the classic route, whose dense embedding is
+# per prompt, and every later layer) and keys shared by the prompts
+DECODER_PROMPT_SHAPES = [(p_, t) for p_ in (1, 5, 64) for t in (8, 10)]
+# K1, kernel 9 and kernel 10 at the shapes of phase 10's topologies and
+# paths, timed beside the library call and the bound (phase 3, bf16):
+# (label, rows, C) / kernel 9's (label, B, Nq, Nk, heads, D, packed) /
+# kernel 10's (label, B, heads, D, window tokens, windows)
+NEW_K1_SHAPES = [("hiera_s stage 1", 65536, 96),
+                 ("hiera_b+ stage 1", 65536, 112),
+                 ("hiera_s stage 4", 1024, 768),
+                 ("dinov2_g", 1370, 1536),
+                 ("amg upscaling norm, 256 prompts", 256 * 128 * 128, 64),
+                 ("m2m mask prompt norm, 256 prompts", 256 * 64 * 64, 16)]
+NEW_ONEPASS_SHAPES = ONEPASS_EDGE[-3:]
+NEW_WINDOW_SHAPES = [("hiera_s stage 1", 1, 1, 96, 64, 1024),
+                     ("hiera_s stage 2", 1, 2, 96, 16, 1024),
+                     ("hiera_s stage 3, padded grid", 1, 4, 96, 196, 25),
+                     ("hiera_b+ stage 1", 1, 2, 56, 64, 1024),
+                     ("hiera_b+ stage 2", 1, 4, 56, 16, 1024),
+                     ("hiera_b+ stage 3, padded grid", 1, 8, 56, 196, 25)]
 
 
 def log(*a):
@@ -956,6 +1008,8 @@ def kernel_phase(dev):
         torch.cuda.empty_cache()
         attention_kernels(rn, dt, ONEPASS_SHAPES, WINDOW_SHAPES, results)
         memory_kernels(rn, dt, FLASH_SHAPES, MASKED_SHAPES, results)
+        if dt == torch.bfloat16:
+            new_shape_rows(rn, results)
     edge_shapes(rn)
     _QUEUE.clear()
     for k, v in results.items():
@@ -1436,11 +1490,97 @@ def edge_shapes(rn):
         image_batches(rn, dt, 3, 96, 11)
         image_batches(rn, dt, 2, 64, 16)
         image_batches(rn, dt, 3, 784, 1)
+        decoder_prompt_shapes(rn, dt)
         attention_kernels(rn, dt, ONEPASS_EDGE, WINDOW_EDGE)
         memory_kernels(rn, dt, FLASH_EDGE, MASKED_EDGE)
     split_and_batch_checks(rn)
     masked_and_window_checks(rn)
     scoring_products(rn)
+
+
+def decoder_prompt_shapes(rn, dt):
+    """K2 and K3 against their plain versions at DECODER_PROMPT_SHAPES, 4096
+    image rows, keys per prompt and shared."""
+    from no_time_to_train_tpu_torch.ops import decoder_attention as da
+    for p_, t in DECODER_PROMPT_SHAPES:
+        for pk in sorted({p_, 1}):
+            a = t2i_args(rn, dt, pk, p_, 4096, t)
+            compare("fused_t2i_attn", dt, da.fused_t2i_attn(*a, num_heads=8),
+                    da.fused_t2i_attn_plain(*a, num_heads=8))
+            a = i2t_args(rn, dt, pk, p_, 4096, t)
+            compare("fused_i2t_norm", dt, da.fused_i2t_norm(*a, num_heads=8),
+                    da.fused_i2t_norm_plain(*a, num_heads=8))
+
+
+def new_row(name, label, err, fn, plain, lib, bnd):
+    """One of phase 10's shapes: one call on an idle card (kernel, plain
+    version, library call), device ms of kernel and library call behind a
+    full queue, the bound."""
+    row = dict(max_abs_err=err, ms=cuda_ms(fn), plain_ms=cuda_ms(plain),
+               library_ms=cuda_ms(lib), shape=label, **bnd)
+    row["device_ms"], row["library_device_ms"] = queued_ms(fn), queued_ms(lib)
+    log(f"  time {name} {label}: kernel {row['ms']:.3f} ms, plain "
+        f"{row['plain_ms']:.3f}, library {row['library_ms']:.3f}; device ms "
+        f"kernel {row['device_ms']:.4f}, library "
+        f"{row['library_device_ms']:.4f}, bound {bnd['bound_ms']:.4f} by "
+        f"{bnd['bound_by']}")
+    return row
+
+
+def new_shape_rows(rn, results):
+    """K1, kernel 9 and kernel 10 at NEW_*_SHAPES in bf16: against the plain
+    version, then timed; the rows go under `also` in the kernel table."""
+    import torch
+    import torch.nn.functional as F
+    from no_time_to_train_tpu_torch.ops import flash_attention as fa
+    from no_time_to_train_tpu_torch.ops import fused_ln as fl
+    dt = torch.bfloat16
+    for label, r, c in NEW_K1_SHAPES:
+        x = rn(r, c, dtype=dt)
+        w, b = rn(c, scale=0.2) + 1.0, rn(c, scale=0.1)
+        wd, bd = w.to(dt), b.to(dt)
+        err = compare("layer_norm", dt, fl.layer_norm(x, w, b, 1e-6),
+                      fl.layer_norm_plain(x, w, b, 1e-6))
+        results["layer_norm"]["also"].append(new_row(
+            "layer_norm", f"{label} [{r}, {c}]", err,
+            lambda: fl.layer_norm(x, w, b, 1e-6),
+            lambda: fl.layer_norm_plain(x, w, b, 1e-6),
+            lambda: F.layer_norm(x, (c,), wd, bd, 1e-6),
+            bound(2 * nbytes(x) + nbytes(wd, bd), 8 * r * c, PEAK_F32)))
+        del x
+        torch.cuda.empty_cache()
+    for label, b, nq, nk, h, d, packed in NEW_ONEPASS_SHAPES:
+        if packed:
+            qkv = rn(b, nq, 3, h, d, scale=1.5)
+            qkv[:, :, 2] = qkv[:, :, 2] / 1.5 + 0.5
+            q, k, v = qkv.to(dt).unbind(2)
+        else:
+            q, k, v = sharp_operands(rn, dt, lambda n: (b, n, h, d), nq, nk)
+        err = compare("flash_sdpa_bnhd", dt, fa.flash_sdpa_bnhd(q, k, v),
+                      fa.onepass_bnhd_plain(q, k, v))
+        qt, kt, vt = (z.transpose(1, 2) for z in (q, k, v))
+        results["flash_sdpa_bnhd"].setdefault("also", []).append(new_row(
+            "flash_sdpa_bnhd", label, err,
+            lambda: fa.flash_sdpa_bnhd(q, k, v),
+            lambda: fa.onepass_bnhd_plain(q, k, v),
+            lambda: F.scaled_dot_product_attention(qt, kt, vt),
+            bound(2 * nbytes(q) + 2 * nbytes(k), 4 * b * h * nq * nk * d,
+                  PEAK_BF16)))
+    for label, b, h, d, win, nw in NEW_WINDOW_SHAPES:
+        qkv = rn(b, nw * win, 3 * h * d, dtype=dt)
+        err = compare("flash_sdpa_window_qkv", dt,
+                      fa.flash_sdpa_window_qkv(qkv, h, win),
+                      fa.window_qkv_plain(qkv, h, win))
+        heads_first = [z.transpose(1, 2) for z in
+                       qkv.reshape(b * nw, win, 3, h, d).unbind(2)]
+        results["flash_sdpa_window_qkv"].setdefault("also", []).append(new_row(
+            "flash_sdpa_window_qkv", label, err,
+            lambda: fa.flash_sdpa_window_qkv(qkv, h, win),
+            lambda: fa.window_qkv_plain(qkv, h, win),
+            lambda: F.scaled_dot_product_attention(*heads_first),
+            bound(nbytes(qkv) * 4 // 3, 4 * b * nw * win * win * h * d,
+                  PEAK_BF16)))
+    torch.cuda.empty_cache()
 
 
 @contextlib.contextmanager
@@ -1537,10 +1677,15 @@ def synthetic_target(rng, size=1024, n_obj=6):
     return img
 
 
-def run_path(dev, label, encoder, impl, n_test):
+def run_path(dev, label, encoder, impl, n_test, matcher=None,
+             flash=FLASH_PER_IMAGE, k1=None):
     """One path of phase 4, then its phases 5 and 6. Returns the warm
     fenced ms/img, n_valid per image, the path's launch counts and the
-    launches per test image."""
+    launches per test image. `matcher`: one built elsewhere (20 classes x
+    10 shots, bf16) instead of the SAM2-L one; `flash`: the encoder flash
+    kernels' launches per test image under "pallas"; `k1`: K1's, checked
+    where given. Under "pallas" the Hiera + FPN features are also held
+    against no_fusion() where a matcher is given."""
     import numpy as np
     import torch
     from no_time_to_train_tpu_torch.models.matching.pipeline import (
@@ -1550,13 +1695,15 @@ def run_path(dev, label, encoder, impl, n_test):
 
     n_classes, shots = 20, 10
     t0 = time.perf_counter()
-    matcher = NoAMGMatcher(
-        SAM2_CFG, encoder,
-        MatchingConfig(compute_dtype="bfloat16", attention_impl=impl,
-                       **MATCHING),
-        n_classes=n_classes, memory_length=shots, seed=0, device=dev)
+    given = matcher is not None
+    if not given:
+        matcher = NoAMGMatcher(
+            SAM2_CFG, encoder,
+            MatchingConfig(compute_dtype="bfloat16", attention_impl=impl,
+                           **MATCHING),
+            n_classes=n_classes, memory_length=shots, seed=0, device=dev)
     torch.cuda.synchronize()
-    log(f"  [{label}] matcher built (bf16, random weights seed 0) in "
+    log(f"  [{label}] matcher built (bf16, random weights) in "
         f"{time.perf_counter() - t0:.1f} s")
 
     rng = np.random.default_rng(0)
@@ -1597,7 +1744,7 @@ def run_path(dev, label, encoder, impl, n_test):
     flash_on = impl == "pallas"
     missing = [k for k, v in in_test.items()
                if v == 0 and k not in VIDEO_ONLY + BATCHED_ONLY
-               and (flash_on or k not in FLASH_PER_IMAGE)]
+               and (flash_on or k not in flash)]
     if missing:
         fail(f"kernels not launched during test: {missing}")
     stray = [k for k in VIDEO_ONLY + BATCHED_ONLY if counts[k]]
@@ -1607,14 +1754,17 @@ def run_path(dev, label, encoder, impl, n_test):
         if in_test[k] != per_image * n_test:
             fail(f"{k}: {in_test[k]} launches in {n_test} test images, "
                  f"expected {per_image} per image")
-    for k, per_image in FLASH_PER_IMAGE.items():
+    for k, per_image in flash.items():
         want = per_image * n_test if flash_on else 0
         if in_test[k] != want or (not flash_on and counts[k]):
             fail(f"{k}: {in_test[k]} launches in {n_test} test images "
                  f"under {impl}, expected {want}")
     if flash_on:
         log(f"  flash launches per test image: "
-            f"{ {k: in_test[k] // n_test for k in FLASH_PER_IMAGE} }")
+            f"{ {k: in_test[k] // n_test for k in flash} }")
+    if k1 is not None and in_test["layer_norm"] != k1 * n_test:
+        fail(f"layer_norm: {in_test['layer_norm']} launches in {n_test} "
+             f"test images, expected {k1} per image")
 
     m = matcher.matching
     for k, out in enumerate(outs):
@@ -1692,6 +1842,9 @@ def run_path(dev, label, encoder, impl, n_test):
             f"{rel:.4f} (band {FEAT_REL_BAND}), least token cosine {cos:.5f}")
         if not rel <= FEAT_REL_BAND:
             fail("encoder features with the kernels disagree with no_fusion()")
+    if flash_on and given:
+        fpn_band("Hiera + FPN", matcher.sam2.forward_image, sam_in,
+                 FEAT_REL_BAND)
 
     # phase 6: host finalize at an original size of 480 x 640
     fin = finalize_results(outs[0], 480, 640, exact_resize=True)
@@ -1721,19 +1874,9 @@ def synthetic_clip(n_frames, size=1024):
 
 
 def build_video_predictor(dev):
-    import torch
-    from no_time_to_train_tpu_torch.config.presets import SAM2_PRESETS
-    from no_time_to_train_tpu_torch.models.sam2.model import SAM2
     from no_time_to_train_tpu_torch.models.sam2.video import (
         SAM2VideoPredictor)
-    from no_time_to_train_tpu_torch.ops.attention import set_attention_impl
-    from no_time_to_train_tpu_torch.utils.init import init_random_
-    with torch.device("meta"):
-        model = SAM2(SAM2_PRESETS[SAM2_CFG])
-    model = model.to_empty(device=dev)
-    init_random_(model, torch.Generator(dev).manual_seed(0))
-    model = set_attention_impl(model.to(torch.bfloat16), "pallas")
-    return SAM2VideoPredictor(model, device=dev)
+    return SAM2VideoPredictor(build_sam2(dev, SAM2_CFG), device=dev)
 
 
 def track_clip(pred, frames, points, fenced=True):
@@ -2183,6 +2326,78 @@ RUNNER_MANY_MASKS, RUNNER_MANY_LABELS = 20, 2
 # C.11: an 80-class bank at DINOv2-L's 1369 x 1024, post-processed
 C11_CLASSES = 80
 
+# phase 10: the image path's other entries, each on seeded random weights in
+# bf16 under "pallas" (SAM2-L unless a part names another topology).
+# Launches per AMG image on SAM2-L: Hiera-L once (3 global blocks take
+# kernel 9, 39 windowed blocks kernel 10, 48 blocks x 2 norms K1), then the
+# 32^2 grid in 4 chunks of 256 prompts through the classic mask decoder,
+# each chunk K2 3 times (layers 0 and 1, the final attention), K3 twice
+# (layers 0 and 1) and K1 8 times (the 7 token norms at 256 x 8 rows, the
+# upscaling norm at 256 x 128^2 rows x 64). The prompt encoder broadcasts
+# its no-mask dense embedding to every prompt, as the JAX package's does,
+# so the keys are per prompt from layer 0 on. The classic route upscales in
+# plain PyTorch, so K4 stays idle, as in the JAX package
+# (mask_decoder.py:91-150)
+AMG_POINTS, AMG_CHUNKS, HIERA_L_K1 = 32, 4, 96
+AMG_PER_IMAGE = {"layer_norm": HIERA_L_K1 + 8 * AMG_CHUNKS,
+                 "fused_t2i_attn": 3 * AMG_CHUNKS,
+                 "fused_i2t_norm": 2 * AMG_CHUNKS,
+                 "flash_sdpa_bnhd": 3, "flash_sdpa_window_qkv": 39}
+# use_m2m decodes every candidate once more (3 x 1024 in 12 chunks of 256)
+# with its own low-resolution mask as the mask prompt; each such chunk adds
+# one K1 for the mask prompt's second norm (256 x 64^2 rows x 16; the first,
+# at 4 channels, stays plain)
+AMG_REFINE_CHUNKS = 3 * AMG_CHUNKS
+AMG_M2M_PER_IMAGE = dict(
+    AMG_PER_IMAGE,
+    layer_norm=AMG_PER_IMAGE["layer_norm"] + 9 * AMG_REFINE_CHUNKS,
+    fused_t2i_attn=AMG_PER_IMAGE["fused_t2i_attn"] + 3 * AMG_REFINE_CHUNKS,
+    fused_i2t_norm=AMG_PER_IMAGE["fused_i2t_norm"] + 2 * AMG_REFINE_CHUNKS)
+# crop_n_layers=1: the image and its 4 crops, each resized to 1024^2
+AMG_CROPS = 5
+# one prompt batch of the image predictor or of Matcher-AMG's select mode
+# after its image: K2 3, K3 2; K1 once for the upscaling norm (the token
+# norms stay under 1024 rows at these prompt counts), once more for a mask
+# prompt's second norm (64^2 rows x 16)
+PREDICT_DECODE = {"fused_t2i_attn": 3, "fused_i2t_norm": 2}
+IMAGE_ENCODE = {"layer_norm": HIERA_L_K1, "flash_sdpa_bnhd": 3,
+                "flash_sdpa_window_qkv": 39}
+# the AMG's filters: at random weights the default thresholds (predicted
+# IoU 0.8, stability 0.95) keep no mask (ROADMAP C.1), so both thresholds
+# are set to the median of the probe decode's own values and the run fails
+# unless this many candidates reach the box NMS
+AMG_MIN_INTO_NMS = 20
+# (e): configs/coco_fewshot_10shot_Sam2S.yaml, Hiera-S + DINOv2-L, built as
+# the CLI builds it. Per test image: DINOv2-L's 24 layers and Hiera-S's 3
+# global blocks (7, 10, 13) take kernel 9; its windowed blocks 0, 2, 4-6,
+# 8, 9, 11, 12 kernel 10 (the q-pool blocks 1, 3, 14 and block 15's 25
+# windows of 49 tokens, 1225 tokens in all, stay under the gates); K1 49
+# (DINO) + 32 (16 blocks x 2) + 4 chunks x 7 token norms; the decode as
+# phase 4's
+SAM2S_CONFIG = "configs/coco_fewshot_10shot_Sam2S.yaml"
+SAM2S_PER_IMAGE = {"flash_sdpa_bnhd": 24 + 3, "flash_sdpa_window_qkv": 9}
+SAM2S_K1 = 49 + 32 + 4 * 7
+# (f): Hiera-B+ forward_image, 24 blocks: kernel 9 at its 3 global blocks
+# (12, 16, 20), kernel 10 at blocks 0, 1, 3, 4 and the 12 windowed blocks
+# of stage 3 (25 windows of 196 tokens, the 64^2 grid padded to 70^2); K1
+# 24 x 2
+BPLUS_PER_IMAGE = {"layer_norm": 48, "flash_sdpa_bnhd": 3,
+                   "flash_sdpa_window_qkv": 16}
+# (g): DINOv2-giant at 518^2: 40 layers of kernel 9 and 2 x 40 + 1 K1
+GIANT_PER_IMAGE = {"layer_norm": 81, "flash_sdpa_bnhd": 40}
+# DINOv2-giant's features with the kernels against no_fusion(): each layer
+# has the cast points FEAT_REL_BAND was argued from for DINOv2-L's 24 (the
+# logits rounded to bf16 before the softmax on the no_fusion() side, every
+# layer's output rounded to bf16 on both), so a layer adds the same
+# relative error; carried through 40 layers instead of 24 it grows at most
+# in proportion to the depth
+FEAT_REL_BAND_GIANT = FEAT_REL_BAND * 40 / 24
+# (d): kmeans_decouple on a bank's rows, 10 x 1369 at DINOv2-L's 1024, k 4,
+# against the same start on the host's CPU: the centres at 1e-4 (float32
+# sums in another order; the clusters are far apart, so no row changes
+# side)
+KMEANS_ROWS, KMEANS_DIM, KMEANS_K, KMEANS_TOL = 10 * 1369, 1024, 4, 1e-4
+
 
 def _ellipse(img, cx, cy, rx, ry, color):
     """Paint an ellipse; returns its 16-vertex polygon annotation fields."""
@@ -2487,6 +2702,455 @@ def run_runner(dev, smi, phase4=None):
     return ms_img, totals
 
 
+def build_sam2(dev, cfg_name, seed=0):
+    """A SAM2 of the preset `cfg_name` on `dev`, seeded random weights,
+    bf16, attention_impl="pallas"."""
+    import torch
+    from no_time_to_train_tpu_torch.config.presets import SAM2_PRESETS
+    from no_time_to_train_tpu_torch.models.sam2.model import SAM2
+    from no_time_to_train_tpu_torch.ops.attention import set_attention_impl
+    from no_time_to_train_tpu_torch.utils.init import init_random_
+    with torch.device("meta"):
+        model = SAM2(SAM2_PRESETS[cfg_name])
+    model = model.to_empty(device=dev)
+    init_random_(model, torch.Generator(dev).manual_seed(seed))
+    return set_attention_impl(model.to(torch.bfloat16).eval(), "pallas")
+
+
+def expect_exact(what, before, want, n=1):
+    """Every kernel's launches since `before` are exactly n x `want` (the
+    names it leaves out: none). Returns the counts now."""
+    now = launch_counts()
+    moved = {k: now[k] - before[k] for k in now if now[k] != before[k]}
+    want = {k: v * n for k, v in want.items() if v}
+    if moved != want:
+        fail(f"{what}: launches {moved}, expected {want}")
+    log(f"  {what}: launches {moved}")
+    return now
+
+
+def plus(*counts):
+    out = {}
+    for c in counts:
+        for k, v in c.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def fpn_band(what, fn, x, band):
+    """Relative L2 of each FPN level of fn(x) with the kernels against
+    no_fusion(); fails outside `band`."""
+    import torch
+    from no_time_to_train_tpu_torch.ops.upscale_product import no_fusion
+    with torch.no_grad():
+        got = [f.float() for f in fn(x)["backbone_fpn"]]
+        with no_fusion():
+            ref = [f.float() for f in fn(x)["backbone_fpn"]]
+    rels = []
+    for g, r in zip(got, ref):
+        if not torch.isfinite(g).all():
+            fail(f"{what}: features with the kernels are not finite")
+        rels.append(float((g - r).norm() / r.norm()))
+    log(f"  {what} features kernels vs no_fusion: relative L2 by level "
+        f"{[round(r, 5) for r in rels]} (band {band})")
+    if max(rels) > band:
+        fail(f"{what}: features with the kernels disagree with no_fusion()")
+    return max(rels)
+
+
+def decode_band(what, ious_k, ious_p, lr_k, lr_p):
+    """Predicted IoUs within DECODE_IOU_BAND and mask logits agreeing in
+    sign on DECODE_SIGN_AGREE of the pixels, kernels against no_fusion()."""
+    import numpy as np
+    d_iou = float(np.abs(np.asarray(ious_k, np.float32)
+                         - np.asarray(ious_p, np.float32)).max())
+    agree = float(((np.asarray(lr_k) > 0) == (np.asarray(lr_p) > 0)).mean())
+    log(f"  {what} kernels vs no_fusion: max |d iou| {d_iou:.4f} (band "
+        f"{DECODE_IOU_BAND}), mask sign agreement {agree:.5f} (band "
+        f"{DECODE_SIGN_AGREE})")
+    if not (d_iou <= DECODE_IOU_BAND and agree >= DECODE_SIGN_AGREE):
+        fail(f"{what}: the kernels disagree with no_fusion()")
+
+
+def tight_records(what, recs, hw):
+    """Every record: a mask of the image's size, its area, and a bbox that
+    is the mask's tight XYWH box."""
+    import numpy as np
+    from no_time_to_train_tpu_torch.data import rle as rle_mod
+    for r in recs:
+        seg = r["segmentation"]
+        m = seg if isinstance(seg, np.ndarray) else \
+            rle_mod.decode_rle(seg).astype(bool)
+        rows, cols = m.any(axis=1), m.any(axis=0)
+        y0, x0 = int(rows.argmax()), int(cols.argmax())
+        y1 = len(rows) - 1 - int(rows[::-1].argmax())
+        x1 = len(cols) - 1 - int(cols[::-1].argmax())
+        box = [x0, y0, x1 - x0, y1 - y0]
+        if m.shape != hw or r["bbox"] != box or r["area"] != int(m.sum()) \
+                or not np.isfinite([r["predicted_iou"],
+                                    r["stability_score"]]).all():
+            fail(f"{what}: a record's mask, box or area is inconsistent")
+
+
+def image_predictor_part(dev, model, img):
+    """(a): SAM2ImagePredictor on Hiera-L: five predict calls, each against
+    the same call under no_fusion()."""
+    import numpy as np
+    from no_time_to_train_tpu_torch.models.sam2.image_predictor import (
+        SAM2ImagePredictor)
+    from no_time_to_train_tpu_torch.ops.upscale_product import no_fusion
+    h, w = img.shape[:2]
+    rng = np.random.default_rng(21)
+    lr_side = 4 * model.cfg.sam_image_embedding_size
+    lr_mask = (4 * rng.standard_normal((lr_side, lr_side))).astype(np.float32)
+    cases = [
+        ("one point", {}, dict(point_coords=[[0.4 * w, 0.55 * h]],
+                               point_labels=[1])),
+        ("three points, multimask", {}, dict(
+            point_coords=[[0.3 * w, 0.3 * h], [0.6 * w, 0.5 * h],
+                          [0.8 * w, 0.2 * h]], point_labels=[1, 1, 0],
+            multimask_output=True)),
+        ("a batch of 4 boxes", {}, dict(
+            box=[[0.1 * w, 0.1 * h, 0.5 * w, 0.6 * h],
+                 [0.4 * w, 0.2 * h, 0.9 * w, 0.7 * h],
+                 [0.2 * w, 0.5 * h, 0.6 * w, 0.95 * h],
+                 [0.05 * w, 0.05 * h, 0.95 * w, 0.95 * h]],
+            multimask_output=False)),
+        ("a box with a mask input", {}, dict(
+            box=[0.2 * w, 0.2 * h, 0.7 * w, 0.8 * h], mask_input=lr_mask,
+            multimask_output=False)),
+        ("holes and sprinkles removed", dict(max_hole_area=100.0,
+                                             max_sprinkle_area=100.0),
+         dict(point_coords=[[0.5 * w, 0.5 * h]], point_labels=[1])),
+    ]
+    for name, opts, kw in cases:
+        pred = SAM2ImagePredictor(model, **opts)
+        mark = launch_counts()
+        pred.set_image(img)
+        masks, ious, lr = pred.predict(**kw)
+        extra = 1 + ("mask_input" in kw)
+        expect_exact(f"(a) predictor, {name}", mark, plus(
+            IMAGE_ENCODE, PREDICT_DECODE, {"layer_norm": extra}))
+        n_b = len(kw["box"]) if np.ndim(kw.get("box")) == 2 else 1
+        m = 3 if kw.get("multimask_output", True) else 1
+        if masks.shape != (n_b, m, h, w) or masks.dtype != bool \
+                or lr.shape != (n_b, m, lr_side, lr_side) \
+                or not np.isfinite(lr).all() or np.abs(lr).max() > 32:
+            fail(f"(a) predictor, {name}: outputs {masks.shape} {lr.shape}")
+        with no_fusion():
+            pred.set_image(img)
+            _, ious_p, lr_p = pred.predict(**kw)
+        decode_band(f"(a) predictor, {name}", ious, ious_p, lr, lr_p)
+
+
+def amg_part(dev, model, img, smi):
+    """(b): SAM2AutomaticMaskGenerator on Hiera-L, 32^2 points in chunks of
+    256: plain, RLE output, m2m, crops, small regions. Returns (launches per
+    image of the plain generate, the thresholds)."""
+    import numpy as np
+    import torch
+    from no_time_to_train_tpu_torch.data import rle as rle_mod
+    from no_time_to_train_tpu_torch.models.sam2.amg import (
+        SAM2AutomaticMaskGenerator)
+    from no_time_to_train_tpu_torch.models.sam2.image_predictor import (
+        encode_image)
+    from no_time_to_train_tpu_torch.ops.upscale_product import no_fusion
+    hw = img.shape[:2]
+    base = dict(points_per_side=AMG_POINTS)
+    probe = SAM2AutomaticMaskGenerator(model, **base, pred_iou_thresh=0.0,
+                                       stability_score_thresh=0.0)
+    _, ious, stab, _, _, _ = probe._decode(img, probe.point_grids[0])
+    th = dict(pred_iou_thresh=float(ious.float().median()),
+              stability_score_thresh=float(stab.float().median()))
+    log(f"  (b) thresholds at the probe's medians: predicted IoU "
+        f"{th['pred_iou_thresh']:.4f}, stability "
+        f"{th['stability_score_thresh']:.4f}")
+
+    def timed(what, amg, want, n=1):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mark = launch_counts()
+        t0 = time.perf_counter()
+        recs = amg.generate(img)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        expect_exact(f"(b) {what}", mark, want, n)
+        c = amg.last_counts
+        log(f"  (b) {what}: {len(recs)} records; candidates "
+            f"{c['candidates']}, into the NMS {c['into_nms']}, kept "
+            f"{c['kept']}; {ms:.1f} ms fenced, peak allocated "
+            f"{peak / 2**30:.2f} GiB; on {smi}")
+        tight_records(f"(b) {what}", recs, hw)
+        return recs
+
+    amg = SAM2AutomaticMaskGenerator(model, **base, **th)
+    recs = timed("generate", amg, AMG_PER_IMAGE)
+    if amg.last_counts["into_nms"] < AMG_MIN_INTO_NMS or not recs:
+        fail(f"(b) {amg.last_counts['into_nms']} candidates reached the "
+             f"NMS (at least {AMG_MIN_INTO_NMS}), {len(recs)} records")
+    # one chunk of the decode with the kernels and under no_fusion()
+    with torch.no_grad():
+        fpn = encode_image(model, img)
+        pts = torch.as_tensor(np.asarray(amg.point_grids[0][:256],
+                                         np.float32)
+                              * np.float32(model.cfg.image_size),
+                              device=dev)[:, None]
+        labels = torch.ones((pts.shape[0], 1), dtype=torch.long, device=dev)
+        m_k, i_k = amg._decode_chunks(fpn, pts, labels)
+        with no_fusion():
+            m_p, i_p = amg._decode_chunks(fpn, pts, labels)
+    decode_band("(b) one chunk of 256 prompts", i_k.cpu().numpy(),
+                i_p.cpu().numpy(), m_k.cpu().numpy(), m_p.cpu().numpy())
+    del m_k, m_p
+    # the NMS off, so that every candidate past the filters becomes a
+    # record: binary masks, then the same as RLEs
+    many = SAM2AutomaticMaskGenerator(model, **base, **th,
+                                      box_nms_thresh=1.0)
+    binary = timed("generate, box NMS off", many, AMG_PER_IMAGE)
+    many.output_mode = "coco_rle"
+    rles = many.generate(img)
+    if len(rles) != len(binary) or len(binary) < AMG_MIN_INTO_NMS or any(
+            not np.array_equal(rle_mod.decode_rle(r["segmentation"])
+                               .astype(bool), b["segmentation"])
+            for r, b in zip(rles, binary)):
+        fail("(b) coco_rle does not decode to the binary masks")
+    log(f"  (b) coco_rle: {len(rles)} RLEs decode to the binary masks bit "
+        f"for bit")
+    del binary, rles
+    timed("generate, use_m2m (thresholds 0)", SAM2AutomaticMaskGenerator(
+        model, **base, pred_iou_thresh=0.0, stability_score_thresh=0.0,
+        use_m2m=True), AMG_M2M_PER_IMAGE)
+    crops = timed("generate, crop_n_layers=1", SAM2AutomaticMaskGenerator(
+        model, **base, **th, crop_n_layers=1), AMG_PER_IMAGE, AMG_CROPS)
+    log(f"  (b) crops: records from crop boxes "
+        f"{sorted({tuple(r['crop_box']) for r in crops})}")
+    small = timed("generate, min_mask_region_area=1000",
+                  SAM2AutomaticMaskGenerator(model, **base, **th,
+                                             min_mask_region_area=1000),
+                  AMG_PER_IMAGE)
+    changed = sum(s["area"] != r["area"] for s, r in zip(small, recs))
+    log(f"  (b) small regions: {changed} of {len(small)} masks changed")
+    return AMG_PER_IMAGE, th
+
+
+def matcher_amg_part(dev, model, img, th):
+    """(c): Matcher-AMG on Hiera-L: select with 5 points, without a box and
+    with one; the box as corner points against the prompt encoder's box
+    path; dense_pred; extra_mask_data in the NMS."""
+    import numpy as np
+    import torch
+    from no_time_to_train_tpu_torch.models.matching.matcher_amg import (
+        SAM2AutomaticMaskGeneratorMatcher)
+    h, w = img.shape[:2]
+    gen = SAM2AutomaticMaskGeneratorMatcher(
+        model, points_per_side=AMG_POINTS, pred_iou_thresh=0.0,
+        stability_score_thresh=0.0)
+    sel = dict(select_point_coords=[np.array(
+        [[0.2 * w, 0.3 * h], [0.5 * w, 0.5 * h], [0.7 * w, 0.2 * h],
+         [0.3 * w, 0.8 * h], [0.85 * w, 0.7 * h]])],
+        select_point_labels=[np.array([1, 1, 1, 0, 1])])
+    box = [np.array([0.1 * w, 0.1 * h, 0.9 * w, 0.9 * h])]
+    out = {}
+    for name, kw in (("select, 5 points", {}),
+                     ("select, 5 points and a box", dict(select_box=box))):
+        mark = launch_counts()
+        masks, ious = gen.generate(img, **sel, **kw)
+        expect_exact(f"(c) {name}", mark, plus(
+            IMAGE_ENCODE, PREDICT_DECODE, {"layer_norm": 1}))
+        if masks.ndim != 3 or masks.shape[1:] != (h, w) \
+                or len(masks) != len(ious) or not len(masks) \
+                or not np.isfinite(ious).all():
+            fail(f"(c) {name}: {masks.shape} masks, {len(ious)} ious")
+        out[name] = ious
+        log(f"  (c) {name}: {len(masks)} masks, ious {np.round(ious, 4)}")
+    if np.array_equal(out["select, 5 points"],
+                      out["select, 5 points and a box"]):
+        fail("(c) the box did not change the select result")
+    pe = model.sam_prompt_encoder
+    s = model.cfg.image_size
+    b = torch.tensor([[0.1 * s, 0.2 * s, 0.6 * s, 0.9 * s]], device=dev)
+    with torch.no_grad():
+        by_box = pe(boxes=b)[0].float()
+        by_points = pe.embed_points(b.reshape(1, 2, 2), torch.tensor(
+            [[2, 3]], device=dev), pad=False).float()
+    gap = float((by_box - by_points).abs().max())
+    log(f"  (c) box as corner points vs the prompt encoder's box path: max "
+        f"|d| {gap:.3e} (1e-6)")
+    if gap > 1e-6:
+        fail("(c) the box as corner points differs from the box path")
+    dense_gen = SAM2AutomaticMaskGeneratorMatcher(
+        model, points_per_side=AMG_POINTS, **th)
+    dense = dense_gen.generate(img, dense_pred=True)
+    n = len(dense["iou_preds"])
+    if not n or dense["masks"].shape != (n, h, w) \
+            or dense["boxes"].shape != (n, 4) \
+            or dense["points"].shape != (n, 2):
+        fail(f"(c) dense_pred: {n} candidates, masks {dense['masks'].shape}")
+    log(f"  (c) dense_pred: {n} candidates past the filters, no NMS")
+    extra = {"masks": np.ones((1, h, w), bool),
+             "iou_preds": np.array([10.0], np.float32),
+             "boxes": np.array([[0.0, 0.0, w, h]], np.float32)}
+    masks, ious = gen.generate(img, **sel, extra_mask_data=extra)
+    if 10.0 not in list(ious) or len(masks) != len(ious):
+        fail("(c) extra_mask_data: the earlier candidate did not survive")
+    log(f"  (c) extra_mask_data: {len(masks)} masks after the shared NMS, the "
+        f"earlier candidate kept")
+
+
+def kmeans_part(dev):
+    """(d): kmeans_decouple on a bank's rows on the device against the same
+    start on the host's CPU."""
+    import torch
+    from no_time_to_train_tpu_torch.models.matching import memory_bank as mb
+    g = torch.Generator().manual_seed(31)
+    centres = torch.randn(KMEANS_K, KMEANS_DIM, generator=g) * 4
+    rows = centres[torch.randint(KMEANS_K, (KMEANS_ROWS,), generator=g)]
+    feats = rows + torch.randn(KMEANS_ROWS, KMEANS_DIM, generator=g)
+    fore = feats + 0.3 * torch.randn(KMEANS_ROWS, KMEANS_DIM, generator=g)
+    init = torch.randperm(KMEANS_ROWS, generator=g)[:KMEANS_K]
+    t0 = time.perf_counter()
+    got = mb.kmeans_decouple(feats.to(dev), fore.to(dev), KMEANS_K,
+                             init_idx=init.to(dev))
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    want = mb.kmeans_decouple(feats, fore, KMEANS_K, init_idx=init)
+    err = float((got.cpu() - want).abs().max())
+    drawn = mb.kmeans_decouple(feats.to(dev), fore.to(dev), KMEANS_K,
+                               generator=torch.Generator(dev).manual_seed(0))
+    log(f"  (d) kmeans_decouple, {KMEANS_ROWS} x {KMEANS_DIM}, k "
+        f"{KMEANS_K}, 100 iterations: {sec * 1e3:.1f} ms on the device, max "
+        f"|d| against the CPU {err:.2e} (tolerance {KMEANS_TOL})")
+    if not err <= KMEANS_TOL or not torch.isfinite(drawn).all():
+        fail("(d) kmeans_decouple on the device disagrees with the CPU")
+
+
+def sam2s_part(dev):
+    """(e): the model of configs/coco_fewshot_10shot_Sam2S.yaml (Hiera-S +
+    DINOv2-L) built as the CLI builds it, the 10-shot test step on 2 images
+    with exact launch counts, and phase 5's checks. Returns (ms/img,
+    launch counts)."""
+    from no_time_to_train_tpu_torch.config import yaml_lite
+    from no_time_to_train_tpu_torch.runner import MatcherRunner
+    cfg = yaml_lite.load_file(os.path.join(REPO, SAM2S_CONFIG))
+    init = cfg["model"]["init_args"]
+    runner = MatcherRunner(init["model_cfg"], init["dataset_cfgs"],
+                           init.get("data_load_cfgs"), test_mode="test",
+                           seed=int(cfg.get("seed_everything", 42)),
+                           device=dev)
+    m = runner.matcher
+    if m.sam2_cfg.window_spec != (8, 4, 14, 7) or m.sam2_cfg.embed_dim != 96 \
+            or str(m.dtype) != "torch.bfloat16":
+        fail(f"(e) the YAML built {m.sam2_cfg} in {m.dtype}")
+    ms, n_valid, counts, _ = run_path(
+        dev, "sam2_s + dinov2_l pallas", "dinov2_large", "pallas", 2,
+        matcher=m, flash=SAM2S_PER_IMAGE, k1=SAM2S_K1)
+    log(f"  (e) {SAM2S_CONFIG}: {ms:.1f} ms/img warm fenced, n_valid "
+        f"{n_valid}")
+    return ms, counts
+
+
+def bplus_part(dev, img):
+    """(f): Hiera-B+ forward_image against no_fusion()."""
+    import torch
+    from no_time_to_train_tpu_torch.models.matching.pipeline import (
+        IMAGENET_MEAN, IMAGENET_STD)
+    model = build_sam2(dev, "sam2_hiera_b+.yaml", seed=1)
+    x = ((torch.as_tensor(img, device=dev) - torch.as_tensor(
+        IMAGENET_MEAN, device=dev)) / torch.as_tensor(IMAGENET_STD,
+                                                      device=dev))
+    x = x[None].to(torch.bfloat16)
+    mark = launch_counts()
+    with torch.no_grad():
+        model.forward_image(x)
+    expect_exact("(f) Hiera-B+ forward_image", mark, BPLUS_PER_IMAGE)
+    fpn_band("(f) Hiera-B+ + FPN", model.forward_image, x, FEAT_REL_BAND)
+    del model
+    torch.cuda.empty_cache()
+
+
+def giant_part(dev, img):
+    """(g): DINOv2-giant at 518^2 against no_fusion()."""
+    import torch
+    from no_time_to_train_tpu_torch.config.presets import ENCODER_PRESETS
+    from no_time_to_train_tpu_torch.models.dino import DinoV2
+    from no_time_to_train_tpu_torch.ops.attention import set_attention_impl
+    from no_time_to_train_tpu_torch.ops.resize import resize
+    from no_time_to_train_tpu_torch.ops.upscale_product import no_fusion
+    from no_time_to_train_tpu_torch.utils.init import init_random_
+    cfg = ENCODER_PRESETS["dinov2_giant"]
+    with torch.device("meta"):
+        dino = DinoV2(cfg)
+    dino = dino.to_empty(device=dev)
+    init_random_(dino, torch.Generator(dev).manual_seed(2))
+    dino = set_attention_impl(dino.to(torch.bfloat16).eval(), "pallas")
+    n_par = sum(p.numel() for p in dino.parameters())
+    from no_time_to_train_tpu_torch.models.matching.pipeline import (
+        IMAGENET_MEAN, IMAGENET_STD)
+    e = cfg.img_size
+    x = resize(torch.as_tensor(img, device=dev)[None], (e, e),
+               mode="bicubic")
+    x = ((x - torch.as_tensor(IMAGENET_MEAN, device=dev))
+         / torch.as_tensor(IMAGENET_STD, device=dev)).to(torch.bfloat16)
+    mark = launch_counts()
+    with torch.no_grad():
+        f_k = dino(x).float()
+        expect_exact("(g) DINOv2-giant at 518^2", mark, GIANT_PER_IMAGE)
+        with no_fusion():
+            f_p = dino(x).float()
+    if not torch.isfinite(f_k).all() \
+            or f_k.shape != (1, cfg.grid_size ** 2, cfg.feat_dim):
+        fail(f"(g) DINOv2-giant features {tuple(f_k.shape)} not finite")
+    rel = float((f_k - f_p).norm() / f_p.norm())
+    log(f"  (g) DINOv2-giant ({n_par / 1e9:.2f} B parameters, "
+        f"{n_par * 2 / 2**30:.2f} GiB in bf16) features kernels vs "
+        f"no_fusion: relative L2 {rel:.4f} (band {FEAT_REL_BAND_GIANT:.4f})")
+    if not rel <= FEAT_REL_BAND_GIANT:
+        fail("(g) DINOv2-giant features disagree with no_fusion()")
+    del dino
+    torch.cuda.empty_cache()
+
+
+def run_image_entries(dev, smi):
+    """Phase 10: parts (a) to (g). Returns (launch counts of the phase,
+    launches per AMG image)."""
+    import numpy as np
+    import torch
+    reset_counts()
+    img = synthetic_target(np.random.default_rng(300), TARGET_SIZE)
+    t0 = time.perf_counter()
+    model = build_sam2(dev, SAM2_CFG)
+    log(f"  SAM2-L built (bf16, pallas, random weights seed 0) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    parts = [("(a) SAM2ImagePredictor", lambda: image_predictor_part(
+        dev, model, img[:800, :960]))]
+    per_amg = {}
+
+    def amg():
+        per, th = amg_part(dev, model, img, smi)
+        per_amg.update(per)
+        matcher_amg_part(dev, model, img, th)
+
+    parts += [("(b, c) the AMG and Matcher-AMG", amg),
+              ("(d) kmeans_decouple", lambda: kmeans_part(dev))]
+    for name, fn in parts:
+        t0 = time.perf_counter()
+        fn()
+        log(f"  {name}: {time.perf_counter() - t0:.1f} s")
+    del model
+    torch.cuda.empty_cache()
+    totals = launch_counts()
+    for name, fn in (("(e) Sam2S", lambda: sam2s_part(dev)),
+                     ("(f) Hiera-B+", lambda: bplus_part(dev, img)),
+                     ("(g) DINOv2-giant", lambda: giant_part(dev, img))):
+        t0 = time.perf_counter()
+        reset_counts()
+        fn()
+        totals = plus(totals, launch_counts())
+        log(f"  {name}: {time.perf_counter() - t0:.1f} s")
+    return totals, per_amg
+
+
 def kernel_registers():
     """`--registers`: compile every source of csrc/ once more with
     `-Xptxas -v` (all started together) and print, per kernel entry, the
@@ -2590,6 +3254,12 @@ def main():
         phase_done("9")
         print(smi)
         return 0
+    if sys.argv[1:] == ["--image-entries"]:
+        log("[10] the image path's other entries")
+        run_image_entries(dev, smi)
+        phase_done("10")
+        print(smi)
+        return 0
 
     log("[3] kernels vs plain versions at the slice's shapes")
     kres = kernel_phase(dev)
@@ -2638,7 +3308,16 @@ def main():
     summary.append(f"runner test loop {ms_runner:.1f} ms/img")
     phase_done("9")
 
-    kernels = [dict(k, launches=totals[k["name"]], **kres[k["name"]])
+    log("[10] the image path's other entries: SAM2ImagePredictor, the AMG "
+        "and Matcher-AMG on SAM2-L, kmeans_decouple, the Sam2S YAML model, "
+        "Hiera-B+, DINOv2-giant; bf16, attention_impl=pallas")
+    counts, per_amg = run_image_entries(dev, smi)
+    for k, v in counts.items():
+        totals[k] = totals.get(k, 0) + v
+    phase_done("10")
+
+    kernels = [dict(k, launches=totals[k["name"]], **kres[k["name"]],
+                    amg_launches_per_image=per_amg.get(k["name"], 0))
                for k in KERNELS]
     idle = [k["name"] for k in kernels if k["launches"] == 0]
     if idle:

@@ -82,14 +82,31 @@ class _MLP(nn.Module):
         return self.fc2(_gelu_act(self.fc1(x)))
 
 
+class _SwiGLU(nn.Module):
+    """HF Dinov2SwiGLUFFN (the giant): one `weights_in` to twice the hidden
+    width (4 d * 2/3, rounded up to a multiple of 8), silu(x1) * x2, then
+    `weights_out`."""
+
+    def __init__(self, d):
+        super().__init__()
+        hidden = (int(d * 4 * 2 / 3) + 7) // 8 * 8
+        self.weights_in = nn.Linear(d, 2 * hidden)
+        self.weights_out = nn.Linear(hidden, d)
+
+    def forward(self, x):
+        x1, x2 = self.weights_in(x).chunk(2, dim=-1)
+        return self.weights_out(F.silu(x1) * x2)
+
+
 class _Layer(nn.Module):
-    def __init__(self, d, heads, mlp_ratio=4):
+    def __init__(self, d, heads, ffn_layer="mlp", mlp_ratio=4):
         super().__init__()
         self.norm1 = LayerNorm(d, eps=1e-6)
         self.attention = _Attention(d, heads)
         self.layer_scale1 = _LayerScale(d)
         self.norm2 = LayerNorm(d, eps=1e-6)
-        self.mlp = _MLP(d, mlp_ratio * d)
+        self.mlp = (_SwiGLU(d) if ffn_layer == "swiglu"
+                    else _MLP(d, mlp_ratio * d))
         self.layer_scale2 = _LayerScale(d)
 
     def forward(self, x):
@@ -103,19 +120,21 @@ class _Encoder(nn.Module):
     def __init__(self, cfg):
         super().__init__()
         self.layer = nn.ModuleList(
-            _Layer(cfg.feat_dim, cfg.num_heads) for _ in range(cfg.depth))
+            _Layer(cfg.feat_dim, cfg.num_heads, cfg.ffn_layer)
+            for _ in range(cfg.depth))
 
 
 class DinoV2(nn.Module):
-    """DINOv2 with the MLP feed-forward and layer scale (small to large)."""
+    """DINOv2 with layer scale: the MLP feed-forward (small to large) or
+    the SwiGLU one (giant)."""
 
     def __init__(self, cfg):
         super().__init__()
-        if cfg.ffn_layer != "mlp" or cfg.init_values is None \
+        if cfg.ffn_layer not in ("mlp", "swiglu") or cfg.init_values is None \
                 or cfg.family != "dinov2":
             raise NotImplementedError(
-                f"{cfg.name}: only DINOv2 with MLP blocks and layer scale is "
-                "ported")
+                f"{cfg.name}: only DINOv2 with MLP or SwiGLU blocks and layer "
+                "scale is ported")
         self.cfg = cfg
         self.embeddings = _Embeddings(cfg)
         self.encoder = _Encoder(cfg)

@@ -7,13 +7,16 @@ class and instance prototypes, the covariances, the mean pairwise instance
 similarity, k-means centres and PCA, batched over classes. The k-means
 initialisation draws from a `torch.Generator` on the bank's device, so its
 random rows differ from the JAX package's by design; everything else is
-deterministic.
+deterministic. `kmeans_decouple` and `kmeans_pp_init` (the Matcher
+baseline's clustering) take their random start as an argument, or draw it
+from a generator, so that the draw stays apart from the iterations.
 """
 from dataclasses import dataclass, replace
 
 import torch
 
-__all__ = ["MemoryBank", "create", "fill", "postprocess"]
+__all__ = ["MemoryBank", "create", "fill", "postprocess", "kmeans_decouple",
+           "kmeans_pp_init"]
 
 
 @dataclass(frozen=True)
@@ -94,6 +97,62 @@ def _kmeans_masked(feats, weights, k, n_iter, generator):
         cnts = onehot.sum(dim=1)[..., None]
         centers = torch.where(cnts > 0, sums / cnts.clamp(min=1), centers)
     return _l2n(centers)
+
+
+def kmeans_decouple(feats, feats_fore, k, n_iter=100, generator=None,
+                    init_idx=None):
+    """Decoupled k-means (reference matching_baseline_utils.py:88-126): the
+    assignment by cosine on `feats`, the centres re-estimated from
+    `feats_fore` [M, D]; a last pass assigns on `feats_fore` and averages
+    `feats`. The start is the rows `init_idx` [k] of `feats_fore`, drawn
+    from `generator` (a permutation of the M rows, its first k) when not
+    given. Returns unit-norm centres [k, D]."""
+    if init_idx is None:
+        dev = generator.device if generator is not None else feats.device
+        init_idx = torch.randperm(feats.shape[0], generator=generator,
+                                  device=dev)[:k]
+    centers = feats_fore[init_idx.to(feats.device)]
+    fnorm = _l2n(feats)
+
+    def mean_of(assign, rows, centers):
+        onehot = torch.nn.functional.one_hot(assign, k).to(feats.dtype)
+        cnts = onehot.sum(0)[:, None]
+        return torch.where(cnts > 0, (onehot.T @ rows) / cnts.clamp(min=1),
+                           centers)
+
+    for _ in range(n_iter):
+        centers = mean_of(torch.argmax(fnorm @ _l2n(centers).T, dim=1),
+                          feats_fore, centers)
+    assign = torch.argmax(_l2n(feats_fore) @ _l2n(centers).T, dim=-1)
+    return _l2n(mean_of(assign, feats, centers))
+
+
+def kmeans_pp_init(feats, k, generator=None, first=None, uniforms=None):
+    """k-means++ seeding (reference matcher_utils.py:30): the row `first`,
+    then k - 1 rows drawn one at a time with probability proportional to
+    the squared L2 distance to the nearest chosen row. The draw of step i
+    is the row where the cumulative probability reaches
+    total * (1 - uniforms[i - 1]) (searchsorted, left), as the JAX
+    package's draw with probabilities does. `first` and `uniforms` [k - 1]
+    are drawn from `generator` when not given. Returns the rows [k, D]."""
+    m = feats.shape[0]
+    dev = generator.device if generator is not None else feats.device
+    if first is None:
+        first = int(torch.randint(m, (), generator=generator, device=dev))
+    if uniforms is None:
+        uniforms = torch.rand(k - 1, generator=generator, device=dev)
+    uniforms = torch.as_tensor(uniforms, dtype=feats.dtype,
+                               device=feats.device)
+    centers = feats.new_zeros((k, feats.shape[1]))
+    centers[0] = feats[first]
+    for i in range(1, k):
+        d2 = ((feats[:, None, :] - centers[None, :i]) ** 2).sum(-1).amin(1)
+        probs = d2 / d2.sum().clamp(min=1e-12)
+        cum = torch.cumsum(probs, 0)
+        r = cum[-1] * (1 - uniforms[i - 1])
+        nxt = torch.searchsorted(cum, r[None])[0].clamp(max=m - 1)
+        centers[i] = feats[nxt]
+    return centers
 
 
 def _pca_from_cov(cov, n_comp):

@@ -14,7 +14,8 @@ component, so `max_area` steps decide every small hole exactly.
 import torch
 import torch.nn.functional as F
 
-__all__ = ["connected_components", "fill_holes_in_mask_scores"]
+__all__ = ["connected_components", "fill_holes_in_mask_scores",
+           "postprocess_masks_cc"]
 
 
 def _spread(lab, mask, big, steps):
@@ -86,3 +87,24 @@ def fill_holes_in_mask_scores(mask_scores, max_area):
     is_hole = (m & (area <= max_area) & (n_open == 0))[:, 0]
     return torch.where(is_hole, torch.full_like(scores, 0.1),
                        scores).reshape(shape)
+
+
+def postprocess_masks_cc(masks, mask_threshold=0.0, max_hole_area=0.0,
+                         max_sprinkle_area=0.0):
+    """The hole and sprinkle removal of the reference's
+    SAM2Transforms.postprocess_masks (sam2/utils/transforms.py:76-115), on
+    mask logits [..., H, W] before any resize: background components of at
+    most `max_hole_area` pixels are raised to `mask_threshold` + 10, then
+    foreground components of at most `max_sprinkle_area` pixels lowered to
+    `mask_threshold` - 10."""
+    if max_hole_area > 0:
+        labels, areas = connected_components(masks <= mask_threshold)
+        is_hole = (labels > 0) & (areas <= max_hole_area)
+        masks = torch.where(
+            is_hole, torch.full_like(masks, mask_threshold + 10.0), masks)
+    if max_sprinkle_area > 0:
+        labels, areas = connected_components(masks > mask_threshold)
+        is_spr = (labels > 0) & (areas <= max_sprinkle_area)
+        masks = torch.where(
+            is_spr, torch.full_like(masks, mask_threshold - 10.0), masks)
+    return masks

@@ -1,7 +1,8 @@
-"""Mask utilities (port of `no_time_to_train_tpu/ops/masks.py`)."""
+"""Mask utilities (port of `no_time_to_train_tpu/ops/masks.py`; reference
+sam2/utils/amg.py)."""
 import torch
 
-__all__ = ["batched_mask_to_box"]
+__all__ = ["batched_mask_to_box", "stability_score", "mask_iou_matrix"]
 
 
 def batched_mask_to_box(masks):
@@ -20,3 +21,22 @@ def batched_mask_to_box(masks):
     empty = (right < left) | (bottom < top)
     box = torch.stack([left, top, right, bottom], dim=-1)
     return box * (~empty)[..., None]
+
+
+def stability_score(mask_logits, mask_threshold=0.0, threshold_offset=1.0):
+    """IoU of the masks thresholded above and below `mask_threshold` by
+    `threshold_offset` (reference amg.py:158-178), float32 [...]."""
+    inter = (mask_logits > (mask_threshold + threshold_offset)).sum((-1, -2))
+    union = (mask_logits > (mask_threshold - threshold_offset)).sum((-1, -2))
+    return inter.float() / union.float()
+
+
+def mask_iou_matrix(masks_a, masks_b):
+    """Pairwise IoU [N, M] of boolean stacks [N, H, W] and [M, H, W] by one
+    matrix product; 0 where both masks are empty."""
+    a = masks_a.reshape(masks_a.shape[0], -1).float()
+    b = masks_b.reshape(masks_b.shape[0], -1).float()
+    inter = a @ b.T
+    union = a.sum(-1, keepdim=True) + b.sum(-1, keepdim=True).T - inter
+    return torch.where(union > 0, inter / union.clamp(min=1.0),
+                       torch.zeros_like(inter))

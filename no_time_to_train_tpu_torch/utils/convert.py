@@ -210,8 +210,8 @@ def dino_state_dict(params, cfg):
         _lin(sd, f"{p}.attention.output.dense", a["output"])
         sd[f"{p}.layer_scale1.lambda1"] = _a(t["layer_scale1"])
         sd[f"{p}.layer_scale2.lambda1"] = _a(t["layer_scale2"])
-        _lin(sd, f"{p}.mlp.fc1", t["mlp"]["fc1"])
-        _lin(sd, f"{p}.mlp.fc2", t["mlp"]["fc2"])
+        for name, sub in t["mlp"].items():     # fc1 / fc2, or the SwiGLU's
+            _lin(sd, f"{p}.mlp.{name}", sub)   # weights_in / weights_out
     return sd
 
 

@@ -119,3 +119,73 @@ def _check_hiera(cfg, impl):
         assert tuple(g.shape) == r.shape
         np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=2e-4,
                                    atol=2e-4)
+
+
+# the window_spec of SAM2-T / S / B+, (8, 4, 14, 7), on a 256^2 input: the
+# stage grids are 64, 32, 16 and 8 tokens a side, so the 14-token windows
+# of stage 3 pad 16 to 28 and the 7-token windows of stage 4 pad 8 to 14;
+# block 4 pools 14-token windows of the padded stage-3 grid into 7-token
+# ones and crops back to 8. Stage 1 (64 windows of 64 tokens) opens the
+# window kernel's gate.
+SAM_PADDED = Sam2Config(
+    embed_dim=32, num_heads=1, stages=(1, 1, 2, 2), global_att_blocks=(),
+    window_pos_embed_bkg_spatial_size=(4, 4), window_spec=(8, 4, 14, 7),
+    backbone_channel_list=(256, 128, 64, 32), image_size=256)
+
+
+@pytest.mark.parametrize("impl", ["pallas", "xla"])
+def test_hiera_padded_windows_match_jax(impl, port_calls):
+    """Windows that do not divide the grid pad with zeros after norm1, and
+    the padded keys take part in the attention, as in the reference."""
+    _check_hiera(SAM_PADDED, impl)
+    assert port_calls["window"].shapes == [(1, 4096, 96)] * (impl == "pallas")
+    assert port_calls["bnhd"].shapes == []
+
+
+# DINOv2-giant's layout at a tiny width: the SwiGLU feed-forward, hidden
+# (int(48 * 4 * 2 / 3) + 7) // 8 * 8 = 128, weights_in to 256
+TINY_GIANT = EncoderConfig("tiny_giant", 28, 14, 48, 2, 2, "local",
+                           ffn_layer="swiglu")
+
+
+@pytest.mark.parametrize("img_size,impl,n_flash",
+                         [(28, "pallas", 0), (322, "pallas", 2)])
+def test_dino_swiglu_matches_jax(img_size, impl, n_flash, port_calls):
+    """One port init, nudged by seeded noise, carried to the JAX tree by
+    the JAX package's converter `convert_hf_dinov2`, and back by the port's
+    `dino_state_dict` unchanged; then both encoders on the same images (at
+    322 px kernel 9's gate opens)."""
+    from no_time_to_train_tpu.models.dino import convert_hf_dinov2
+    from no_time_to_train_tpu_torch.utils.init import init_random_
+    tm = DinoV2(TINY_GIANT)
+    assert tuple(tm.encoder.layer[0].mlp.weights_in.weight.shape) == (256, 48)
+    init_random_(tm, torch.Generator().manual_seed(4))
+    rng = np.random.default_rng(4)
+    sd = {k: (v.numpy() + 0.05 * rng.standard_normal(v.shape)).astype(
+        np.float32) for k, v in tm.state_dict().items()}
+    tm.load_state_dict({k: torch.as_tensor(v) for k, v in sd.items()})
+    params = convert_hf_dinov2(sd, TINY_GIANT)
+    back = dino_state_dict(params, TINY_GIANT)
+    assert set(back) == set(sd)
+    for k in set(sd) - {"embeddings.mask_token"}:     # unused, written as 0
+        np.testing.assert_array_equal(back[k], sd[k], err_msg=k)
+    x = rng.standard_normal((2, img_size, img_size, 3)).astype(np.float32)
+    ref = np.asarray(JDino(TINY_GIANT).apply({"params": params},
+                                             jnp.asarray(x)))
+    set_attention_impl(tm, impl)
+    with torch.no_grad():
+        got = tm(torch.as_tensor(x)).numpy()
+    n = (img_size // 14) ** 2 + 1
+    assert port_calls["bnhd"].shapes == [(2, n, 2, 24)] * n_flash
+    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4)
+
+
+def test_dinov2_giant_preset_builds():
+    """The preset is no longer refused: 40 layers of SwiGLU at width 1536
+    (built on the meta device, no memory)."""
+    from no_time_to_train_tpu_torch.config.presets import ENCODER_PRESETS
+    with torch.device("meta"):
+        g = DinoV2(ENCODER_PRESETS["dinov2_giant"])
+    assert len(g.encoder.layer) == 40
+    assert tuple(g.encoder.layer[0].mlp.weights_in.weight.shape) == (
+        2 * 4096, 1536)

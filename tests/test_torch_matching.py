@@ -437,3 +437,101 @@ def test_tail_nms_ios_topk_matches_jax(monkeypatch):
     # the tail really suppressed and decayed something
     assert n_valid < 48
     _assert_same_outputs(oj, ot)
+
+
+def test_tail_every_class_per_mask_matches_jax(monkeypatch):
+    """MatchingConfig.cls_num_per_mask = -1: every class of a mask whose
+    score is within 0.6 of its best becomes a candidate of its own (the
+    reference's `cls_num_per_mask == -1` branch), on the synthetic decode of
+    the tail test; some mask has to carry two labels. The port's step gives
+    the JAX step's valid flags and labels, and its other outputs at the
+    tolerances of `_assert_same_outputs` but for the scores: a mask and its
+    copies under other labels overlap, so their semantic IoS comes close to
+    1, and the decay s * sqrt(1 - IoS) multiplies a float32 rounding of the
+    IoS by s / (2 sqrt(1 - IoS)) (1.8e-5 read here on a score of 0.0144):
+    scores at 5e-5 absolute."""
+    img = np.random.default_rng(12).random((128, 128, 3), np.float32)
+    quad = np.zeros((3, 128, 128), np.float32)
+    quad[0, :64, :64] = quad[1, :64, 64:] = quad[2, 64:, :64] = 1.0
+    jm, tm = _pair(refs=(np.stack([img] * 3), quad, [0, 1, 2]),
+                   num_out_instance=20, iou_thr=0.3, cls_num_per_mask=-1)
+    lr, ious, pts = _blob_scene()
+    monkeypatch.setattr(jm, "_decode_grid", lambda params, img: (
+        jnp.asarray(lr), jnp.asarray(ious), jnp.asarray(pts)))
+    monkeypatch.setattr(tm, "_decode_grid", lambda img: (
+        torch.as_tensor(lr), torch.as_tensor(ious), torch.as_tensor(pts)))
+    oj, ot = jm.test(img), tm.test(img)
+    np.testing.assert_allclose(ot["scores"], oj["scores"], rtol=1e-4,
+                               atol=5e-5)
+    _assert_same_outputs(oj, dict(ot, scores=oj["scores"]))
+    v = oj["valid"]
+    assert int(v.sum()) >= 10
+    # one mask, several labels: equal logits under different labels
+    lrv, labv = oj["lr_logits"][v].astype(np.float32), oj["labels"][v]
+    same = [(i, j) for i in range(len(lrv)) for j in range(i)
+            if np.array_equal(lrv[i], lrv[j])]
+    assert any(labv[i] != labv[j] for i, j in same)
+
+
+# the Hiera of tests/test_torch_encoders.py::SAM_PADDED (window_spec 8, 4,
+# 14, 7: stages 3 and 4 pad their grids) under the tiny matcher
+SAM_PADDED = Sam2Config(
+    embed_dim=32, num_heads=1, stages=(1, 1, 2, 2), global_att_blocks=(),
+    window_pos_embed_bkg_spatial_size=(4, 4), window_spec=(8, 4, 14, 7),
+    backbone_channel_list=(256, 128, 64, 32), image_size=256)
+
+
+def test_tiny_step_padded_windows_matches_jax(port_calls):
+    """The whole NoAMG step on the padded-window topology under "pallas":
+    the port's window kernel takes stage 1 (its plain version here), the
+    JAX package runs XLA on the CPU; the tolerances of
+    `_assert_same_outputs`."""
+    jm, tm = _pair(sam=SAM_PADDED, attention_impl="pallas")
+    img = np.random.default_rng(13).random((256, 256, 3), np.float32)
+    oj, ot = jm.test(img), tm.test(img)
+    _assert_same_outputs(oj, ot)
+    assert port_calls["window"].shapes == [(1, 4096, 96)]
+
+
+def test_kmeans_decouple_and_pp_init_match_jax():
+    """The Matcher baseline's clustering from the same start: the JAX
+    package's draws (the permutation of `kmeans_decouple`, the first row
+    and the uniforms behind each `jax.random.choice` of `kmeans_pp_init`)
+    reproduced with jax.random and handed to the port. Centres at 1e-5
+    (float32 sums in another order; the assignments are the same)."""
+    import jax.random as jr
+    rng = np.random.default_rng(14)
+    # four clusters, so that the assignment is well separated
+    base = rng.standard_normal((4, 16)).astype(np.float32) * 3
+    feats = (base[rng.integers(0, 4, 120)]
+             + rng.standard_normal((120, 16))).astype(np.float32)
+    fore = (feats + 0.3 * rng.standard_normal((120, 16))).astype(np.float32)
+    key = jr.PRNGKey(5)
+    want = np.asarray(jmb.kmeans_decouple(jnp.asarray(feats),
+                                          jnp.asarray(fore), 4, n_iter=20,
+                                          key=key))
+    idx = torch.as_tensor(np.asarray(jr.permutation(key, 120)[:4]))
+    got = tmb.kmeans_decouple(torch.as_tensor(feats), torch.as_tensor(fore),
+                              4, n_iter=20, init_idx=idx)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    gen = tmb.kmeans_decouple(torch.as_tensor(feats), torch.as_tensor(fore),
+                              4, n_iter=20,
+                              generator=torch.Generator().manual_seed(0))
+    np.testing.assert_allclose(np.linalg.norm(gen.numpy(), axis=-1), 1.0,
+                               atol=1e-5)
+
+    want = np.asarray(jmb.kmeans_pp_init(jnp.asarray(feats), 4, key))
+    k0, sub = jr.split(key)
+    first = int(jr.randint(k0, (), 0, 120))
+    uniforms = []
+    for _ in range(3):
+        sub, draw = jr.split(sub)
+        uniforms.append(float(jr.uniform(draw, ())))
+    got = tmb.kmeans_pp_init(torch.as_tensor(feats), 4, first=first,
+                             uniforms=uniforms)
+    np.testing.assert_array_equal(got.numpy(), want)
+    # the rows drawn are rows of feats, four different ones
+    drawn = tmb.kmeans_pp_init(torch.as_tensor(feats), 4,
+                               generator=torch.Generator().manual_seed(1))
+    rows = {int(np.argmin(np.abs(feats - r).sum(1))) for r in drawn.numpy()}
+    assert len(rows) == 4

@@ -241,3 +241,40 @@ def test_forward_sam_heads_matches_jax(sam2_pair, pts, mask, multimask,
         assert tuple(g.shape) == tuple(w.shape)
         np.testing.assert_allclose(g.float().numpy(), np.asarray(w),
                                    **HEADS_TOL)
+
+
+@pytest.mark.parametrize("pts,mask", [(False, False), (True, False),
+                                      (True, True)])
+def test_prompt_encoder_boxes_match_jax(sam2_pair, pts, mask):
+    """The box path of the prompt encoder: boxes alone, points and boxes
+    (points first, then the two corners, no padding point), boxes with a
+    mask prompt; sparse and dense embeddings at the tolerance of one
+    module."""
+    jm, params, tm = sam2_pair
+    rng = np.random.default_rng(7)
+    b, h = 3, CFG.sam_image_embedding_size
+    boxes = np.sort(rng.uniform(0, IMG, (b, 2, 2)), axis=1).reshape(b, 4)
+    boxes = boxes.astype(np.float32)
+    coords = rng.uniform(0, IMG, (b, 2, 2)).astype(np.float32) if pts else None
+    labels = np.array([[1, 0], [0, 1], [1, 1]], np.int32) if pts else None
+    masks = ((4 * rng.standard_normal((b, 4 * h, 4 * h, 1)))
+             .astype(np.float32) if mask else None)
+
+    def run(m, points, boxes, masks):
+        return m.sam_prompt_encoder(points=points, boxes=boxes, masks=masks)
+
+    jpoints = None if coords is None else (jnp.asarray(coords),
+                                           jnp.asarray(labels))
+    want = jm.apply({"params": params}, jpoints, jnp.asarray(boxes),
+                    None if masks is None else jnp.asarray(masks),
+                    method=run)
+    tpoints = None if coords is None else (torch.as_tensor(coords),
+                                           torch.as_tensor(labels).long())
+    with torch.no_grad():
+        got = tm.sam_prompt_encoder(
+            points=tpoints, boxes=torch.as_tensor(boxes),
+            masks=None if masks is None else torch.as_tensor(masks))
+    assert got[0].shape == (b, (2 if pts else 0) + 2, CFG.d_model)
+    for g, w in zip(got, want):
+        assert tuple(g.shape) == tuple(w.shape)
+        np.testing.assert_allclose(g.detach().numpy(), np.asarray(w), **TOL)

@@ -139,3 +139,60 @@ def test_position_encodings_match_jax():
         tpe.random_pe_grid(6, 9, torch.as_tensor(g)).numpy(),
         np.asarray(jpe.random_pe_grid(6, 9, jnp.asarray(g))),
         rtol=1e-5, atol=1e-5)
+
+
+def _logit_stack(seed, n=5, h=24, w=32):
+    """Mask logits with blobs, holes and single-pixel sprinkles, and one
+    mask that is empty at every threshold."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:h, :w]
+    out = np.full((n, h, w), -3.0, np.float32)
+    for i in range(n - 1):
+        cy, cx, r = rng.uniform(6, 18), rng.uniform(6, 26), rng.uniform(3, 8)
+        out[i] = 4.0 * (r - np.sqrt((yy - cy) ** 2 + (xx - cx) ** 2))
+        out[i] += rng.standard_normal((h, w)).astype(np.float32)
+        y, x = int(cy), int(cx)
+        out[i, y:y + 2, x:x + 2] = -2.0                # a hole
+        out[i, rng.integers(0, h), rng.integers(0, w)] = 2.5   # a sprinkle
+    return out
+
+
+@pytest.mark.parametrize("threshold,offset", [(0.0, 1.0), (0.5, 2.0)])
+def test_stability_score_matches_jax(threshold, offset):
+    """Exact: the same counts in both packages (the empty last mask gives
+    0 / 0 in both)."""
+    x = _logit_stack(6)
+    ref = np.asarray(jmasks.stability_score(jnp.asarray(x), threshold, offset))
+    got = tmasks.stability_score(torch.as_tensor(x), threshold, offset)
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+def test_mask_iou_matrix_matches_jax():
+    """Exact: integer counts in float32, one division; a pair of empty masks
+    gives 0."""
+    a = _logit_stack(7) > 0
+    b = np.concatenate([_logit_stack(8)[:3] > 0, a[:2]])
+    ref = np.asarray(jmasks.mask_iou_matrix(jnp.asarray(a), jnp.asarray(b)))
+    got = tmasks.mask_iou_matrix(torch.as_tensor(a), torch.as_tensor(b))
+    assert got.shape == (5, 5)
+    np.testing.assert_array_equal(got.numpy(), ref)
+    np.testing.assert_allclose(np.diag(got.numpy()[:2, 3:]), 1.0)
+    assert got[4, 4] == 0
+
+
+@pytest.mark.parametrize("hole,sprinkle,threshold", [
+    (4.0, 0.0, 0.0), (0.0, 2.0, 0.0), (6.0, 3.0, 0.0), (6.0, 3.0, 0.5)])
+def test_postprocess_masks_cc_matches_jax(hole, sprinkle, threshold):
+    """Exact: the same components and areas, then the same constant
+    written; with both areas above 0 the holes are filled before the
+    sprinkles are looked for, as in the JAX package."""
+    from no_time_to_train_tpu.ops import connected_components as jcc
+    from no_time_to_train_tpu_torch.ops import connected_components as tcc
+    x = _logit_stack(9).reshape(1, 5, 24, 32)
+    ref = np.asarray(jcc.postprocess_masks_cc(jnp.asarray(x), threshold,
+                                              hole, sprinkle))
+    got = tcc.postprocess_masks_cc(torch.as_tensor(x), threshold, hole,
+                                   sprinkle)
+    assert (ref != x).any()
+    np.testing.assert_array_equal(got.numpy(), ref)

@@ -34,10 +34,19 @@ Run from the root of a checkout. Phases, each of which raises on failure:
   7. video tracking: SAM2 Hiera-L in bf16 under "pallas" with seeded random
      weights on a synthetic 1024^2 clip (a moving square and a fixed
      rectangle on noise), two objects prompted by a point on frame 0,
-     forward propagation; the launch counts per tracked frame, the memory
-     attention of the last frame with the kernels and under no_fusion(),
-     and the same run under no_fusion() beside it; one more run of the
-     clip gives K1's launches per frame by shape;
+     forward propagation frame by frame (scan_chunk 0) with the exact
+     launch counts per tracked frame, then on the default chunked scan
+     (chunks of 8, each frame a replay of a CUDA graph) with masks bit for
+     bit the per-frame path's; the memory attention of the last frame with
+     the kernels and under no_fusion(); a reverse pass from frame 11 on both
+     paths, bit for bit; one graph captured per key and one replay per
+     tracked frame, the scan runs' launches exactly those of a warm-up step
+     and a capture per key; one more propagation on each path under
+     torch.profiler, the port's kernels by name equal on both; wall ms per
+     tracked frame of both paths in turns; the scan path under no_fusion()
+     (a graph of its own, no kernel launched) against the kernels; one more
+     run of the clip frame by frame gives K1's launches per frame by
+     shape;
   8. the batched test step: the DINOv2-L "pallas" matcher with negative
      references (10 positive and 10 negative references per class, both
      banks post-processed); `test_batch_async` on two targets with exact
@@ -90,9 +99,12 @@ spill of a register-tile kernel (NO_SPILL);
 `python3 chip_smoke.py --batch-profile` runs phases 1 and 2 and then two
 images at B = 1 and at B = 2 under torch.profiler (wall, device busy time
 and kernels launched per image; a stopgap like --video-profile).
-`python3 chip_smoke.py --video-profile` runs phases 1, 2 and 7 only and
-prints the device's busy time over the tracked frames under torch.profiler
-(a stopgap until the port has a bench that measures it). The last lines are the kernel table, the card's name and
+`python3 chip_smoke.py --video` runs phases 1, 2 and 7 only;
+`python3 chip_smoke.py --video-profile` runs phases 1, 2 and 7 up to its
+profiled runs and prints, for both paths, wall, device busy time, idle
+share, kernels and copies and host launch calls per tracked frame, and the
+device rows by time (a stopgap until the port has a bench that measures
+it). The last lines are the kernel table, the card's name and
 power limit, and {"ok": true, "device": {...}}. Without a GPU, or outside a
 checkout, it exits non-zero before printing any result.
 """
@@ -1879,19 +1891,27 @@ def build_video_predictor(dev):
     return SAM2VideoPredictor(build_sam2(dev, SAM2_CFG), device=dev)
 
 
-def track_clip(pred, frames, points, fenced=True):
-    """Prompt one point per object on frame 0 and propagate forward.
-    Returns the per-frame masks (on the device) and fenced ms per frame."""
+def prompt_clip(pred, frames, points, chunk):
+    """A new state on the clip with one point per object on frame 0, the
+    predictor set to scan `chunk` frames a chunk (0: frame by frame)."""
     import numpy as np
-    import torch
+    pred.scan_chunk = chunk
     state = pred.init_state(frames)
     for obj, xy in enumerate(points, start=1):
         pred.add_new_points_or_box(state, 0, obj, points=[xy],
                                    labels=np.array([1], np.int32))
+    return state
+
+
+def propagate(pred, state, fenced=True, **kw):
+    """Every yielded frame's masks (on the device), ms per frame (fenced
+    after each frame, or only at the end) and the wall ms of the whole
+    propagation up to its last synchronise."""
+    import torch
     masks, times = {}, []
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for t, _, m in pred.propagate_in_video(state):
+    t0 = start = time.perf_counter()
+    for t, _, m in pred.propagate_in_video(state, **kw):
         if fenced:
             torch.cuda.synchronize()
         now = time.perf_counter()
@@ -1899,7 +1919,32 @@ def track_clip(pred, frames, points, fenced=True):
         t0 = now
         masks[t] = m
     torch.cuda.synchronize()
+    return masks, times, (time.perf_counter() - start) * 1e3
+
+
+def track_clip(pred, frames, points, chunk, fenced=True):
+    """Prompt one point per object on frame 0 and propagate forward.
+    Returns the per-frame masks (on the device), ms per frame and the
+    state."""
+    state = prompt_clip(pred, frames, points, chunk)
+    masks, times, _ = propagate(pred, state, fenced)
     return masks, times, state
+
+
+def timed_turns(pred, frames, points, chunk):
+    """Warm wall ms per tracked frame of the per-frame path and of the scan
+    path, timed in turns (per-frame, scan, scan, per-frame): one forward
+    propagation after its prompts, synchronised at its end only (the
+    preflight and the prompted frame 0 included)."""
+    ms = {0: [], chunk: []}
+    for ch in (0, chunk, chunk, 0):
+        state = prompt_clip(pred, frames, points, ch)
+        ms[ch].append(propagate(pred, state, fenced=False)[2]
+                      / (VIDEO_FRAMES - 1))
+    log(f"  wall ms per tracked frame in turns (per-frame, scan, scan, "
+        f"per-frame): {ms[0][0]:.2f}, {ms[chunk][0]:.2f}, {ms[chunk][1]:.2f},"
+        f" {ms[0][1]:.2f}")
+    return statistics.mean(ms[chunk]), statistics.mean(ms[0])
 
 
 def memory_features_check(pred, state, n_obj):
@@ -1943,29 +1988,168 @@ def memory_features_check(pred, state, n_obj):
              "no_fusion(), or the band would not catch dropped keys")
 
 
+def check_masks(what, masks, n_obj, side):
+    import torch
+    for t, m in masks.items():
+        if tuple(m.shape) != (n_obj, side, side) \
+                or not torch.isfinite(m).all():
+            fail(f"{what}, frame {t}: masks {tuple(m.shape)} not finite or "
+                 "misshapen")
+    areas = torch.stack([(m > 0).float().mean(dim=(1, 2))
+                         for m in masks.values()])
+    log(f"  {what}: mask area share per object, least / most over the "
+        f"frames: {[round(float(x), 4) for x in areas.min(dim=0).values]} / "
+        f"{[round(float(x), 4) for x in areas.max(dim=0).values]}")
+    if not (areas > 0).all():
+        fail(f"{what}: an object's mask is empty on some frame")
+
+
+def mask_gap(what, masks, ref):
+    """Sign agreement and mean |d logit| (also relative to the mean
+    |logit|) per frame of two trackings; fails outside phase 7's bands."""
+    agree, gap, rel = [], [], []
+    for t in ref:
+        agree.append(float(((masks[t] > 0) == (ref[t] > 0)).float().mean()))
+        gap.append(float((masks[t] - ref[t]).abs().mean()))
+        rel.append(gap[-1] / float(ref[t].abs().mean()))
+    log(f"  {what}: mask sign agreement per frame "
+        f"{[round(a, 4) for a in agree]} (band {VIDEO_SIGN_AGREE}), mean "
+        f"|d logit| per frame {[round(x, 3) for x in gap]}, relative to the "
+        f"mean |logit| {[round(x, 4) for x in rel]} (band {VIDEO_REL_GAP})")
+    if min(agree) < VIDEO_SIGN_AGREE or max(rel) > VIDEO_REL_GAP:
+        fail(f"{what}: the two trackings disagree")
+
+
+def same_masks(what, masks, ref):
+    """The scan path against the per-frame path: the same kernels on the
+    same operands, so the masks must be equal bit for bit."""
+    import torch
+    if list(masks) != list(ref):
+        fail(f"{what}: frames {list(masks)} against {list(ref)}")
+    diff = max(float((masks[t] - ref[t]).abs().max()) for t in ref)
+    equal = all(torch.equal(masks[t], ref[t]) for t in ref)
+    log(f"  {what}: {len(ref)} frames, max |d logit| {diff:g}"
+        f"{', bit for bit' if equal else ''}")
+    if not equal:
+        mask_gap(what, masks, ref)
+        fail(f"{what}: the scan path's masks are not the per-frame path's "
+             "bit for bit")
+
+
+# the port's own kernels in a profile, by the names of csrc's kernels
+OUR_KERNELS = ("attn_mma::", "attn::", "tile_list_kernel", "i2t_kernel",
+               "i2t_mma_kernel", "ln_rows_kernel", "ln_slab_kernel",
+               "t2i_kernel", "t2i_mma_kernel", "t2i_merge_kernel",
+               "upscale_kernel", "post_t1_mma_kernel")
+# host calls that put work on the device
+HOST_LAUNCH = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+               "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+               "cudaMemsetAsync", "cudaMemcpy")
+
+
+# torch.profiler can lose the records of the first kernels that run after it
+# starts: on an H100 some profiles of a propagation lacked its first
+# kernels, a K1 launch among them, and others did not, also when the device
+# had idled inside the profile before the run. So a profiled run starts
+# with PRIME_SPINS spin kernels (torch.cuda._sleep), which take that loss
+# and are left out of every count, as is the device row of the annotation
+# that marks the run.
+PRIME_SPINS = 512
+PRIME_CYCLES = 20000
+PROFILED_RUN = "profiled run"
+
+
+def profiled(fn):
+    """Run `fn` once under torch.profiler, after the priming spin kernels.
+    Returns (wall ms of `fn` up to a synchronise, its device rows, its host
+    launch calls {name: count})."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as prof
+    from torch.profiler import record_function
+    torch.cuda.synchronize()
+    with prof(activities=[ProfilerActivity.CPU,
+                          ProfilerActivity.CUDA]) as p:
+        for _ in range(PRIME_SPINS):
+            torch.cuda._sleep(PRIME_CYCLES)
+        torch.cuda.synchronize()
+        with record_function(PROFILED_RUN):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    dev_rows = [e for e in p.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and "spin_kernel" not in e.key and e.key != PROFILED_RUN]
+    events = p.events()
+    span = next(e.time_range for e in events if e.name == PROFILED_RUN
+                and e.device_type != torch.autograd.DeviceType.CUDA)
+    host = {}
+    for e in events:
+        if e.name in HOST_LAUNCH \
+                and span.start <= e.time_range.start <= span.end:
+            host[e.name] = host.get(e.name, 0) + 1
+    return wall, dev_rows, host
+
+
+def profile_propagation(pred, frames, points, chunk, label):
+    """One unfenced forward propagation (the prompts outside it) under
+    torch.profiler: wall, device busy time, idle share, kernels and copies
+    and host launch calls per tracked frame, and the port's kernels by
+    name. Returns (the device rows, the port's kernels {name: count})."""
+    state = prompt_clip(pred, frames, points, chunk)
+    wall, dev_rows, host_calls = profiled(
+        lambda: propagate(pred, state, fenced=False))
+    busy = sum(e.self_device_time_total for e in dev_rows) / 1e3
+    n_kern = sum(e.count for e in dev_rows)
+    host = sum(host_calls.values())
+    ours = {e.key: e.count for e in dev_rows
+            if any(n in e.key for n in OUR_KERNELS)}
+    tracked = VIDEO_FRAMES - 1
+    log(f"  profile, {label}: one unfenced propagation of {VIDEO_FRAMES} "
+        f"frames (frame 0 prompted): wall {wall:.1f} ms ({wall / tracked:.2f}"
+        f" a tracked frame), device busy {busy:.1f} ms "
+        f"({busy / tracked:.2f} a tracked frame), idle share "
+        f"{100 * (1 - busy / wall):.1f} %; per tracked frame "
+        f"{n_kern / tracked:.1f} kernels and copies, "
+        f"{host / tracked:.1f} host launch calls ({host_calls})"
+        f"; the port's kernels {sum(ours.values())} "
+        f"({sum(ours.values()) / tracked:.1f} a tracked frame)")
+    return dev_rows, ours
+
+
+def scan_graphs(pred):
+    """The scan graphs captured so far: {key: (captures, seconds of the
+    capture, bytes of its memory pool)}."""
+    st = pred.scan_stats
+    return {k: (n, st["capture_s"][k], st["pool_bytes"][k])
+            for k, n in st["captures"].items()}
+
+
 def run_video(dev, profile=False):
-    """Phase 7. Returns (warm fenced ms per tracked frame, launch counts of
-    the path)."""
+    """Phase 7. Returns (warm wall ms per tracked frame on the scan path and
+    on the per-frame path, in turns; launch counts of the path)."""
     import torch
     from no_time_to_train_tpu_torch.ops.upscale_product import no_fusion
 
     t0 = time.perf_counter()
     pred = build_video_predictor(dev)
     frames, points = synthetic_clip(VIDEO_FRAMES)
+    n_obj, tracked = len(points), VIDEO_FRAMES - 1
+    side = 4 * pred.cfg.sam_image_embedding_size
+    chunk = pred.scan_chunk
     torch.cuda.synchronize()
     log(f"  predictor built (SAM2 Hiera-L, bf16, pallas, random weights seed "
         f"0) and a {VIDEO_FRAMES}-frame 1024^2 clip made in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{time.perf_counter() - t0:.1f} s; scan_chunk {chunk}")
 
+    # the per-frame path (scan_chunk 0): exact launches per frame
     reset_counts()                       # the path starts here
-    masks, times, state = track_clip(pred, frames, points)
+    masks, times, state = track_clip(pred, frames, points, 0)
     counts = launch_counts()             # the path ends here
-    tracked = VIDEO_FRAMES - 1
-    warm = statistics.mean(times[2:])
-    log(f"  propagate: fenced ms per frame {[round(t, 1) for t in times]} "
-        f"(frame 0 is the prompted frame, frame 1 includes warm-up); warm "
-        f"mean over {len(times) - 2} tracked frames {warm:.1f} ms/frame, "
-        f"{len(points)} objects")
+    log(f"  per-frame path: fenced ms per frame "
+        f"{[round(t, 1) for t in times]} (frame 0 is the prompted frame, "
+        f"frame 1 includes warm-up); mean over {len(times) - 2} tracked "
+        f"frames {statistics.mean(times[2:]):.1f} ms/frame, {n_obj} objects")
     log(f"  kernel launches: {counts}")
     for k, per in VIDEO_PER_FRAME.items():
         if counts[k] != per * VIDEO_FRAMES:
@@ -1973,7 +2157,7 @@ def run_video(dev, profile=False):
                  f"expected {per} per frame")
     for k, per in VIDEO_PER_TRACKED.items():
         # the two prompted decodes on frame 0 also run the SAM heads
-        extra = (per * len(points)
+        extra = (per * n_obj
                  if k in ("fused_t2i_attn", "fused_i2t_norm") else 0)
         if counts[k] != per * tracked + extra:
             fail(f"{k}: {counts[k]} launches over {tracked} tracked frames, "
@@ -1984,74 +2168,126 @@ def run_video(dev, profile=False):
              "pair variant")
     log(f"  launches per tracked frame: "
         f"{ {**VIDEO_PER_FRAME, **VIDEO_PER_TRACKED} }")
+    check_masks("per-frame path", masks, n_obj, side)
 
-    side = 4 * pred.cfg.sam_image_embedding_size
-    for t, m in masks.items():
-        if tuple(m.shape) != (len(points), side, side) \
-                or not torch.isfinite(m).all():
-            fail(f"frame {t}: masks {tuple(m.shape)} not finite or misshapen")
-    areas = torch.stack([(m > 0).float().mean(dim=(1, 2))
-                         for m in masks.values()])
-    log(f"  mask area share per object, least / most over the frames: "
-        f"{[round(float(x), 4) for x in areas.min(dim=0).values]} / "
-        f"{[round(float(x), 4) for x in areas.max(dim=0).values]}")
-    if not (areas > 0).all():
-        fail("an object's mask is empty on some frame")
-    kept = len(state["output_dict_per_obj"][0]["non_cond"])
+    # the chunked scan (the default): one CUDA graph per key, captured at
+    # the run's first chunk after an eager warm-up step on copies of the
+    # buffers, then one replay per tracked frame
+    reset_counts()                       # the path starts here
+    scan_masks, scan_times, scan_state = track_clip(pred, frames, points,
+                                                    chunk)
+    scan_counts = launch_counts()        # the path ends here
+    log(f"  scan path: fenced ms per frame "
+        f"{[round(t, 1) for t in scan_times]} (chunk {chunk}: frames 1-8 "
+        f"yield after frames 9-11 are dispatched; the first chunk includes "
+        f"the capture)")
+    check_masks("scan path", scan_masks, n_obj, side)
+    same_masks("scan path vs per-frame path, forward", scan_masks, masks)
+    if pred.scan_stats["replays"] != tracked:
+        fail(f"{pred.scan_stats['replays']} graph replays for {tracked} "
+             "tracked frames")
+    kept = len(scan_state["output_dict_per_obj"][0]["non_cond"])
     log(f"  tracked frames kept in the state: {kept} (history window "
-        f"{pred.history_window})")
+        f"{pred.history_window}); the per-frame path kept "
+        f"{len(state['output_dict_per_obj'][0]['non_cond'])}")
 
     if not profile:
-        memory_features_check(pred, state, len(points))
-        counts_after = launch_counts()
+        memory_features_check(pred, scan_state, n_obj)
+
+    # in reverse from the last frame, on both paths (frame 0 is prompted)
+    pred.scan_chunk = 0
+    rev, _, _ = propagate(pred, state, start_frame_idx=VIDEO_FRAMES - 1,
+                          reverse=True)
+    pred.scan_chunk = chunk
+    replays = pred.scan_stats["replays"]
+    reset_counts()
+    scan_rev, _, _ = propagate(pred, scan_state,
+                               start_frame_idx=VIDEO_FRAMES - 1, reverse=True)
+    rev_counts = launch_counts()
+    same_masks("scan path vs per-frame path, reverse from frame "
+               f"{VIDEO_FRAMES - 1}", scan_rev, rev)
+    if pred.scan_stats["replays"] - replays != tracked:
+        fail(f"{pred.scan_stats['replays'] - replays} graph replays for "
+             f"{tracked} frames tracked in reverse")
+    for k, v in rev_counts.items():
+        scan_counts[k] += v
+    graphs = scan_graphs(pred)
+    log(f"  scan graphs: {len(graphs)} keys (objects, cond rows, cond "
+        "pointers, reverse, multimask, fill_hole_area, pointer candidates, "
+        "chunk, fusion off): " + "; ".join(
+            f"{k}: captured {n} x in {s:.2f} s, pool {b / 2**20:.0f} MiB"
+            for k, (n, s, b) in graphs.items())
+        + f"; {pred.scan_stats['replays']} replays")
+    if len(graphs) != 2 or any(n != 1 for n, _, _ in graphs.values()):
+        fail("the forward and the reverse scan must each capture one graph "
+             "once")
+    # launches counted on the scan runs: the eager warm-up step and the
+    # capture of each key (a replay calls no wrapper), and frame 0's
+    # features and prompted decodes
+    log(f"  scan runs' kernel launches (frame 0, then a warm-up step and a "
+        f"capture per key): {scan_counts}")
+    for k, per in {**VIDEO_PER_FRAME, **VIDEO_PER_TRACKED}.items():
+        want = 2 * len(graphs) * per + (
+            per if k in VIDEO_PER_FRAME else
+            per * n_obj if k in ("fused_t2i_attn", "fused_i2t_norm") else 0)
+        if scan_counts[k] != want:
+            fail(f"{k}: {scan_counts[k]} launches on the scan runs, "
+                 f"expected {want}")
+
+    # the same propagation once more on each path under torch.profiler:
+    # the port's kernels by name must be the per-frame path's
+    captures = dict(pred.scan_stats["captures"])
+    pf_rows, pf_ours = profile_propagation(pred, frames, points, 0,
+                                           "per-frame path")
+    sc_rows, sc_ours = profile_propagation(pred, frames, points, chunk,
+                                           "scan path, graph replays")
+    if pred.scan_stats["captures"] != captures:
+        fail("the profiled scan run captured a graph")
+    if sc_ours != pf_ours or not pf_ours:
+        diff = {k: (pf_ours.get(k, 0), sc_ours.get(k, 0))
+                for k in set(pf_ours) | set(sc_ours)
+                if pf_ours.get(k, 0) != sc_ours.get(k, 0)}
+        fail(f"the port's kernels by name differ between the paths "
+             f"(per-frame, scan): {diff}")
+    log(f"  the port's kernels by name per propagation, equal on both paths "
+        f"({len(pf_ours)} names): "
+        + "; ".join(f"{k[:70]} {n}" for k, n in sorted(pf_ours.items())))
+    for k, v in scan_counts.items():
+        counts[k] += v
+    scan_warm, warm = timed_turns(pred, frames, points, chunk)
+    if pred.scan_stats["captures"] != captures:
+        fail("a warm scan run captured a graph")
 
     if profile:
-        from torch.profiler import ProfilerActivity, profile as prof
-        with prof(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as p:
-            t0 = time.perf_counter()
-            track_clip(pred, frames, points, fenced=False)
-            wall = (time.perf_counter() - t0) * 1e3
-        dev_rows = [e for e in p.key_averages()
-                    if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy = sum(e.self_device_time_total for e in dev_rows) / 1e3
-        n_kern = sum(e.count for e in dev_rows)
-        log(f"  profile, one unfenced run of {VIDEO_FRAMES} frames: wall "
-            f"{wall:.1f} ms, device busy {busy:.1f} ms, idle share "
-            f"{100 * (1 - busy / wall):.1f} %, {n_kern} kernels and copies "
-            f"({n_kern / VIDEO_FRAMES:.0f} per frame)")
-        for e in profile_rows(dev_rows, 14):
-            log(f"    {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d} x  "
-                f"{e.key[:90]}")
-        return warm, counts
+        for label, rows in (("per-frame path", pf_rows),
+                            ("scan path", sc_rows)):
+            log(f"  {label}, device rows:")
+            for e in profile_rows(rows, 14):
+                log(f"    {e.self_device_time_total / 1e3:9.2f} ms "
+                    f"{e.count:6d} x  {e.key[:90]}")
+        return scan_warm, warm, counts
 
-    # tracking with the kernels against tracking under no_fusion()
+    # tracking with the kernels against tracking under no_fusion(), on the
+    # scan path: a graph of its own (the key holds fusion_disabled())
+    counts_after = launch_counts()
     with no_fusion():
-        plain_masks, plain_times, _ = track_clip(pred, frames, points)
+        plain_masks, _, _ = track_clip(pred, frames, points, chunk)
     if launch_counts() != counts_after:
         fail("a kernel was launched inside no_fusion()")
-    agree, gap, rel = [], [], []
-    for t in masks:
-        agree.append(float(((masks[t] > 0) == (plain_masks[t] > 0))
-                           .float().mean()))
-        gap.append(float((masks[t] - plain_masks[t]).abs().mean()))
-        rel.append(gap[-1] / float(plain_masks[t].abs().mean()))
-    log(f"  kernels vs no_fusion(): mask sign agreement per frame "
-        f"{[round(a, 4) for a in agree]} (band {VIDEO_SIGN_AGREE}), mean "
-        f"|d logit| per frame {[round(x, 3) for x in gap]}, relative to the "
-        f"mean |logit| {[round(x, 4) for x in rel]} (band {VIDEO_REL_GAP}); "
-        f"no_fusion() warm {statistics.mean(plain_times[2:]):.1f} ms/frame")
-    if min(agree) < VIDEO_SIGN_AGREE or max(rel) > VIDEO_REL_GAP:
-        fail("tracking with the kernels disagrees with tracking under "
-             "no_fusion()")
-    # K1's launches over one more run of the clip, by shape
+    plain_keys = [k for k in pred.scan_stats["captures"] if k[-1]]
+    if len(plain_keys) != 1:
+        fail(f"no_fusion() tracking captured {len(plain_keys)} graphs of "
+             "its own, expected 1")
+    mask_gap("kernels vs no_fusion(), scan path", scan_masks, plain_masks)
+    # K1's launches over one more run of the clip, by shape (per-frame path:
+    # a replay calls no wrapper)
     with k1_shapes() as seen:
-        track_clip(pred, frames, points, fenced=False)
+        track_clip(pred, frames, points, 0, fenced=False)
     k1_by_shape(f"per frame (over the {VIDEO_FRAMES} frames)", seen,
                 VIDEO_FRAMES)
     del pred
     torch.cuda.empty_cache()
-    return warm, counts
+    return scan_warm, warm, counts
 
 
 def same_result(what, got, ref, exact=False):
@@ -2150,23 +2386,13 @@ def batch_profile(dev, smi):
     """`--batch-profile`: two test images as two steps of one and as one
     step of two, each under torch.profiler: wall time, device busy time and
     the kernels and copies launched, per image."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile as prof
     matcher, targets = build_batched_matcher(dev)
     steps = {1: lambda: [matcher.test(t) for t in targets],
              2: lambda: matcher.fetch_test(matcher.test_batch_async(targets))}
     for b in (1, 2, 1, 2):
         steps[b]()                       # warm both
     for b in (1, 2, 2, 1):
-        with prof(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as p:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            steps[b]()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        dev_rows = [e for e in p.key_averages()
-                    if e.device_type == torch.autograd.DeviceType.CUDA]
+        wall, dev_rows, _ = profiled(steps[b])
         busy = sum(e.self_device_time_total for e in dev_rows) / 1e3
         n_kern = sum(e.count for e in dev_rows)
         log(f"  profile, two images at B = {b}: per image wall "
@@ -3237,9 +3463,11 @@ def main():
         log(f"  phase {name}: {now - t_phase:.1f} s")
         t_phase = now
 
-    if sys.argv[1:] == ["--video-profile"]:
-        log("[7] video tracking under torch.profiler")
-        run_video(dev, profile=True)
+    if sys.argv[1:] in (["--video"], ["--video-profile"]):
+        profile = sys.argv[1] == "--video-profile"
+        log(f"[7] video tracking{' under torch.profiler' * profile}")
+        run_video(dev, profile=profile)
+        phase_done("7")
         print(smi)
         return 0
     if sys.argv[1:] == ["--batch-profile"]:
@@ -3285,10 +3513,11 @@ def main():
 
     log("[7] video tracking, SAM2-L, bf16, attention_impl=pallas, "
         f"{VIDEO_FRAMES} frames, 2 objects")
-    ms_frame, counts = run_video(dev)
+    ms_scan, ms_frame, counts = run_video(dev)
     for k, v in counts.items():
         totals[k] = totals.get(k, 0) + v
-    summary.append(f"video {ms_frame:.1f} ms/frame")
+    summary.append(f"video {ms_scan:.1f} ms a tracked frame on the scan "
+                   f"path, {ms_frame:.1f} frame by frame (wall, in turns)")
     phase_done("7")
 
     log("[8] batched test step, SAM2-L + dinov2_large, bf16, "

@@ -99,20 +99,29 @@ class _SwiGLU(nn.Module):
 
 
 class _Layer(nn.Module):
-    def __init__(self, d, heads, ffn_layer="mlp", mlp_ratio=4):
+    """One block; without `layer_scale` (init_values None) the branches
+    enter the residual unscaled and the block has no lambda1 parameters,
+    as the JAX package's `use_layer_scale=False`."""
+
+    def __init__(self, d, heads, ffn_layer="mlp", mlp_ratio=4,
+                 layer_scale=True):
         super().__init__()
         self.norm1 = LayerNorm(d, eps=1e-6)
         self.attention = _Attention(d, heads)
-        self.layer_scale1 = _LayerScale(d)
+        self.layer_scale1 = _LayerScale(d) if layer_scale else None
         self.norm2 = LayerNorm(d, eps=1e-6)
         self.mlp = (_SwiGLU(d) if ffn_layer == "swiglu"
                     else _MLP(d, mlp_ratio * d))
-        self.layer_scale2 = _LayerScale(d)
+        self.layer_scale2 = _LayerScale(d) if layer_scale else None
 
     def forward(self, x):
-        h = self.attention(self.norm1(x)) * self.layer_scale1.lambda1
+        h = self.attention(self.norm1(x))
+        if self.layer_scale1 is not None:
+            h = h * self.layer_scale1.lambda1
         x = x + h
-        h = self.mlp(self.norm2(x)) * self.layer_scale2.lambda1
+        h = self.mlp(self.norm2(x))
+        if self.layer_scale2 is not None:
+            h = h * self.layer_scale2.lambda1
         return x + h
 
 
@@ -120,21 +129,21 @@ class _Encoder(nn.Module):
     def __init__(self, cfg):
         super().__init__()
         self.layer = nn.ModuleList(
-            _Layer(cfg.feat_dim, cfg.num_heads, cfg.ffn_layer)
+            _Layer(cfg.feat_dim, cfg.num_heads, cfg.ffn_layer,
+                   layer_scale=cfg.init_values is not None)
             for _ in range(cfg.depth))
 
 
 class DinoV2(nn.Module):
-    """DINOv2 with layer scale: the MLP feed-forward (small to large) or
-    the SwiGLU one (giant)."""
+    """DINOv2: the MLP feed-forward (small to large) or the SwiGLU one
+    (giant), with layer scale, or without it where init_values is None."""
 
     def __init__(self, cfg):
         super().__init__()
-        if cfg.ffn_layer not in ("mlp", "swiglu") or cfg.init_values is None \
-                or cfg.family != "dinov2":
+        if cfg.ffn_layer not in ("mlp", "swiglu") or cfg.family != "dinov2":
             raise NotImplementedError(
-                f"{cfg.name}: only DINOv2 with MLP or SwiGLU blocks and layer "
-                "scale is ported")
+                f"{cfg.name}: only DINOv2 with MLP or SwiGLU blocks is "
+                "ported")
         self.cfg = cfg
         self.embeddings = _Embeddings(cfg)
         self.encoder = _Encoder(cfg)

@@ -17,7 +17,7 @@ import torch.nn.functional as F
 
 from no_time_to_train_tpu_torch.models.sam2.common import (
     LayerNorm2d, _gelu_act, conv1x1)
-from no_time_to_train_tpu_torch.models.sam2.pos_enc import sine_pos_embed_2d
+from no_time_to_train_tpu_torch.models.sam2.pos_enc import sine_pos_table
 
 __all__ = ["MaskDownSampler", "CXBlock", "Fuser", "MemoryEncoder"]
 
@@ -133,6 +133,6 @@ class MemoryEncoder(nn.Module):
         x = self.fuser(x)
         if self.out_proj is not None:
             x = conv1x1(self.out_proj, x)
-        pos = sine_pos_embed_2d(x.shape[1], x.shape[2], self.pos_num_feats,
-                                dtype=x.dtype, device=x.device)
+        pos = sine_pos_table(x.shape[1], x.shape[2], self.pos_num_feats,
+                             dtype=x.dtype, device=x.device)
         return x, pos[None].expand(x.shape[0], -1, -1, -1)

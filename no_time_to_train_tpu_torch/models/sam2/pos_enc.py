@@ -8,8 +8,11 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-__all__ = ["sine_pos_embed_2d", "random_pe_coords", "random_pe_grid",
-           "axial_rope_cos_sin", "apply_rotary", "sine_pe_1d"]
+from no_time_to_train_tpu_torch.ops.graph_inputs import held
+
+__all__ = ["sine_pos_embed_2d", "sine_pos_table", "random_pe_coords",
+           "random_pe_grid", "axial_rope_cos_sin", "apply_rotary",
+           "sine_pe_1d"]
 
 
 @lru_cache(maxsize=None)
@@ -40,6 +43,20 @@ def sine_pos_embed_2d(h, w, num_pos_feats, temperature=10000, normalize=True,
     return torch.as_tensor(
         _sine_pos_embed_2d_np(h, w, num_pos_feats, temperature, normalize,
                               scale), dtype=dtype, device=device)
+
+
+@lru_cache(maxsize=8)
+def _sine_pos_tensor(h, w, num_pos_feats, dtype, device):
+    return sine_pos_embed_2d(h, w, num_pos_feats, dtype=dtype, device=device)
+
+
+def sine_pos_table(h, w, num_pos_feats, dtype=torch.float32, device=None):
+    """`sine_pos_embed_2d` with the default temperature and scale, made and
+    uploaded once per (h, w, features, dtype, device): a step that reads it
+    copies nothing from the host (the caller must not modify the shared
+    tensor)."""
+    return held(_sine_pos_tensor(h, w, num_pos_feats, dtype,
+                                 torch.device(device or "cpu")))
 
 
 def random_pe_coords(coords01, gaussian_matrix):
@@ -81,8 +98,9 @@ def _axial_rope_tensors(dim, end_x, end_y, theta, device):
 def axial_rope_cos_sin(dim, end_x, end_y, theta=10000.0, device=None):
     """float32 cos / sin tables [end_x * end_y, dim // 2] of the 2D axial
     RoPE, cached per device."""
-    return _axial_rope_tensors(dim, end_x, end_y, float(theta),
-                               torch.device(device or "cpu"))
+    cos, sin = _axial_rope_tensors(dim, end_x, end_y, float(theta),
+                                   torch.device(device or "cpu"))
+    return held(cos), held(sin)
 
 
 def apply_rotary(x, cos, sin, repeat_freqs=1):

@@ -1,6 +1,5 @@
-"""SAM2 video predictor, per-frame tracking (port of
-`no_time_to_train_tpu/models/sam2/video.py`; reference
-sam2/sam2_video_predictor.py).
+"""SAM2 video predictor (port of `no_time_to_train_tpu/models/sam2/video.py`;
+reference sam2/sam2_video_predictor.py).
 
 Host-side control flow (conditioning-frame selection, the memory ring,
 correction clicks) around plain methods that run on the predictor's device
@@ -15,11 +14,25 @@ under `torch.no_grad()`:
   - `_encode`: the memory encoder.
 Objects are batched along the leading axis of every step. Tracked frames'
 outputs stay on the device; `propagate_in_video` yields device tensors and
-never waits for them. The JAX package's chunked-scan tracker is not ported:
-every run takes the per-frame path.
+never waits for them.
+
+`propagate_in_video` tracks each maximal run of non-prompted frames by the
+chunked scan (`scan_chunk` frames a chunk, default 8; 0 tracks frame by
+frame): `_scan_step`, the body of the JAX package's `lax.scan`, tracks one
+frame from a frame id held on the device, with the memory in rings indexed
+by frame id, and `_scan_plan` runs it over the run. On a CUDA device the
+step is captured once in a CUDA graph per shape and branch (objects,
+conditioning rows and pointers, direction, ...) and each frame is one
+replay, so the host issues a frame copy and a graph launch a frame instead
+of some 1500 launches; on the CPU the same step runs eagerly. A failed
+capture raises. The JAX package's own conditions (a clip on the host, more
+conditioning frames than `max_cond_frames_in_attn`, one-frame runs,
+`history_window = 0`) send a run down the per-frame path.
 """
+import time
 import warnings
 from collections import OrderedDict
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -30,20 +43,26 @@ from no_time_to_train_tpu_torch.models.sam2.model import NO_OBJ_SCORE
 from no_time_to_train_tpu_torch.models.sam2.pos_enc import sine_pos_embed_2d
 from no_time_to_train_tpu_torch.ops.connected_components import (
     fill_holes_in_mask_scores)
+from no_time_to_train_tpu_torch.ops.graph_inputs import holding
 from no_time_to_train_tpu_torch.ops.resize import resize_hw
+from no_time_to_train_tpu_torch.ops.upscale_product import fusion_disabled
 
 __all__ = ["SAM2VideoPredictor", "apply_non_overlapping_constraints",
            "select_closest_cond_frames"]
+
+# captured scan steps kept per predictor; each holds a CUDA graph and its
+# private memory pool (PERF.md gives the pool's size at SAM2-L)
+_SCAN_GRAPHS = 2
 
 
 def apply_non_overlapping_constraints(pred_masks):
     """Keep only the highest-scoring object at each pixel and push the
     others to <= -10 (reference sam2_base.py:869-887). pred_masks
-    [B, H, W]."""
-    if pred_masks.shape[0] == 1:
+    [..., B, H, W], objects on axis -3."""
+    if pred_masks.shape[-3] == 1:
         return pred_masks
-    max_obj = torch.argmax(pred_masks, dim=0, keepdim=True)
-    batch_obj = torch.arange(pred_masks.shape[0],
+    max_obj = torch.argmax(pred_masks, dim=-3, keepdim=True)
+    batch_obj = torch.arange(pred_masks.shape[-3],
                              device=pred_masks.device)[:, None, None]
     return torch.where(max_obj == batch_obj, pred_masks,
                        torch.clamp(pred_masks, max=-10.0))
@@ -102,6 +121,17 @@ class SAM2VideoPredictor:
         self.history_window = max((c.num_maskmem - 2) * r + 2,
                                   c.max_obj_ptrs_in_encoder,
                                   c.num_maskmem) + 1
+        # frames a chunk of the chunked scan (`_scan_plan`); 0 tracks every
+        # run frame by frame
+        self.scan_chunk = 8
+        # maskmem ring of the scan: one slot more than the farthest strided
+        # lookback ((num_maskmem - 2) * stride + 1)
+        self._ring_W = max((c.num_maskmem - 2) * r + 2, 2)
+        # scan steps by key (`_scan_key`), least recently used first
+        self._scan_steps = OrderedDict()
+        # captures by key, replays, and each capture's seconds and pool bytes
+        self.scan_stats = {"captures": {}, "replays": 0, "capture_s": {},
+                           "pool_bytes": {}}
         dev, f32 = self.device, torch.float32
         self._mean = torch.as_tensor(IMAGENET_MEAN, dtype=f32, device=dev)
         self._std = torch.as_tensor(IMAGENET_STD, dtype=f32, device=dev)
@@ -226,9 +256,10 @@ class SAM2VideoPredictor:
 
     @torch.no_grad()
     def _video_res(self, masks, hw, nonoverlap):
-        """Low-res mask logits [B, h, w] -> the original video resolution
-        (reference _get_orig_video_res_output: bilinear, align_corners
-        False, + optional cross-object non-overlap)."""
+        """Low-res mask logits [..., B, h, w] (a frame, or a scanned chunk
+        of frames) -> the original video resolution (reference
+        _get_orig_video_res_output: bilinear, align_corners False, +
+        optional cross-object non-overlap)."""
         up = resize_hw(masks.float(), hw)
         return apply_non_overlapping_constraints(up) if nonoverlap else up
 
@@ -318,14 +349,18 @@ class SAM2VideoPredictor:
         return state["obj_id_to_idx"][obj_id]
 
     def add_new_points_or_box(self, state, frame_idx, obj_id, points=None,
-                              labels=None, box=None, clear_old_points=True):
+                              labels=None, box=None, normalize_coords=True,
+                              clear_old_points=True):
         """Reference :171-318. Points are (x, y) in pixels of the model's
-        input. clear_old_points=False appends the new clicks to the frame's
-        prompts. On a frame that was tracked already the clicks correct the
-        tracked mask (a memory-conditioned decode seeded with the previous
-        logits) instead of starting a conditioning frame. Returns
-        (frame_idx, object ids, low-res mask logits [n, h, w] on the
-        device)."""
+        input. `normalize_coords` is taken and ignored, as the JAX package
+        does: points stay in the model input's pixels also when init_state
+        was given video_height / video_width (the reference scales them from
+        video pixels; ROADMAP C.15). clear_old_points=False appends the new
+        clicks to the frame's prompts. On a frame that was tracked already
+        the clicks correct the tracked mask (a memory-conditioned decode
+        seeded with the previous logits) instead of starting a conditioning
+        frame. Returns (frame_idx, object ids, low-res mask logits
+        [n, h, w] on the device)."""
         idx = self._obj_idx(state, obj_id)
         if (points is not None) != (labels is not None):
             raise ValueError("points and labels must be provided together")
@@ -550,6 +585,365 @@ class SAM2VideoPredictor:
                     del nc[t]
         return filled
 
+    # --------------------------------------------------------- chunked scan
+    def _scan_key(self, n_obj, nc, ncp, reverse, num_frames):
+        """What fixes the scan step's shapes and branches: objects,
+        conditioning rows and pointers, direction, the multimask and hole
+        filling branches, the pointer candidates (num_frames, up to
+        max_obj_ptrs), the chunk, and whether the kernels are on."""
+        c = self.cfg
+        n_cand = max(min(num_frames, c.max_obj_ptrs_in_encoder) - 1, 0)
+        return (n_obj, nc, ncp, bool(reverse), self._track_multimask,
+                c.fill_hole_area, n_cand, self.scan_chunk, fusion_disabled())
+
+    def _scan_buffers(self, key):
+        """The static tensors of one key's step: the frame and its id, the
+        run's constants (conditioning rows and pointers, the temporal
+        position table), the rings, and the chunk's stacked outputs."""
+        n_obj, nc, ncp, _, _, _, n_cand, ch, _ = key
+        c = self.cfg
+        n_tok, mem_dim, hid = self._n_feat, c.mem_dim, c.hidden_dim
+        side, s = c.image_size // 4, c.image_size
+        w, pw = self._ring_W, max(c.max_obj_ptrs_in_encoder, 1)
+
+        def z(*shape, dtype=torch.float32):
+            return torch.zeros(shape, dtype=dtype, device=self.device)
+        i64, b8 = torch.long, torch.bool
+        return SimpleNamespace(
+            frame=z(1, s, s, 3), t=z(1, dtype=i64), slot=z(1, dtype=i64),
+            num_frames=z(1, dtype=i64),
+            offs=torch.arange(1, n_cand + 1, device=self.device),
+            cond_mem=z(n_obj, nc, n_tok, mem_dim),
+            cond_pos=z(n_obj, nc, n_tok, mem_dim),
+            cond_valid=z(n_obj, nc, dtype=b8),
+            cond_ptrs=z(n_obj, ncp, hid),
+            cond_ptr_valid=z(n_obj, ncp, dtype=b8),
+            tpos=z(nc + c.num_maskmem - 1, mem_dim),
+            ring_mem=z(n_obj, w, n_tok, mem_dim),
+            ring_pos=z(n_obj, w, n_tok, mem_dim), ring_frame=z(w, dtype=i64),
+            ptr_ring=z(n_obj, pw, hid), ptr_frame=z(pw, dtype=i64),
+            outs=(z(ch, n_obj, 1, side, side), z(ch, n_obj, hid),
+                  z(ch, n_obj, n_tok, mem_dim), z(ch, n_obj, n_tok, mem_dim),
+                  z(ch, n_obj, side, side)))
+
+    @torch.no_grad()
+    def _scan_step(self, s, reverse, multimask, fill_area):
+        """One tracked frame of a scanned run: the body of the JAX package's
+        `_scan_impl` (`real_step`) on the static tensors `s` of its key.
+        Reads the frame `s.frame` of id `s.t`, the run's constants and the
+        rings; writes the frame's outputs at chunk row `s.slot` and its
+        memory and pointer into the rings, and moves `s.t` and `s.slot` on
+        by one frame. Plain tensor code without a host synchronisation, so
+        that a CUDA graph can replay it.
+
+        The memory rows are the conditioning rows, then the strided previous
+        frames (reference sam2_base.py:563-713) looked up in the ring by
+        frame id modulo its size; a row is valid where its slot holds that
+        very frame. The pointer rows are the conditioning pointers, then the
+        tracked frames' pointers nearest first: the k-th valid candidate
+        lands in row ncp + k - 1, the rest in a dump row that is cut off."""
+        c = self.cfg
+        m, r = c.num_maskmem, max(c.memory_temporal_stride_for_eval, 1)
+        b, w = s.ring_mem.shape[:2]
+        pw, ncp = s.ptr_ring.shape[1], s.cond_ptrs.shape[1]
+        total_ptr = c.max_obj_ptrs_in_encoder
+        t = s.t
+        fpn = self._features(s.frame[0])
+
+        # frame ids below 0 at a run's start: // and % on tensors floor and
+        # take the divisor's sign, as jnp's do
+        prevs = []
+        for t_pos in range(1, m):
+            t_rel = m - t_pos
+            if t_rel == 1:
+                prevs.append(t + 1 if reverse else t - 1)
+            elif reverse:
+                prevs.append(-(-(t + 2) // r) * r + (t_rel - 2) * r)
+            else:
+                prevs.append(((t - 2) // r) * r - (t_rel - 2) * r)
+        prevs = torch.cat(prevs)
+        slots = prevs % w
+        mem = torch.cat([s.cond_mem, s.ring_mem.index_select(1, slots)], 1)
+        pos = torch.cat([s.cond_pos, s.ring_pos.index_select(1, slots)], 1)
+        ok = ((s.ring_frame.index_select(0, slots) == prevs) & (prevs >= 0)
+              & (prevs < s.num_frames))
+        valid = torch.cat([s.cond_valid, ok[None].expand(b, -1)], 1)
+
+        fs = t + s.offs if reverse else t - s.offs
+        pslots = fs % pw
+        pok = ((s.ptr_frame.index_select(0, pslots) == fs) & (fs >= 0)
+               & (fs < s.num_frames))
+        if not c.use_obj_ptrs_in_encoder:
+            pok = torch.zeros_like(pok)
+        rank = torch.cumsum(pok.long(), 0)
+        row = torch.where(pok & (rank <= total_ptr - ncp), ncp + rank - 1,
+                          total_ptr)
+        optrs = torch.cat([s.cond_ptrs, s.cond_ptrs.new_zeros(
+            b, total_ptr + 1 - ncp, s.cond_ptrs.shape[2])], 1)
+        optrs.index_copy_(1, row, s.ptr_ring.index_select(1, pslots))
+        taken = torch.zeros(total_ptr + 1, dtype=torch.bool,
+                            device=t.device).index_fill_(0, row, True)
+        ptr_valid = torch.cat([s.cond_ptr_valid, s.cond_ptr_valid.new_zeros(
+            b, total_ptr - ncp)], 1) | taken[None, :total_ptr]
+
+        memory = self._assemble_memory(mem, pos, s.tpos[None], valid,
+                                       optrs[:, :total_ptr], ptr_valid)
+        outs = self._track_core(fpn, *memory, multimask, fill_area)
+        lr, obj_ptr, mem_feat, mem_pos, _ = outs
+        s.ring_mem.index_copy_(1, t % w, mem_feat[:, None])
+        s.ring_pos.index_copy_(1, t % w, mem_pos[:, None])
+        s.ring_frame.index_copy_(0, t % w, t)
+        s.ptr_ring.index_copy_(1, t % pw, obj_ptr[:, None])
+        s.ptr_frame.index_copy_(0, t % pw, t)
+        for out, x in zip(s.outs, outs):
+            out.index_copy_(0, s.slot, x[None])
+        t.add_(-1 if reverse else 1)
+        s.slot.copy_((s.slot + 1) % s.outs[0].shape[0])
+
+    def _fill_scan_buffers(self, s, state, conds, pools, start, reverse):
+        """Fill the static tensors in place for a run that starts at frame
+        `start`: the conditioning rows and pointers (run constants: a run
+        never straddles a conditioning frame, and every step sees all of
+        them, as max_cond_frames_in_attn does not bind), the temporal
+        position table, and the rings seeded from the frames already tracked
+        in the lookback (a propagation restarted mid-video)."""
+        c = self.cfg
+        n_obj, nc = s.cond_valid.shape
+        n_tok, mem_dim, m = self._n_feat, c.mem_dim, c.num_maskmem
+        w, pw = s.ring_frame.shape[0], s.ptr_frame.shape[0]
+
+        def tok(x):
+            return x.reshape(n_tok, mem_dim).float()
+
+        s.cond_mem.zero_()
+        s.cond_pos.zero_()
+        cond_valid = np.zeros((n_obj, nc), bool)
+        for o, cd in enumerate(conds):
+            for k, out in enumerate(cd.values()):
+                if "maskmem_features" in out:
+                    s.cond_mem[o, k].copy_(tok(out["maskmem_features"]))
+                    s.cond_pos[o, k].copy_(tok(out["maskmem_pos_enc"]))
+                    cond_valid[o, k] = True
+        s.cond_valid.copy_(torch.from_numpy(cond_valid))
+        s.cond_ptrs.zero_()
+        ptr_valid = np.zeros(tuple(s.cond_ptr_valid.shape), bool)
+        for o, pool in enumerate(pools):
+            for k, p in enumerate(pool):
+                s.cond_ptrs[o, k].copy_(p.float())
+                ptr_valid[o, k] = True
+        s.cond_ptr_valid.copy_(torch.from_numpy(ptr_valid))
+        # conditioning rows take t_pos 0, then t_pos 1 .. num_maskmem - 1 (the
+        # rows of `_build_memory`)
+        s.tpos.copy_(self._tpos[self._dev(
+            [m - 1] * nc + [m - t_pos - 1 for t_pos in range(1, m)],
+            torch.long)])
+
+        def seed(ring_frame, rings, size, key, rows):
+            frame_ids = np.full((size,), -1, np.int64)
+            for ring in rings:
+                ring.zero_()
+            seeds = (range(start + 1, start + size + 1) if reverse
+                     else range(max(start - size, 0), start))
+            for f in seeds:
+                outs = [state["output_dict_per_obj"][o]["non_cond"].get(f)
+                        for o in range(n_obj)]
+                if all(o is not None and key in o for o in outs):
+                    frame_ids[f % size] = f
+                    for o in range(n_obj):
+                        for ring, value in zip(rings, rows(outs[o])):
+                            ring[o, f % size].copy_(value)
+            ring_frame.copy_(torch.from_numpy(frame_ids))
+
+        seed(s.ring_frame, (s.ring_mem, s.ring_pos), w, "maskmem_features",
+             lambda out: (tok(out["maskmem_features"]),
+                          tok(out["maskmem_pos_enc"])))
+        seed(s.ptr_frame, (s.ptr_ring,), pw, "obj_ptr",
+             lambda out: (out["obj_ptr"].float(),))
+        s.t.fill_(start)
+        s.slot.zero_()
+        s.num_frames.fill_(state["num_frames"])
+
+    def _scan_entry(self, key):
+        """The key's step (buffers, and its CUDA graph once captured), most
+        recently used last; the least recently used beyond _SCAN_GRAPHS is
+        dropped with its graph and pool."""
+        steps = self._scan_steps
+        if key in steps:
+            steps.move_to_end(key)
+        else:
+            steps[key] = SimpleNamespace(bufs=self._scan_buffers(key),
+                                         graph=None, held=(), owner=None)
+            while len(steps) > _SCAN_GRAPHS:
+                steps.popitem(last=False)
+        return steps[key]
+
+    def _capture_scan_step(self, entry, key, args):
+        """Capture the key's step in a CUDA graph. First one eager step on a
+        copy of the buffers, on the stream that captures, does the work of
+        a first use (the kernels' build and attributes, the cached tables,
+        the library handles) without writing a live ring; the tables the
+        step reads stay held beside the graph. Raises if the capture fails:
+        a scanned run is never tracked eagerly on the card."""
+        dev = self.device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            scratch = SimpleNamespace(**{
+                k: (tuple(x.clone() for x in v) if k == "outs" else v.clone())
+                for k, v in vars(entry.bufs).items()})
+            self._scan_step(scratch, *args)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        del scratch
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        with holding() as held, torch.cuda.graph(graph, stream=side):
+            self._scan_step(entry.bufs, *args)
+        torch.cuda.synchronize(dev)
+        entry.graph, entry.held = graph, held
+        stats = self.scan_stats
+        stats["captures"][key] = stats["captures"].get(key, 0) + 1
+        stats["capture_s"][key] = time.perf_counter() - t0
+        stats["pool_bytes"][key] = torch.cuda.memory_reserved(dev) - reserved
+
+    def _scan_chunk(self, entry, images, n, args):
+        """Track the next `n` frames of a run: a frame copy and a graph
+        replay each (the step itself on the CPU); returns copies of the
+        chunk's outputs (lr, obj_ptr, mem_feat, mem_pos, filled), [n, ...]
+        each."""
+        s = entry.bufs
+        for _ in range(n):
+            torch.index_select(images, 0, s.t, out=s.frame)
+            if entry.graph is None:
+                self._scan_step(s, *args)
+            else:
+                entry.graph.replay()
+                self.scan_stats["replays"] += 1
+        return tuple(o[:n].clone() for o in s.outs)
+
+    def _scan_plan(self, state, run, reverse, video_res=False):
+        """A generator that tracks `run` (consecutive non-prompted frames in
+        propagation order) by the chunked scan, or None where the JAX
+        package takes the per-frame path: scanning off, a one-frame run, no
+        object, no memory, history_window 0 (every per-frame entry kept),
+        the clip on the host, or more conditioning frames than
+        max_cond_frames_in_attn (the per-frame path then picks the closest
+        ones per frame, `_build_memory`).
+
+        The generator dispatches chunk k + 1 before it yields chunk k, keeps
+        the last chunks that the history window can reach, and writes their
+        frames back as per-frame entries (`_scan_writeback`) before the last
+        chunk's yields, or when the consumer abandons it."""
+        c = self.cfg
+        ch = self.scan_chunk
+        n_obj = len(state["obj_id_to_idx"])
+        if (not ch or ch < 2 or len(run) < 2 or n_obj == 0
+                or c.num_maskmem < 2 or not self.history_window
+                or isinstance(state["images"], np.ndarray)):
+            return None
+        conds = [state["output_dict_per_obj"][o]["cond"]
+                 for o in range(n_obj)]
+        if (c.max_cond_frames_in_attn != -1
+                and any(len(cd) > c.max_cond_frames_in_attn for cd in conds)):
+            return None
+        start = run[0]
+        # conditioning pointers: the reference's pool, cond pointers first,
+        # those in the past only for eval
+        pools = []
+        for cd in conds:
+            pool = []
+            if c.use_obj_ptrs_in_encoder:
+                pool = [out["obj_ptr"] for t0, out in cd.items()
+                        if not c.only_obj_ptrs_in_the_past_for_eval
+                        or (t0 >= start if reverse else t0 <= start)]
+            pools.append(pool[:c.max_obj_ptrs_in_encoder])
+        nc = max(len(cd) for cd in conds)
+        ncp = max(len(p) for p in pools)
+        key = self._scan_key(n_obj, nc, ncp, reverse, state["num_frames"])
+        args = (reverse, self._track_multimask, c.fill_hole_area)
+        keep = -(-self.history_window // ch) + 1
+        hw = (state["video_height"], state["video_width"])
+
+        def gen():
+            entry = self._scan_entry(key)
+            token = entry.owner = object()
+            self._fill_scan_buffers(entry.bufs, state, conds, pools, start,
+                                    reverse)
+            if self.device.type == "cuda" and entry.graph is None:
+                self._capture_scan_step(entry, key, args)
+            recent, pend, wrote_back = [], None, False
+            try:
+                for k in range(0, len(run), ch):
+                    if entry.owner is not token:
+                        raise RuntimeError(
+                            "another scanned run took this run's buffers; "
+                            "drain one propagate_in_video before starting "
+                            "another with the same objects and prompts")
+                    chunk = run[k:k + ch]
+                    outs = self._scan_chunk(entry, state["images"],
+                                            len(chunk), args)
+                    recent.append((chunk, outs))
+                    del recent[:-keep]
+                    if pend is not None:
+                        yield from zip(*pend)
+                    filled = outs[4]
+                    if video_res:
+                        filled = self._video_res(filled, hw,
+                                                 self.non_overlap_masks)
+                    pend = (chunk, filled)
+                self._scan_writeback(state, recent)
+                wrote_back = True
+                if pend is not None:
+                    yield from zip(*pend)
+            finally:
+                # a consumer that abandons the run still leaves entries for
+                # the frames tracked so far, for a later correction click or
+                # a resumed propagation
+                if not wrote_back:
+                    self._scan_writeback(state, recent)
+        return gen()
+
+    def _scan_writeback(self, state, recent):
+        """Per-frame non_cond entries (views of the chunks' outputs) for the
+        frames of a scanned run within history_window of its last frame,
+        and older ones dropped: the bound the per-frame path keeps."""
+        if not recent:
+            return
+        n_obj = len(state["obj_id_to_idx"])
+        last = recent[-1][0][-1]
+        w = self.history_window
+        for chunk, (lr, obj_ptr, mem_feat, mem_pos, _) in recent:
+            for i, t in enumerate(chunk):
+                if abs(t - last) > w:
+                    continue
+                for o in range(n_obj):
+                    state["output_dict_per_obj"][o]["non_cond"][t] = {
+                        "pred_masks": lr[i, o],
+                        "obj_ptr": obj_ptr[i, o],
+                        "maskmem_features": mem_feat[i, o],
+                        "maskmem_pos_enc": mem_pos[i, o],
+                    }
+        for o in range(n_obj):
+            nc = state["output_dict_per_obj"][o]["non_cond"]
+            for t in [t for t in nc if abs(t - last) > w]:
+                del nc[t]
+
+    def _propagate_run(self, state, run, reverse, video_res=False):
+        """Track one maximal run of consecutive non-prompted frames,
+        yielding (frame_idx, filled mask logits [b, H, W]): low-res, or at
+        the original video resolution with video_res."""
+        scan = self._scan_plan(state, run, reverse, video_res)
+        if scan is not None:
+            yield from scan
+            return
+        for t in run:
+            m = self._track_frame(state, t, reverse)
+            if video_res:
+                m = self.get_orig_video_res_output(state, m)[1]
+            yield t, m
+
     def _empty_mask_ptr(self, fpn):
         """A dummy object pointer from an empty mask on this frame
         (reference _get_empty_mask_ptr, :542-577), for objects that have
@@ -673,7 +1067,9 @@ class SAM2VideoPredictor:
         """Generator over (frame_idx, obj_ids, mask logits [B, H, W] on the
         device): low-res (image_size / 4) by default, at the original video
         resolution (+ optional non-overlap) with output_video_res, which is
-        what the reference yields (:724-739)."""
+        what the reference yields (:724-739). Prompted frames yield their
+        consolidated outputs; each maximal run of the others goes through
+        `_propagate_run` (the chunked scan where it may run)."""
         self.propagate_in_video_preflight(state)
         obj_ids = list(state["obj_id_to_idx"].keys())
         cond_frames = set()
@@ -695,25 +1091,38 @@ class SAM2VideoPredictor:
         hw = self.cfg.image_size // 4
         inds = state["consolidated_frame_inds"]
         prompted = inds["cond"] | inds["non_cond"]
-        for t in rng:
-            if t in prompted:
-                # prompted frames keep their consolidated outputs
-                # (reference :695-705)
-                rows = []
-                for k in range(len(obj_ids)):
-                    outs = state["output_dict_per_obj"][k]
-                    out = outs["cond"].get(t, outs["non_cond"].get(t))
-                    rows.append(
-                        out["pred_masks"].reshape(hw, hw) if out is not None
-                        else torch.full((hw, hw), NO_OBJ_SCORE,
-                                        device=self.device))
-                masks = fill_holes_in_mask_scores(torch.stack(rows),
-                                                  self.cfg.fill_hole_area)
-                if t in inds["cond"] and self._should_clear_non_cond(state):
-                    self._clear_non_cond_mem_around_input(state, t)
-            else:
-                masks = self._track_frame(state, t, reverse)
+        ts = list(rng)
+        i = 0
+        while i < len(ts):
+            t = ts[i]
+            if t not in prompted:
+                # a maximal run of non-prompted frames: the chunked scan
+                # where it may run, else frame by frame (`_propagate_run`)
+                j = i
+                while j < len(ts) and ts[j] not in prompted:
+                    j += 1
+                for t2, masks in self._propagate_run(state, ts[i:j], reverse,
+                                                     output_video_res):
+                    state["frames_already_tracked"][t2] = {"reverse": reverse}
+                    yield t2, obj_ids, masks
+                i = j
+                continue
+            # prompted frames keep their consolidated outputs (reference
+            # :695-705)
+            rows = []
+            for k in range(len(obj_ids)):
+                outs = state["output_dict_per_obj"][k]
+                out = outs["cond"].get(t, outs["non_cond"].get(t))
+                rows.append(
+                    out["pred_masks"].reshape(hw, hw) if out is not None
+                    else torch.full((hw, hw), NO_OBJ_SCORE,
+                                    device=self.device))
+            masks = fill_holes_in_mask_scores(torch.stack(rows),
+                                              self.cfg.fill_hole_area)
+            if t in inds["cond"] and self._should_clear_non_cond(state):
+                self._clear_non_cond_mem_around_input(state, t)
             state["frames_already_tracked"][t] = {"reverse": reverse}
             if output_video_res:
                 masks = self.get_orig_video_res_output(state, masks)[1]
             yield t, obj_ids, masks
+            i += 1

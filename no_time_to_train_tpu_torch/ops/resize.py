@@ -12,6 +12,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from no_time_to_train_tpu_torch.ops.graph_inputs import held
+
 __all__ = ["resize", "resize_hw", "resize_matrix", "_resize_matrix_np"]
 
 
@@ -86,8 +88,9 @@ def resize_matrix(in_size, out_size, mode="bilinear", antialias=False,
                   dtype=torch.float32, device="cpu"):
     """[out_size, in_size] weights on `device`, built once per shape (the
     caller must not modify the shared tensor)."""
-    return _resize_matrix_tensor(in_size, out_size, mode, bool(antialias),
-                                 dtype, torch.device(device))
+    return held(_resize_matrix_tensor(in_size, out_size, mode,
+                                      bool(antialias), dtype,
+                                      torch.device(device)))
 
 
 def resize(x, out_hw, mode="bilinear", antialias=False):

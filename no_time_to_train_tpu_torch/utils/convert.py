@@ -208,8 +208,9 @@ def dino_state_dict(params, cfg):
         for k in ("query", "key", "value"):
             _lin(sd, f"{p}.attention.attention.{k}", a[k])
         _lin(sd, f"{p}.attention.output.dense", a["output"])
-        sd[f"{p}.layer_scale1.lambda1"] = _a(t["layer_scale1"])
-        sd[f"{p}.layer_scale2.lambda1"] = _a(t["layer_scale2"])
+        if "layer_scale1" in t:                # absent without init_values
+            sd[f"{p}.layer_scale1.lambda1"] = _a(t["layer_scale1"])
+            sd[f"{p}.layer_scale2.lambda1"] = _a(t["layer_scale2"])
         for name, sub in t["mlp"].items():     # fc1 / fc2, or the SwiGLU's
             _lin(sd, f"{p}.mlp.{name}", sub)   # weights_in / weights_out
     return sd

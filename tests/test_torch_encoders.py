@@ -180,6 +180,39 @@ def test_dino_swiglu_matches_jax(img_size, impl, n_flash, port_calls):
     np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4)
 
 
+# a DINOv2 without layer scale (init_values None, ROADMAP C.17) at the
+# giant test's width 48, MLP feed-forward
+TINY_NO_LAYER_SCALE = dataclasses.replace(TINY_GIANT, name="tiny_no_ls",
+                                          ffn_layer="mlp", init_values=None)
+
+
+def test_dino_without_layer_scale_matches_jax(port_calls):
+    """init_values None: the port builds blocks without lambda1 (the JAX
+    package's use_layer_scale=False); one port init, nudged by seeded
+    noise, carried to the JAX tree by `convert_hf_dinov2` and back by
+    `dino_state_dict`, then both encoders on the same images."""
+    from no_time_to_train_tpu.models.dino import convert_hf_dinov2
+    from no_time_to_train_tpu_torch.utils.init import init_random_
+    cfg = TINY_NO_LAYER_SCALE
+    tm = DinoV2(cfg)
+    assert tm.encoder.layer[0].layer_scale1 is None
+    init_random_(tm, torch.Generator().manual_seed(5))
+    rng = np.random.default_rng(5)
+    sd = {k: (v.numpy() + 0.05 * rng.standard_normal(v.shape)).astype(
+        np.float32) for k, v in tm.state_dict().items()}
+    assert not any("layer_scale" in k for k in sd)
+    tm.load_state_dict({k: torch.as_tensor(v) for k, v in sd.items()})
+    params = convert_hf_dinov2(sd, cfg)
+    assert "layer_scale1" not in params["layer_0"]
+    back = dino_state_dict(params, cfg)
+    assert set(back) == set(sd)
+    x = rng.standard_normal((2, 28, 28, 3)).astype(np.float32)
+    ref = np.asarray(JDino(cfg).apply({"params": params}, jnp.asarray(x)))
+    with torch.no_grad():
+        got = tm(torch.as_tensor(x)).numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4)
+
+
 def test_dinov2_giant_preset_builds():
     """The preset is no longer refused: 40 layers of SwiGLU at width 1536
     (built on the meta device, no memory)."""

@@ -164,6 +164,35 @@ def test_memory_encoder_matches_jax(sam2_pair, from_pts):
                                atol=1e-6)
 
 
+def test_memory_encoder_position_table_is_cached(sam2_pair):
+    """The memory encoder's position encoding is one table per (h, w,
+    features, dtype, device), made and uploaded once: it equals
+    `sine_pos_embed_2d`, a second call returns the same tensor, a capture's
+    `holding()` collects it, and the encoder's output is the one of the
+    table built per call."""
+    from no_time_to_train_tpu_torch.models.sam2.pos_enc import (
+        sine_pos_embed_2d, sine_pos_table)
+    from no_time_to_train_tpu_torch.ops.graph_inputs import holding
+    _, _, tm = sam2_pair
+    h = CFG.sam_image_embedding_size
+    want = sine_pos_embed_2d(h, h, CFG.mem_dim)
+    with holding() as held:
+        table = sine_pos_table(h, h, CFG.mem_dim)
+    assert len(held) == 1 and held[0] is table
+    assert sine_pos_table(h, h, CFG.mem_dim) is table
+    assert torch.equal(table, want)
+    rng = np.random.default_rng(8)
+    pix = torch.as_tensor(
+        rng.standard_normal((2, h, h, CFG.d_model)).astype(np.float32))
+    masks = torch.as_tensor(
+        (3 * rng.standard_normal((2, IMG, IMG, 1))).astype(np.float32))
+    with torch.no_grad():
+        feats, pos = tm.encode_memory(pix, masks, False)
+        again, _ = tm.encode_memory(pix, masks, False)
+    assert torch.equal(pos, want[None].expand(2, -1, -1, -1))
+    assert torch.equal(feats, again)
+
+
 def _hole_scores(seed, h=48, w=40):
     """Positive blobs with small and large holes, thin background lines and
     a spiral: background parts whose labels converge late."""

@@ -1,5 +1,6 @@
 """The video slice as a whole: the port's SAM2VideoPredictor against the JAX
-predictor (per-frame path, scan_chunk = 0) on the CPU in float32, on the
+predictor, both on the per-frame path (scan_chunk = 0; the chunked scan is
+held in tests/test_torch_video_scan.py), on the CPU in float32, on the
 tiny config of tests/test_video_scan.py, with the same numpy-seeded clip and
 weights carried through `utils/convert.py`.
 
@@ -27,6 +28,18 @@ from no_time_to_train_tpu_torch.utils.init import init_random_
 
 IMG, T = 128, 9
 TOL = dict(rtol=2e-3, atol=2e-3)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The tiny model's thousands of small ops per frame on one intra-op
+    thread: beside the other test processes on the same cores, a pool of 8
+    threads to wake per op made these files 4-5 x slower (restored after
+    the module)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _tiny_cfg(**kw):
@@ -62,7 +75,9 @@ def _predictors(cfg, seed=0, **kw):
     tm = SAM2(cfg)
     tm.load_state_dict({k: torch.as_tensor(v) for k, v in
                         sam2_state_dict(params).items()}, strict=True)
-    return jp, tvideo.SAM2VideoPredictor(tm, device="cpu", **kw)
+    tp = tvideo.SAM2VideoPredictor(tm, device="cpu", **kw)
+    tp.scan_chunk = 0
+    return jp, tp
 
 
 def _close(got, want, what):

@@ -90,9 +90,29 @@ Run from the root of a checkout. Phases, each of which raises on failure:
      phase 5's checks; (f) Hiera-B+ and (g) DINOv2-giant at 518^2 against
      no_fusion(). The kernel table gains each kernel's launches per AMG
      image.
+  11. SAM2Ref (models/sam2ref.py) on SAM2 Hiera-L at 1024^2, seeded random
+     weights, attention_impl="pallas": (a) in float32 and in bf16, 20
+     categories filled with one synthetic reference each, then forward_test
+     on a synthetic target at 32^2 points with exact launches, against the
+     same call under no_fusion() (candidate scores and mask signs; the kept
+     set by candidate, float32 slot for slot, bf16 as sets on the targets
+     of four seeds), every kept mask's box its tight box, fenced ms and
+     peak memory; (b) `train_sam2ref.main` in process on phase 9's
+     fabricated data set (20 steps, batch 1, 8 points, float32): finite
+     losses and exact launches (the two encoder passes on their kernels,
+     the rest plain); then one step against the same step with no kernel
+     at all (loss, the three leaves' gradients finite, non-zero and within
+     band) and a control that must read outside the bands, and 20 steps on
+     one repeated batch whose loss falls, fenced ms per step and peak
+     memory; (c) every leaf of the written head moved from its init, it
+     loads back bit for bit and drives (a)'s forward_test; (d) every kernel
+     entry raises when an operand requires grad. The kernel table gains
+     each kernel's launches per SAM2Ref forward_test in bf16, as counted
+     around the timed call.
 `python3 chip_smoke.py --kernels` runs phases 1 to 3 only;
 `python3 chip_smoke.py --runner` runs phases 1, 2 and 9 only;
 `python3 chip_smoke.py --image-entries` runs phases 1, 2 and 10 only;
+`python3 chip_smoke.py --sam2ref` runs phases 1, 2 and 11 only;
 `python3 chip_smoke.py --registers` runs phase 1 and prints each kernel's
 registers and spills as `nvcc -Xptxas -v` reports them, and fails on a
 spill of a register-tile kernel (NO_SPILL);
@@ -3377,6 +3397,544 @@ def run_image_entries(dev, smi):
     return totals, per_amg
 
 
+# phase 11: SAM2Ref (models/sam2ref.py) on SAM2 Hiera-L at 1024^2, seeded
+# random weights, attention_impl="pallas", in float32 (the JAX package's
+# dtype) and in bf16 (the matcher's dtype on the card). A fill per category
+# runs Hiera-L once (IMAGE_ENCODE) and the memory encoder, whose two
+# CXBlock norms take K1 in bf16 ([1, 64^2, 256]). A forward_test at 20
+# categories and 32^2 points runs Hiera-L once; the memory attention once
+# over the 20 categories as a batch: 4 layers of RoPE self- and
+# cross-attention (4096 keys at memory_length 1) take kernel 11, 3 norms a
+# layer and the final norm K1 (20 x 4096 rows); then 20 x 4 chunks of 256
+# prompts through the classic decoder with the custom IoU token.
+# skip_last_n_keys = 2 shuts K3's gate and the final attention's K2, as in
+# the JAX package, so a chunk takes K2 twice (layer 0 on the shared keys,
+# layer 1 per prompt) and K1 10 times (the 7 token norms at 256 x 9 rows,
+# both layers' norm4 on [256, 4096, 256], the upscaling norm). K1's gate is
+# bf16 only; K2 and kernels 9 to 11 take float32 too. A train step runs
+# two Hiera-L passes (target, reference) with the kernels; its memory
+# attention, decode and loss take the plain versions under no_fusion().
+SAM2REF_CATS, SAM2REF_POINTS, SAM2REF_CHUNK = 20, 32, 256
+SAM2REF_TRAIN_STEPS = 20
+
+
+def sam2ref_expected(bf16):
+    """Launches of one fill, of one forward_test and of one train step."""
+    chunks = SAM2REF_CATS * SAM2REF_POINTS ** 2 // SAM2REF_CHUNK
+    k1 = (lambda n: {"layer_norm": n}) if bf16 else (lambda n: {})
+    encode = dict(IMAGE_ENCODE, layer_norm=IMAGE_ENCODE["layer_norm"] * bf16)
+    fill = plus(encode, k1(2))
+    test = plus(encode, k1(13 + 10 * chunks), {"flash_sdpa": 8},
+                {"fused_t2i_attn": 2 * chunks})
+    return fill, test, plus(encode, encode)
+
+
+# forward_test with the kernels against no_fusion() of the same dtype: the
+# 20480 candidates' scores (IoU x custom IoU, both in [0, 1]) and their
+# masks' signs, then the kept set, whose slots are identified by their
+# candidate (category, point). float32: the kernels' sums in another order
+# (2.98e-7 of a score read on the H100, seed 111), so the scores agree
+# within 1e-5 and the kept slots hold the same candidates in the same
+# order. bf16: the scores within 8e-3, two bf16 ulps of an IoU in [0.5, 1)
+# (2.04e-3 to 2.05e-3 read on seeds 111-114), and mask signs within phase
+# 5's 0.98. The kept set is compared on the same four targets: counts
+# within 10 % (read 0 to 3.1 %), the candidates kept by both within the
+# score band, and at least 0.25 of the larger set kept by both (read 0.531
+# to 0.780). On random weights the candidates of a category and the four
+# masks of a point may score within a bf16 ulp of each other, so that
+# rounding alone decides which the NMS keeps and which mask a point
+# returns (the kept masks that match one of the same label at mask IoU >=
+# 0.9 read 0.29 to 0.82), and the share kept by both is a floor against a
+# wrong selection, not a measure of precision. The log reads the ties: the
+# share of a category's sorted candidate scores within the largest gap of
+# their neighbour.
+SAM2REF_SEEDS = {"float32": (111,), "bfloat16": (111, 112, 113, 114)}
+SAM2REF_SCORE_BAND = {"float32": 1e-5, "bfloat16": 8e-3}
+SAM2REF_COUNT_BAND, SAM2REF_KEPT_BY_BOTH = 0.1, 0.25
+SAM2REF_MATCH_IOU = 0.9
+# a train step with the encoders on their kernels (float32) against the
+# same step with no kernel at all: the loss within 1e-5 and each leaf's
+# gradient within 2e-5 of its norm (relative L2). The control, the
+# all-plain step on the target moved by one gray level (+-1/255 a pixel,
+# seeded signs), must read above both bands, or the comparison could not
+# see a fault of that size. Read on the H100: the sound step 0 and 1.5e-6
+# at most, the control 3.5e-5 and 3.0e-4 at least; each band lies about a
+# factor of 15 from the control's gradients and the sound step's
+SAM2REF_LOSS_BAND, SAM2REF_GRAD_BAND = 1e-5, 2e-5
+SAM2REF_LEAVES = ("mem_feat_ref_pe", "iou_embed", "iou_prediction_head")
+
+
+def sam2ref_leaf_grads(heads):
+    """{leaf: its gradient flattened, float32} for the three trainable
+    leaves of `RefHeads`."""
+    import torch
+    return {leaf: torch.cat([p.grad.float().reshape(-1) for n, p in
+                             heads.named_parameters()
+                             if n.split(".")[0] == leaf])
+            for leaf in SAM2REF_LEAVES}
+
+
+def sam2ref_matched(out_k, out_p):
+    """Pairs (i, j) of kept slots of out_k and out_p: the same label, mask
+    IoU at least SAM2REF_MATCH_IOU, greedily in out_k's score order."""
+    import torch
+    n_k, n_p = int(out_k["valid"].sum()), int(out_p["valid"].sum())
+    mk = (out_k["lr_logits"][:n_k].float() > 0).flatten(1).float()
+    mp = (out_p["lr_logits"][:n_p].float() > 0).flatten(1).float()
+    inter = mk @ mp.T
+    union = mk.sum(1)[:, None] + mp.sum(1)[None] - inter
+    iou = inter / union.clamp(min=1)
+    iou[out_k["labels"][:n_k, None] != out_p["labels"][None, :n_p]] = 0
+    pairs, used = [], set()
+    for i in range(n_k):
+        row = iou[i].clone()
+        if used:
+            row[list(used)] = 0
+        j = int(torch.argmax(row)) if n_p else 0
+        if n_p and float(row[j]) >= SAM2REF_MATCH_IOU:
+            pairs.append((i, j))
+            used.add(j)
+    return pairs
+
+
+def sam2ref_compare(ref, name, seed, want_test):
+    """forward_test's candidates and kept set with the kernels against
+    no_fusion() of the same dtype, on the target of `seed`; kept masks'
+    boxes tight. Returns (the target, the kept set's failure or None): the
+    caller fails on the kept set after every seed has been read."""
+    import numpy as np
+    import torch
+    from no_time_to_train_tpu_torch.models.matching.pipeline import (
+        grid_points)
+    from no_time_to_train_tpu_torch.ops.masks import batched_mask_to_box
+    from no_time_to_train_tpu_torch.ops.upscale_product import no_fusion
+    tar = synthetic_target(np.random.default_rng(seed), TARGET_SIZE)
+    pts = grid_points(SAM2REF_POINTS, TARGET_SIZE, device=ref.device)
+    what = f"(a) {name} seed {seed}"
+    with torch.no_grad():
+        mark = launch_counts()
+        cand_k = ref.decode_candidates(tar, pts)
+        out_k = ref.select(*cand_k)
+        torch.cuda.synchronize()
+        expect_exact(f"{what} forward_test, {SAM2REF_CATS} categories x "
+                     f"{SAM2REF_POINTS}^2 points", mark, want_test)
+        with no_fusion():
+            mark = launch_counts()
+            cand_p = ref.decode_candidates(tar, pts)
+            out_p = ref.select(*cand_p)
+            expect_exact(f"{what} forward_test under no_fusion()", mark, {})
+    (m_k, s_k), (m_p, s_p) = cand_k, cand_p
+    n_cand = SAM2REF_CATS * SAM2REF_POINTS ** 2
+    if m_k.shape != (n_cand, 256, 256) or not torch.isfinite(m_k).all() \
+            or not torch.isfinite(s_k).all():
+        fail(f"{what}: candidates {tuple(m_k.shape)}, not all finite")
+    band = SAM2REF_SCORE_BAND[name]
+    d_score = float((s_k - s_p).abs().max())
+    agree = float(((m_k > 0) == (m_p > 0)).float().mean())
+    log(f"  {what} candidates kernels vs no_fusion: max |d score| "
+        f"{d_score:.3e} (band {band}), mask sign agreement {agree:.5f} "
+        f"(band {DECODE_SIGN_AGREE})")
+    if d_score > band or agree < DECODE_SIGN_AGREE:
+        fail(f"{what}: the candidates disagree with no_fusion()")
+    del cand_k, cand_p, m_k, m_p
+    n_valid, n_p = int(out_k["valid"].sum()), int(out_p["valid"].sum())
+    # take_first_kept packs the kept candidates first, in score order
+    for o, n in ((out_k, n_valid), (out_p, n_p)):
+        if n == 0 or not bool(o["valid"][:n].all()):
+            fail(f"{what}: valid flags not a prefix, or nothing kept")
+    # each kept slot's candidate (category, point): select keeps a
+    # candidate's score bit for bit, so it is the candidate of its label
+    # with that score
+    n_pts = SAM2REF_POINTS ** 2
+    cand_labels = torch.arange(SAM2REF_CATS, device=ref.device
+                               ).repeat_interleave(n_pts)
+
+    def kept_ids(out, scores, n):
+        eq = (scores[None] == out["scores"][:n, None]) \
+            & (cand_labels[None] == out["labels"][:n, None])
+        if not bool(eq.any(1).all()):
+            fail(f"{what}: a kept score is no candidate's of its label")
+        return eq.float().argmax(1).tolist()
+    id_k, id_p = kept_ids(out_k, s_k, n_valid), kept_ids(out_p, s_p, n_p)
+    slot_p = {c: j for j, c in enumerate(id_p)}
+    pairs = [(i, slot_p[c]) for i, c in enumerate(id_k) if c in slot_p]
+    if not pairs:
+        fail(f"{what}: no kept candidate is kept under no_fusion()")
+    share = len(pairs) / max(n_valid, n_p)
+    ik = torch.tensor([i for i, _ in pairs], device=ref.device)
+    ip = torch.tensor([j for _, j in pairs], device=ref.device)
+    d_kept = float((out_k["scores"][ik] - out_p["scores"][ip]).abs().max())
+    same_masks = len(sam2ref_matched(out_k, out_p)) / max(n_valid, n_p)
+    ties = float((s_p.view(SAM2REF_CATS, n_pts).sort(dim=1).values.diff(dim=1)
+                  <= d_score).float().mean())
+    log(f"  {what} kept {n_valid} (under no_fusion() {n_p}; band "
+        f"{SAM2REF_COUNT_BAND:.0%}) over "
+        f"{len(set(out_k['labels'][:n_valid].tolist()))} labels; kept by "
+        f"both {len(pairs)}, {share:.3f} of the larger set (band "
+        f"{SAM2REF_KEPT_BY_BOTH}), {sum(i == j for i, j in pairs)} in the "
+        f"same slot; max |d score| over them {d_kept:.3e} (band {band}); "
+        f"masks of the same label at mask IoU >= {SAM2REF_MATCH_IOU}: "
+        f"{same_masks:.3f} of the larger set; neighbouring candidate scores "
+        f"within {d_score:.3e}: {ties:.3f}")
+    bad = None
+    if name == "float32":
+        ok = n_valid == n_p and pairs == [(i, i) for i in range(n_p)]
+    else:
+        ok = abs(n_valid - n_p) <= SAM2REF_COUNT_BAND * max(n_valid, n_p) \
+            and share >= SAM2REF_KEPT_BY_BOTH
+    if not ok or d_kept > band:
+        bad = f"{what}: the kept set disagrees with no_fusion()"
+    del s_k, s_p
+    lr = out_k["lr_logits"]
+    if lr.dtype != torch.float16 or lr.shape != (100, 256, 256) \
+            or not torch.isfinite(lr.float()).all():
+        fail(f"{what}: lr_logits {lr.dtype} {tuple(lr.shape)}")
+    # every kept mask's box is its mask's tight box
+    for i in range(n_valid):
+        m = lr[i].float() > 0
+        rows, cols = m.any(1), m.any(0)
+        if not bool(rows.any()):
+            continue
+        ys, xs = torch.nonzero(rows).flatten(), torch.nonzero(cols).flatten()
+        tight = [int(xs[0]), int(ys[0]), int(xs[-1]), int(ys[-1])]
+        if batched_mask_to_box(m).tolist() != tight:
+            fail(f"{what}: kept mask {i}'s box is not its tight box")
+    del out_k, out_p
+    torch.cuda.empty_cache()
+    return tar, bad
+
+
+def sam2ref_test_part(dev, dtype, smi):
+    """(a) for one dtype: fill 20 categories, forward_test against
+    no_fusion() on each seed of SAM2REF_SEEDS, tight boxes, exact launches,
+    fenced ms and peak memory. Returns (the SAM2Ref, the fenced ms, the
+    launches of one timed forward_test)."""
+    import numpy as np
+    import torch
+    from no_time_to_train_tpu_torch import train_sam2ref as trainer
+    from no_time_to_train_tpu_torch.config.presets import SAM2_PRESETS
+    from no_time_to_train_tpu_torch.models.sam2ref import (
+        SAM2Ref, Sam2RefConfig)
+    name = str(dtype).split(".")[-1]
+    bf16 = dtype == torch.bfloat16
+    want_fill, want_test, _ = sam2ref_expected(bf16)
+    ref = SAM2Ref(trainer.build_sam2(SAM2_PRESETS[SAM2_CFG]),
+                  Sam2RefConfig(n_categories=SAM2REF_CATS,
+                                testing_point_bs=SAM2REF_CHUNK),
+                  device=dev, dtype=dtype)
+    rng = np.random.default_rng(110)
+    for cls in range(SAM2REF_CATS):
+        imgs, masks = synthetic_refs(rng, cls, n=1, size=TARGET_SIZE)
+        mark = launch_counts()
+        ref.fill_memory(cls, imgs, masks)
+        if cls == 0:
+            expect_exact(f"(a) {name} fill_memory, one category", mark,
+                         want_fill)
+    if int(ref.memory_fill.sum()) != SAM2REF_CATS \
+            or not torch.isfinite(ref.memory_bank).all():
+        fail(f"(a) {name}: the bank is not filled with finite features")
+    tars, bad = zip(*(sam2ref_compare(ref, name, seed, want_test)
+                      for seed in SAM2REF_SEEDS[name]))
+    for msg in bad:
+        if msg:
+            fail(msg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ms = []
+    for _ in range(2):
+        mark = launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = ref.forward_test(tars[0], points_per_side=SAM2REF_POINTS)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        now = expect_exact(f"(a) {name} forward_test, timed", mark,
+                           want_test)
+        per_test = {k: now[k] - mark[k] for k in now if now[k] != mark[k]}
+        del out
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"  (a) {name} forward_test fenced {ms[0]:.1f} / {ms[1]:.1f} ms, "
+        f"peak device memory {peak:.2f} GiB ({base / 2 ** 30:.2f} GiB held "
+        f"before: SAM2 and the bank); on {smi}")
+    torch.cuda.empty_cache()
+    return ref, min(ms), per_test
+
+
+def sam2ref_train_part(dev, tmp, smi):
+    """(b): `train_sam2ref.main` in process on the phase-9 data set, then
+    the first step against an all-plain step and its control, and 20 steps
+    on a repeated batch. Returns (main's record, fenced ms per step)."""
+    import numpy as np
+    import torch
+    from no_time_to_train_tpu_torch import train_sam2ref as trainer
+    from no_time_to_train_tpu_torch.config.presets import SAM2_PRESETS
+    from no_time_to_train_tpu_torch.data.datasets import COCORefTrainDataset
+    from no_time_to_train_tpu_torch.models.sam2ref import SAM2Ref
+    from no_time_to_train_tpu_torch.ops.upscale_product import no_fusion
+    train_dir, train_json = fabricate_coco(tmp)["train"]
+    head = os.path.join(tmp, "work", "sam2ref_head.pkl")
+    per_step = sam2ref_expected(False)[2]
+    mark = launch_counts()
+    t0 = time.perf_counter()
+    rec = trainer.main(["--root", train_dir, "--json-file", train_json,
+                        "--sam2-cfg", SAM2_CFG,
+                        "--steps", str(SAM2REF_TRAIN_STEPS),
+                        "--batch-size", "1", "--n-points", "8",
+                        "--warmup-iters", "1", "--out", head,
+                        "--device", str(dev)])
+    wall = time.perf_counter() - t0
+    expect_exact(f"(b) train_sam2ref.main, {SAM2REF_TRAIN_STEPS} steps",
+                 mark, per_step, n=SAM2REF_TRAIN_STEPS)
+    losses = rec["losses"]
+    log(f"  (b) main: {wall:.1f} s for {SAM2REF_TRAIN_STEPS} steps with the "
+        f"data set's loading; losses {np.round(losses, 4).tolist()}")
+    if not np.isfinite(losses).all():
+        fail("(b) main: a loss is not finite")
+
+    # the first step with the encoders on their kernels against the same
+    # step with no kernel at all, on a fresh SAM2Ref of main's weights;
+    # then the control: the all-plain step on the target moved by one gray
+    # level
+    cfg = SAM2_PRESETS[SAM2_CFG]
+    ref = SAM2Ref(trainer.build_sam2(cfg), device=dev)
+    ds = COCORefTrainDataset(train_dir, train_json, cfg.image_size,
+                             n_pos_points=4, neg_ratio=1.0, seed=0)
+    batch = trainer.make_batch(ds, [0], n_cat_max=1, n_refs=1, n_points=8,
+                               n_ins_max=8, image_size=cfg.image_size,
+                               device=dev)
+    if not bool(batch["cat_valid"].all()):
+        fail("(b) the repeated batch holds no valid category")
+    g = torch.Generator(device=dev).manual_seed(13)
+    sign = torch.randint(0, 2, batch["tar_imgs"].shape, generator=g,
+                         device=dev) * 2 - 1
+    control = dict(batch, tar_imgs=(batch["tar_imgs"] + sign / 255
+                                    ).clamp(0, 1))
+    runs = {}
+    for what, b, plain in (("kernels", batch, False),
+                           ("no kernel", batch, True),
+                           ("control", control, True)):
+        ref.heads.zero_grad(set_to_none=True)
+        with no_fusion() if plain else contextlib.nullcontext():
+            mark = launch_counts()
+            loss, _ = ref.train_loss(b)
+            loss.backward()
+            expect_exact(f"(b) one train_loss + backward, {what}", mark,
+                         {} if plain else per_step)
+        runs[what] = (loss.item(), sam2ref_leaf_grads(ref.heads))
+    loss_p, grads_p = runs["no kernel"]
+
+    def gap(what):
+        loss, grads = runs[what]
+        return abs(loss - loss_p), {
+            k: float((grads[k] - grads_p[k]).norm() / grads_p[k].norm())
+            for k in grads}
+    (d_loss, rel), (d_loss_c, rel_c) = gap("kernels"), gap("control")
+    norms = {k: float(v.norm()) for k, v in runs["kernels"][1].items()}
+    log(f"  (b) first step, kernels vs no kernel: loss "
+        f"{runs['kernels'][0]:.6f} / {loss_p:.6f}, |d| {d_loss:.3e} (band {SAM2REF_LOSS_BAND}); "
+        f"gradients relative L2 {rel} (band {SAM2REF_GRAD_BAND}); gradient "
+        f"norms {norms}")
+    log(f"  (b) control, the target moved by one gray level, no kernel: "
+        f"|d loss| {d_loss_c:.3e}, gradients relative L2 {rel_c}")
+    if not all(torch.isfinite(g).all() and float(g.norm()) > 0
+               for _, grads in runs.values() for g in grads.values()):
+        fail("(b) a gradient is not finite, or a leaf's gradient is zero")
+    if d_loss > SAM2REF_LOSS_BAND or max(rel.values()) > SAM2REF_GRAD_BAND:
+        fail("(b) the train step with the kernels disagrees with the "
+             "all-plain step")
+    if d_loss_c <= SAM2REF_LOSS_BAND or min(rel_c.values()) \
+            <= SAM2REF_GRAD_BAND:
+        fail("(b) the control reads inside the bands: they cannot tell a "
+             "target moved by one gray level from the kernels")
+
+    # 20 steps on the repeated batch, at tests/test_sam2ref.py's lr
+    step = ref.make_train_step(*ref.make_optimizer(base_lr=3e-3,
+                                                   warmup_iters=1))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rep, ms = [], []
+    for _ in range(SAM2REF_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = step(batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        rep.append(loss.item())
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms_step = statistics.median(ms[1:])
+    log(f"  (b) {SAM2REF_TRAIN_STEPS} steps on one batch (base_lr 3e-3): "
+        f"losses {[round(x, 5) for x in rep]}; fenced {ms_step:.1f} ms a "
+        f"step (median of the last {len(ms) - 1}), peak device memory "
+        f"{peak:.2f} GiB; on {smi}")
+    if not (np.isfinite(rep).all() and rep[-1] < rep[0]):
+        fail("(b) the loss does not fall on a repeated batch")
+    del ref, step
+    torch.cuda.empty_cache()
+    return rec, ms_step
+
+
+def guard_part(dev):
+    """(d): every kernel entry, on the card with an operand that requires
+    grad while autograd records, raises; the same call under no_grad runs
+    the kernel."""
+    import torch
+    from no_time_to_train_tpu_torch.ops import decoder_attention as da
+    from no_time_to_train_tpu_torch.ops import flash_attention as fa
+    from no_time_to_train_tpu_torch.ops import fused_ln as fl
+    from no_time_to_train_tpu_torch.ops import upscale_product as up
+    g = torch.Generator(device=dev).manual_seed(12)
+    bf = torch.bfloat16
+
+    def rn(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+    n, hw = 512, 256
+    i2t = i2t_args(rn, bf, 4, 4, n, 8)
+    i2t_shared = i2t_args(rn, bf, 1, 4, n, 8)
+    keys2 = rn(2, n, 256, scale=0.5, dtype=bf)
+    pair = (keys2, rn(2, n, 128, scale=0.5, dtype=bf),
+            rn(2, 3, 8, 128, scale=0.5, dtype=bf),
+            rn(2, 3, 8, 128, scale=0.5, dtype=bf)) + i2t[4:]
+    t2i = t2i_args(rn, bf, 4, 4, n, 8)
+    t2i_shared = t2i_args(rn, bf, 1, 4, n, 8)
+    # src, k1, s1p, ln_w, ln_b, k2, s0p, hyper
+    k4 = (rn(4, hw, 256, scale=0.5, dtype=bf), rn(256, 256, scale=1 / 16),
+          rn(hw, 256, scale=0.3), rn(64, scale=0.2) + 1.0, rn(64, scale=0.1),
+          rn(64, 128, scale=0.1), rn(hw, 512, scale=0.3), rn(4, 32))
+    t1 = rn(4, hw, 256, scale=0.5, dtype=bf)
+    q = rn(1, 2, 600, 64, dtype=bf)
+    kv = rn(1, 2, 700, 64, dtype=bf)
+    valid = torch.rand((1, 700), generator=g, device=dev) > 0.3
+    entries = [
+        ("layer_norm", lambda a: fl.layer_norm(*a, 1e-6),
+         (rn(1024, 256, dtype=bf), rn(256) + 1, rn(256))),
+        ("fused_i2t_norm", lambda a: da.fused_i2t_norm(*a, num_heads=8),
+         i2t),
+        ("fused_i2t_norm (shared keys, pre)",
+         lambda a: da.fused_i2t_norm(*a, num_heads=8), i2t_shared),
+        ("fused_i2t_norm_pair",
+         lambda a: da.fused_i2t_norm_pair(*a, num_heads=8), pair),
+        ("fused_t2i_attn", lambda a: da.fused_t2i_attn(*a, num_heads=8),
+         t2i),
+        ("fused_t2i_attn (shared keys, pre)",
+         lambda a: da.fused_t2i_attn(*a, num_heads=8), t2i_shared),
+        ("fused_post_t1", lambda a: up.fused_post_t1(*a), k4),
+        ("fused_post_t1_from_t1", lambda a: up.fused_post_t1_from_t1(*a),
+         (t1,) + k4[2:]),
+        ("flash_sdpa_bnhd", lambda a: fa.flash_sdpa_bnhd(*a),
+         (rn(1, 600, 2, 64, dtype=bf), rn(1, 700, 2, 64, dtype=bf),
+          rn(1, 700, 2, 64, dtype=bf))),
+        ("flash_sdpa_window_qkv",
+         lambda a: fa.flash_sdpa_window_qkv(*a, 2, 64),
+         (rn(1, 256, 3 * 144, dtype=bf),)),
+        ("flash_sdpa", lambda a: fa.flash_sdpa(*a), (q, kv, kv.clone())),
+        ("flash_sdpa_masked", lambda a: fa.flash_sdpa_masked(*a, valid),
+         (q, kv, kv.clone())),
+    ]
+    for env in ((), ("NTTT_PERPROMPT_PAIR",), ("NTTT_PROMPT_PAIR",)):
+        for name, fn, args in entries:
+            if env and not name.startswith(("fused_t2i", "fused_i2t_norm")):
+                continue
+            with contextlib.ExitStack() as stack:
+                for var in env:
+                    stack.enter_context(toggled(var))
+                with torch.no_grad():
+                    out = fn(args)
+                if not torch.isfinite(out.float()).all():
+                    fail(f"(d) {name}: no finite output under no_grad")
+                for j, x in enumerate(args):
+                    if not (torch.is_tensor(x) and x.is_floating_point()):
+                        continue
+                    with_grad = list(args)
+                    with_grad[j] = x.detach().clone().requires_grad_(True)
+                    mark = launch_counts()
+                    try:
+                        fn(tuple(with_grad))
+                    except RuntimeError as e:
+                        if "no backward" not in str(e):
+                            raise
+                    else:
+                        fail(f"(d) {name}{' under ' + env[0] if env else ''}"
+                             f": operand {j} requires grad and the entry "
+                             "did not raise")
+                    if launch_counts() != mark:
+                        fail(f"(d) {name}: a refused call counted a launch")
+    log(f"  (d) {len(entries)} kernel entries (and the prompt-pair variants "
+        "under their toggles) raise for each operand that requires grad, "
+        "and run under no_grad")
+
+
+def run_sam2ref(dev, smi):
+    """Phase 11: (a) fill + forward_test in float32 and bf16, (b) the
+    trainer, (c) the written head, (d) the guard. Returns (launch counts of
+    the phase, launches of one forward_test in bf16, a summary)."""
+    import pickle
+    import tempfile
+    import numpy as np
+    import torch
+    from no_time_to_train_tpu_torch import train_sam2ref as trainer
+    reset_counts()
+    summary = []
+    t0 = time.perf_counter()
+    ref32, ms32, _ = sam2ref_test_part(dev, torch.float32, smi)
+    log(f"  (a) float32: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ref16, ms16, per_test = sam2ref_test_part(dev, torch.bfloat16, smi)
+    del ref16
+    torch.cuda.empty_cache()
+    log(f"  (a) bf16: {time.perf_counter() - t0:.1f} s")
+    summary.append(f"SAM2Ref forward_test {ms32:.1f} ms float32, {ms16:.1f} "
+                   "ms bf16")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        rec, ms_step = sam2ref_train_part(dev, tmp, smi)
+        log(f"  (b) the trainer: {time.perf_counter() - t0:.1f} s")
+        summary.append(f"SAM2Ref train step {ms_step:.1f} ms float32")
+        # (c) the written head back into (a)'s float32 SAM2Ref, whose
+        # heads are main's seeded init: every leaf moved, and a second
+        # pickle of the loaded heads equals the written one bit for bit
+        init = {k: v.clone() for k, v in ref32.heads.state_dict().items()}
+        trainer.load_head(ref32, rec["out"])
+        for k, v in ref32.heads.state_dict().items():
+            if torch.equal(init[k], v):
+                fail(f"(c) the written head's {k} is the untrained one")
+        again = os.path.join(tmp, "again.pkl")
+        trainer.save_head(ref32, again)
+        trees = []
+        for path in (rec["out"], again):
+            with open(path, "rb") as f:
+                trees.append(pickle.load(f))
+
+        def leaves(tree, pre=""):
+            if isinstance(tree, dict):
+                return [x for k in sorted(tree)
+                        for x in leaves(tree[k], f"{pre}/{k}")]
+            return [(pre, tree)]
+        for (pa, a), (pb, b) in zip(*(leaves(t) for t in trees)):
+            if pa != pb or a.dtype != b.dtype or not np.array_equal(a, b):
+                fail(f"(c) the written head's {pa} does not load back bit "
+                     "for bit")
+        if len(leaves(trees[0])) != len(leaves(trees[1])):
+            fail("(c) the written head's tree does not load back")
+    del rec
+    tar = synthetic_target(np.random.default_rng(111), TARGET_SIZE)
+    with torch.no_grad():
+        mark = launch_counts()
+        out = ref32.forward_test(tar, points_per_side=SAM2REF_POINTS)
+        expect_exact("(c) forward_test with the trained head", mark,
+                     sam2ref_expected(False)[1])
+    if not (bool(out["valid"].any()) and torch.isfinite(
+            out["scores"]).all()):
+        fail("(c) forward_test with the trained head kept nothing finite")
+    log(f"  (c) the written head loads back bit for bit and drives "
+        f"forward_test: {int(out['valid'].sum())} kept")
+    del ref32, out
+    torch.cuda.empty_cache()
+    guard_part(dev)
+    return launch_counts(), per_test, summary
+
+
 def kernel_registers():
     """`--registers`: compile every source of csrc/ once more with
     `-Xptxas -v` (all started together) and print, per kernel entry, the
@@ -3488,6 +4046,12 @@ def main():
         phase_done("10")
         print(smi)
         return 0
+    if sys.argv[1:] == ["--sam2ref"]:
+        log("[11] SAM2Ref: fill, test, train, the head, the guard")
+        run_sam2ref(dev, smi)
+        phase_done("11")
+        print(smi)
+        return 0
 
     log("[3] kernels vs plain versions at the slice's shapes")
     kres = kernel_phase(dev)
@@ -3545,8 +4109,18 @@ def main():
         totals[k] = totals.get(k, 0) + v
     phase_done("10")
 
+    log("[11] SAM2Ref on SAM2-L, attention_impl=pallas: fill and "
+        "forward_test in float32 and bf16, the trainer in float32, the "
+        "written head, the kernel entries' autograd guard")
+    counts, per_ref, ref_summary = run_sam2ref(dev, smi)
+    for k, v in counts.items():
+        totals[k] = totals.get(k, 0) + v
+    summary += ref_summary
+    phase_done("11")
+
     kernels = [dict(k, launches=totals[k["name"]], **kres[k["name"]],
-                    amg_launches_per_image=per_amg.get(k["name"], 0))
+                    amg_launches_per_image=per_amg.get(k["name"], 0),
+                    sam2ref_launches_per_test=per_ref.get(k["name"], 0))
                for k in KERNELS]
     idle = [k["name"] for k in kernels if k["launches"] == 0]
     if idle:

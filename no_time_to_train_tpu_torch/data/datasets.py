@@ -9,7 +9,7 @@ Behavioral ports of reference no_time_to_train/dataset/coco_ref_dataset.py:
   - COCORefTestDataset (:498) — class-split-filtered test set with
     encode_results/evaluate.
   - COCORefOracleTestDataset (:758) — test set + GT annotations for vis/oracle.
-The training dataset of the SAM2Ref variant is not ported.
+  - COCORefTrainDataset (:56-308) — the SAM2Ref variant's training set.
 
 Image loading matches sam2/utils/misc.py:_load_img_as_tensor (:92-107): RGB,
 PIL's default-resample square resize, /255. The port decodes PNG itself and
@@ -385,3 +385,130 @@ class COCORefOracleTestDataset(COCORefTestDataset):
             e["bboxes"] = np.stack(e["bboxes"])
         ret["tar_anns_by_cat"] = anns_by_cat
         return ret
+
+
+class COCORefTrainDataset:
+    """Training dataset for the SAM2Ref variant (reference
+    coco_ref_dataset.py:56-308): per item, a target image with per-category
+    GT masks, sampled pos/neg query points, and per-category random reference
+    images with instance masks. Sampling draws from `random.Random(seed)`
+    in the JAX package's order, so one seed gives its items."""
+
+    def __init__(self, root, json_file, image_size, remove_bad=False,
+                 max_cat_num=-1, max_mem_length=1, n_pos_points=8,
+                 neg_ratio=1.0, norm_img=False, class_split=None,
+                 cat_names=(), seed=None):
+        import random as _random
+        self.rng = _random.Random(seed)
+        self.root = root
+        self.coco = COCO(json_file)
+        self.image_size = image_size
+        self.norm_img = norm_img
+        self.n_pos_points = n_pos_points
+        self.neg_ratio = neg_ratio
+        self.max_cat_num = max_cat_num
+        self.max_mem_length = max_mem_length
+        self.cat_names = _resolve_cat_names(class_split, cat_names)
+        self.cat_ids = self.coco.getCatIds(catNms=self.cat_names)
+        self.cat_ids_to_inds, self.cat_inds_to_ids = _get_cat_inds(self.cat_ids)
+
+        self.img_ids = []
+        self.img_to_anns = {}
+        self.img_to_cats = {}
+        self.cat_to_imgs_and_anns = {}
+        for ann_id, ann in self.coco.anns.items():
+            if ann["category_id"] not in self.cat_ids:
+                continue
+            if remove_bad and ann.get("isimpossible", 0) == 1:
+                continue
+            iid, cid = ann["image_id"], ann["category_id"]
+            if iid not in self.img_to_anns:
+                self.img_to_anns[iid] = []
+                self.img_to_cats[iid] = []
+                self.img_ids.append(iid)
+            self.img_to_anns[iid].append(ann_id)
+            if cid not in self.img_to_cats[iid]:
+                self.img_to_cats[iid].append(cid)
+            self.cat_to_imgs_and_anns.setdefault(cid, []).append((iid, ann_id))
+
+    def __len__(self):
+        return len(self.img_ids)
+
+    def _sample_points(self, mask_union):
+        """pos/neg/pad query-point sampling (reference :151-182); points are
+        (x, y)."""
+        pos = np.argwhere(mask_union > 0)
+        if len(pos) == 0:
+            raise ValueError("No positive points!")
+        n_pos = min(len(pos), self.n_pos_points)
+        sel = self.rng.sample(range(len(pos)), n_pos)
+        pts = [pos[i][::-1] for i in sel]
+        n_total = int(self.n_pos_points * (self.neg_ratio + 1))
+        neg = np.argwhere(mask_union <= 0)
+        n_neg = min(len(neg), n_total - n_pos)
+        if n_neg > 0:
+            sel = self.rng.sample(range(len(neg)), n_neg)
+            pts += [neg[i][::-1] for i in sel]
+        while len(pts) < n_total:  # pad with uniform random points
+            pts.append([self.rng.randrange(mask_union.shape[1]),
+                        self.rng.randrange(mask_union.shape[0])])
+        return np.asarray(pts, np.float32)
+
+    def _mask(self, ann):
+        s = self.image_size
+        return _resize_mask_nearest(
+            self.coco.annToMask(ann).astype(np.float32), (s, s))
+
+    def __getitem__(self, index):
+        img_id = self.img_ids[index]
+        info = self.coco.loadImgs([img_id])[0]
+        s = self.image_size
+        img, _, _ = load_image(os.path.join(self.root, info["file_name"]),
+                               image_size=s, normalize=self.norm_img)
+        cats = list(self.img_to_cats[img_id])
+        if 0 < self.max_cat_num < len(cats):
+            self.rng.shuffle(cats)
+            cats = cats[: self.max_cat_num]
+
+        tar_anns_by_cat = OrderedDict()
+        for ann in self.coco.loadAnns(self.img_to_anns[img_id]):
+            if ann["category_id"] not in cats:
+                continue
+            cat_ind = self.cat_ids_to_inds[ann["category_id"]]
+            tar_anns_by_cat.setdefault(cat_ind, {"masks": []})[
+                "masks"].append(self._mask(ann))
+        for e in tar_anns_by_cat.values():
+            e["masks"] = np.stack(e["masks"])
+            e["query_points"] = self._sample_points(e["masks"].max(0))
+
+        refs_by_cat = OrderedDict()
+        for cat_id in cats:
+            cat_ind = self.cat_ids_to_inds[cat_id]
+            pool = self.cat_to_imgs_and_anns[cat_id]
+            n_ref = min(self.max_mem_length, len(pool))
+            picks, seen = [], set()
+            for iid, aid in self.rng.sample(pool, len(pool)):
+                if iid == img_id or iid in seen:
+                    continue
+                seen.add(iid)
+                picks.append((iid, aid))
+                if len(picks) >= n_ref:
+                    break
+            imgs, masks = [], []
+            for iid, aid in picks:
+                rinfo = self.coco.loadImgs([iid])[0]
+                rimg, _, _ = load_image(
+                    os.path.join(self.root, rinfo["file_name"]),
+                    image_size=s, normalize=self.norm_img)
+                imgs.append(rimg)
+                masks.append(self._mask(self.coco.loadAnns([aid])[0]))
+            if imgs:
+                refs_by_cat[cat_ind] = {"imgs": np.stack(imgs),
+                                        "masks": np.stack(masks)}
+
+        return OrderedDict(
+            data_mode="train", target_img=img,
+            target_img_info=dict(ori_height=info["height"],
+                                 ori_width=info["width"],
+                                 file_name=info["file_name"], id=img_id),
+            tar_anns_by_cat=tar_anns_by_cat, refs_by_cat=refs_by_cat)

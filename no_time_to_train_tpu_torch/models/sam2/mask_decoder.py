@@ -8,8 +8,12 @@ chain runs in the unshuffled product layout through kernel K4
 `forward` of the SAM heads (video tracking, prompts with a mask), whose
 upscale chain is plain. The vendored reference keeps the object-score head
 dead and returns a constant score of 10; its parameters are held for
-checkpoint compatibility. The NTTT extras of the JAX decoder
-(`skip_last_n_keys`, the custom IoU token) are not ported.
+checkpoint compatibility. The classic route carries the NTTT extras of the
+JAX decoder used by SAM2Ref (models/sam2ref.py): `skip_last_n_keys`, which
+hides the last sparse tokens from self-attention and from the image side,
+and `return_iou_token_out` / `disable_custom_iou_embed`, which return the
+output of the custom IoU token appended last to the sparse prompts (or of
+the SAM IoU token).
 """
 import torch
 import torch.nn as nn
@@ -85,18 +89,27 @@ class MaskDecoder(nn.Module):
 
     def predict_masks(self, image_embeddings, image_pe,
                       sparse_prompt_embeddings, dense_prompt_embeddings,
-                      high_res_features=None):
+                      high_res_features=None, return_iou_token_out=False,
+                      disable_custom_iou_embed=False, skip_last_n_keys=0):
         """image_embeddings, dense: [B or 1, h, w, C]; image_pe [h, w, C];
         sparse [B, N, C]. Returns (masks [B, M, 4h, 4w], iou [B, M], mask
-        tokens [B, M, C], object score logits [B, 1], the constant 10)."""
+        tokens [B, M, C], object score logits [B, 1], the constant 10, and
+        the IoU token output [B, C] with `return_iou_token_out`, else None):
+        the last token's (the custom IoU token's), or the SAM IoU token's
+        with `disable_custom_iou_embed`."""
         tokens, s = self._tokens(sparse_prompt_embeddings)
         bs = tokens.shape[0]
         # a batch of 1 on the image side stays 1 until the keys diverge
         src = image_embeddings + dense_prompt_embeddings
         b, (h, w, c) = bs, src.shape[1:]
-        hs, src_out = self.transformer(src, image_pe[None], tokens)
+        hs, src_out = self.transformer(src, image_pe[None], tokens,
+                                       skip_last_n_keys=skip_last_n_keys)
         iou_token_out = hs[:, s]
         mask_tokens_out = hs[:, s + 1: s + 1 + self.num_mask_tokens]
+        my_iou_token_out = None
+        if return_iou_token_out:
+            my_iou_token_out = (iou_token_out if disable_custom_iou_embed
+                                else hs[:, -1])
 
         dc1, ln, dc2 = (self.output_upscaling[0], self.output_upscaling[1],
                         self.output_upscaling[3])
@@ -116,7 +129,8 @@ class MaskDecoder(nn.Module):
         masks = torch.einsum("bmc,bhwc->bmhw", hyper_in, up)
         iou_pred = self.iou_prediction_head(iou_token_out)
         object_score_logits = iou_pred.new_full((bs, 1), OBJECT_SCORE_LOGIT)
-        return masks, iou_pred, mask_tokens_out, object_score_logits
+        return (masks, iou_pred, mask_tokens_out, object_score_logits,
+                my_iou_token_out)
 
     def _get_stability_scores(self, mask_logits):
         flat = mask_logits.flatten(-2)
@@ -146,16 +160,24 @@ class MaskDecoder(nn.Module):
 
     def forward(self, image_embeddings, image_pe, sparse_prompt_embeddings,
                 dense_prompt_embeddings, multimask_output,
-                high_res_features=None, output_all_masks=False):
+                high_res_features=None, output_all_masks=False,
+                return_iou_token_out=False, disable_custom_iou_embed=False,
+                skip_last_n_keys=0):
         """Returns (masks, iou predictions, SAM output tokens, object score
         logits): all four mask channels with `output_all_masks`, channels
-        1..3 with `multimask_output`, else one mask."""
-        masks, iou_pred, mask_tokens_out, object_score_logits = (
+        1..3 with `multimask_output`, else one mask; with
+        `return_iou_token_out` the IoU token output of `predict_masks` as a
+        fifth value."""
+        masks, iou_pred, mask_tokens_out, object_score_logits, iou_tok = (
             self.predict_masks(image_embeddings, image_pe,
                                sparse_prompt_embeddings,
-                               dense_prompt_embeddings, high_res_features))
+                               dense_prompt_embeddings, high_res_features,
+                               return_iou_token_out, disable_custom_iou_embed,
+                               skip_last_n_keys))
+        extra = (iou_tok,) if return_iou_token_out else ()
         if output_all_masks:
-            return masks, iou_pred, mask_tokens_out, object_score_logits
+            return (masks, iou_pred, mask_tokens_out, object_score_logits,
+                    *extra)
         if multimask_output:
             masks, iou_pred = masks[:, 1:], iou_pred[:, 1:]
         elif self.dynamic_multimask_via_stability:
@@ -167,7 +189,7 @@ class MaskDecoder(nn.Module):
             sam_tokens_out = mask_tokens_out[:, 1:]
         else:
             sam_tokens_out = mask_tokens_out[:, 0:1]
-        return masks, iou_pred, sam_tokens_out, object_score_logits
+        return masks, iou_pred, sam_tokens_out, object_score_logits, *extra
 
     def predict_best_of_multimask(self, image_embeddings, image_pe,
                                   sparse_prompt_embeddings,

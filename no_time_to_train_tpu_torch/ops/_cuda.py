@@ -18,8 +18,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["lib", "build_seconds", "check", "dtype_code", "require",
-           "stream_ptr"]
+__all__ = ["lib", "build_seconds", "check", "dtype_code", "no_grad_operands",
+           "require", "stream_ptr"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -151,6 +151,22 @@ def dtype_code(dtype):
 
 def stream_ptr(device):
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def no_grad_operands(name, *operands):
+    """Raise where autograd would record a kernel call: no kernel of the
+    port has a backward (the JAX package's Pallas kernels have no autodiff
+    rule either), so a differentiated computation must run its plain
+    versions inside `no_fusion()`. Entries call this before they launch;
+    `operands` may hold None and non-tensors."""
+    if not torch.is_grad_enabled():
+        return
+    for x in operands:
+        if isinstance(x, torch.Tensor) and x.requires_grad:
+            raise RuntimeError(
+                f"{name}: a kernel has no backward and an operand requires "
+                "grad; run the differentiated code inside no_fusion() or "
+                "under torch.no_grad()")
 
 
 def require(cond, msg):

@@ -227,6 +227,8 @@ def fused_i2t_norm(keys, pe_q, tok_k, tok_v, wq, bq, wout, bout, norm_w,
         return fused_i2t_norm_plain(keys, pe_q, tok_k, tok_v, wq, bq, wout,
                                     bout, norm_w, norm_b,
                                     num_heads=num_heads, eps=eps)
+    _cuda.no_grad_operands("fused_i2t_norm", keys, pe_q, tok_k, tok_v, wq,
+                           bq, wout, bout, norm_w, norm_b)
     out, name = _i2t("nttt_i2t_norm", keys, pe_q, tok_k, tok_v, wq, bq, wout,
                      bout, norm_w, norm_b, num_heads, eps)
     LAUNCHES[name] += 1
@@ -271,6 +273,8 @@ def fused_i2t_norm_pair(keys2, pe_q2, tok_k2, tok_v2, wq, bq, wout, bout,
         return fused_i2t_norm_pair_plain(
             keys2, pe_q2, tok_k2, tok_v2, wq, bq, wout, bout, norm_w, norm_b,
             num_heads=num_heads, eps=eps)
+    _cuda.no_grad_operands("fused_i2t_norm_pair", keys2, pe_q2, tok_k2,
+                           tok_v2, wq, bq, wout, bout, norm_w, norm_b)
     out = _i2t_pair("nttt_i2t_norm", keys2, pe_q2, tok_k2, tok_v2, wq, bq,
                     wout, bout, norm_w, norm_b, num_heads, eps)
     LAUNCHES["fused_i2t_norm_pair"] += 1
@@ -338,6 +342,8 @@ def fused_t2i_attn(keys, pe_k, tok_q, wk, bk, wv, bv, *, num_heads):
     if keys.device.type == "cpu" or fusion_disabled():
         return fused_t2i_attn_plain(keys, pe_k, tok_q, wk, bk, wv, bv,
                                     num_heads=num_heads)
+    _cuda.no_grad_operands("fused_t2i_attn", keys, pe_k, tok_q, wk, bk, wv,
+                           bv)
     out, name = _t2i("nttt_t2i_attn", keys, pe_k, tok_q, wk, bk, wv, bv,
                      num_heads)
     LAUNCHES[name] += 1

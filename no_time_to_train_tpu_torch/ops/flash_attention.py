@@ -216,6 +216,7 @@ def flash_sdpa_bnhd(q, k, v, *, splits=None):
     the models leave it to `key_splits`."""
     if q.device.type == "cpu" or fusion_disabled():
         return onepass_bnhd_plain(q, k, v)
+    _cuda.no_grad_operands("flash_sdpa_bnhd", q, k, v)
     b, nq, nk, h, d = _check_bnhd(q, k, v)
     splits, part_o, part_ml = _split_args(q, b * h, nq, nk, d, splits)
     out = torch.empty((b, nq, h, d), dtype=q.dtype, device=q.device)
@@ -268,6 +269,7 @@ def flash_sdpa_window_qkv(qkv, heads, win):
     docstring says which tile a bf16 call takes."""
     if qkv.device.type == "cpu" or fusion_disabled():
         return window_qkv_plain(qkv, heads, win)
+    _cuda.no_grad_operands("flash_sdpa_window_qkv", qkv)
     out = _launch_window("nttt_window_attn", qkv, heads, win)
     LAUNCHES["flash_sdpa_window_qkv"] += 1
     return out
@@ -484,6 +486,7 @@ def flash_sdpa(q, k, v, *, splits=None):
     with it); the models leave it to `key_splits`."""
     if q.device.type == "cpu" or fusion_disabled():
         return flash_bh_plain(q, k, v)
+    _cuda.no_grad_operands("flash_sdpa", q, k, v)
     out = _launch_flash("flash_bh", q, k, v, splits=splits)
     LAUNCHES["flash_sdpa"] += 1
     return out
@@ -547,6 +550,7 @@ def flash_sdpa_masked(q, k, v, key_valid, *, splits=None):
     _check_masked(q, k, key_valid)
     if q.device.type == "cpu" or fusion_disabled():
         return flash_masked_plain(q, k, v, key_valid)
+    _cuda.no_grad_operands("flash_sdpa_masked", q, k, v)
     _cuda.require(key_valid.device == q.device, "key_valid on q's device")
     out = _launch_flash("flash_masked", q, k, v, key_valid, splits)
     LAUNCHES["flash_sdpa_masked"] += 1

@@ -69,6 +69,7 @@ def layer_norm(x, weight, bias, eps):
     """Kernel K1 over the last axis of x (any leading shape)."""
     if x.device.type == "cpu" or fusion_disabled():
         return layer_norm_plain(x, weight, bias, eps)
+    _cuda.no_grad_operands("layer_norm", x, weight, bias)
     out = _launch("nttt_layer_norm", x, weight, bias, eps)
     LAUNCHES["layer_norm"] += 1
     return out

@@ -128,6 +128,8 @@ def fused_post_t1(src, k1mat, s1p, ln_w, ln_b, k2mat, s0p, hyper, *,
     if src.device.type == "cpu" or fusion_disabled():
         return fused_post_t1_plain(src, k1mat, s1p, ln_w, ln_b, k2mat, s0p,
                                    hyper, eps=eps)
+    _cuda.no_grad_operands("fused_post_t1", src, k1mat, s1p, ln_w, ln_b,
+                           k2mat, s0p, hyper)
     out = _launch("nttt_upscale_product", src, k1mat, s1p, ln_w, ln_b, k2mat,
                   s0p, hyper, eps)
     LAUNCHES["fused_post_t1"] += 1
@@ -141,6 +143,8 @@ def fused_post_t1_from_t1(t1, s1p, ln_w, ln_b, k2mat, s0p, hyper, *,
     if t1.device.type == "cpu" or fusion_disabled():
         return fused_post_t1_from_t1_plain(t1, s1p, ln_w, ln_b, k2mat, s0p,
                                            hyper, eps=eps)
+    _cuda.no_grad_operands("fused_post_t1_from_t1", t1, s1p, ln_w, ln_b,
+                           k2mat, s0p, hyper)
     out = _launch("nttt_upscale_product", t1, None, s1p, ln_w, ln_b, k2mat,
                   s0p, hyper, eps)
     LAUNCHES["fused_post_t1_from_t1"] += 1

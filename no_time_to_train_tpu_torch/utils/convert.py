@@ -1,4 +1,5 @@
-"""JAX package parameter trees -> the port's state_dicts.
+"""JAX package parameter trees -> the port's state_dicts, and back for the
+SAM2Ref head.
 
 The inverse of `no_time_to_train_tpu/utils/torch_convert.py` (`convert_sam2` and its
 parts),
@@ -6,13 +7,17 @@ parts),
 `no_time_to_train_tpu/models/dino_v3.convert_hf_dinov3`: given the numpy
 leaves of `NoAMGMatcher.sam2_params` / `.dino_params`, build reference-named
 state_dicts so that the port computes what the JAX package computes.
+`sam2ref_heads_state_dict` carries the SAM2Ref head tree (`SAM2Ref.head_params`
+of the JAX package, the pickle either package's trainer writes) into the
+port's `RefHeads`; `sam2ref_heads_params` carries it back.
 
 Layout rules (inverse of the JAX converters): Dense kernel [in, out] ->
 Linear weight [out, in]; Conv HWIO -> OIHW; spatial embeddings HWC -> NCHW.
 """
 import numpy as np
 
-__all__ = ["sam2_state_dict", "dino_state_dict", "dino_v3_state_dict"]
+__all__ = ["sam2_state_dict", "dino_state_dict", "dino_v3_state_dict",
+           "sam2ref_heads_state_dict", "sam2ref_heads_params"]
 
 
 def _a(x):
@@ -184,6 +189,34 @@ def sam2_state_dict(params):
     if "mask_downsample" in params:
         _conv(sd, "mask_downsample", params["mask_downsample"])
     return sd
+
+
+def sam2ref_heads_state_dict(head_params):
+    """The JAX package's SAM2Ref head tree (`SAM2Ref.head_params`, numpy
+    leaves; the pickle its trainer writes) -> state_dict of the port's
+    `RefHeads`."""
+    sd = {"mem_feat_ref_pe.weight":
+          _a(np.asarray(head_params["mem_feat_ref_pe"])[None]),
+          "iou_embed.weight": _a(head_params["iou_embed"])}
+    _mlp(sd, "iou_prediction_head", head_params["iou_prediction_head"])
+    return sd
+
+
+def sam2ref_heads_params(state_dict):
+    """The inverse of `sam2ref_heads_state_dict`: `RefHeads`' state_dict
+    (torch or numpy values) -> the JAX head tree with numpy leaves."""
+    sd = {k: _a(v.detach().cpu().numpy() if hasattr(v, "detach") else v)
+          for k, v in state_dict.items()}
+    prefix = "iou_prediction_head.layers."
+    n_layers = 1 + max(int(k[len(prefix):].split(".")[0])
+                       for k in sd if k.startswith(prefix))
+    return {"mem_feat_ref_pe": sd["mem_feat_ref_pe.weight"][0],
+            "iou_embed": sd["iou_embed.weight"],
+            "iou_prediction_head": {
+                f"layers_{i}": {
+                    "kernel": _a(sd[f"{prefix}{i}.weight"].T),
+                    "bias": sd[f"{prefix}{i}.bias"]}
+                for i in range(n_layers)}}
 
 
 def dino_state_dict(params, cfg):

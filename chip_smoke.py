@@ -109,7 +109,33 @@ Run from the root of a checkout. Phases, each of which raises on failure:
      entry raises when an operand requires grad. The kernel table gains
      each kernel's launches per SAM2Ref forward_test in bf16, as counted
      around the timed call.
+  12. data parallelism and the pipeline scripts' tools, on phase 9's
+     fabricated set and configuration after phase 9's single-process
+     chain: (a) two OS processes, NTTT_NUM_PROCESSES=2 in one gloo group
+     (a coordinator on a free local port), run the CLI's fill_memory with
+     trainer.devices=2 (the cross-process fill: each rank encodes its row
+     of every batch of two and the features are gathered),
+     postprocess_memory and test with an export, then a test on the
+     single-process bank: the fill checkpoint bit for bit the
+     single-process one (else within FEAT_REL_BAND), only rank 0 writes,
+     rank 0's merged export bit for bit the single-process export, each
+     rank's launches per test image phase 4's, rank 1's test returns None,
+     COCOeval once a test call; then fenced ms per image of rank 0 alone
+     and of both ranks sharing the card, in turns, with the peak memory of
+     each; (b) make_data_parallel_test on [cuda:0, cuda:0] bit for bit
+     `test` per image with phase 4's launches, make_data_parallel_fill on
+     the same two against the single-process fill, and the runner with
+     devices=2 raising on one GPU (run on 2 GPUs where there are 2);
+     (c) FinalizePool(3): records bit for bit finalize_records, every
+     worker started with CUDA_VISIBLE_DEVICES='' and without torch, no
+     CUDA context more on the card while it lives; (d) the memory poller,
+     a process of its own, reads at least a test loop's
+     max_memory_allocated; (e) sam_bbox_to_segm_batch with SAM2-L's image
+     predictor on a box-only copy of the test set: exact launches, every
+     RLE equal to predict(box=...) called directly; (f) lvis_eval's
+     `python -m` entry on (a)'s export.
 `python3 chip_smoke.py --kernels` runs phases 1 to 3 only;
+`python3 chip_smoke.py --parallel` runs phases 1, 2 and 12 only;
 `python3 chip_smoke.py --runner` runs phases 1, 2 and 9 only;
 `python3 chip_smoke.py --image-entries` runs phases 1, 2 and 10 only;
 `python3 chip_smoke.py --sam2ref` runs phases 1, 2 and 11 only;
@@ -2707,6 +2733,50 @@ def fabricate_coco(root):
     return out
 
 
+def runner_cli(tmp):
+    """Phase 9's data set fabricated under tmp, references sampled, and its
+    CLI arguments: (base, fill, post, test, files, data). The phases write
+    their results under <tmp>/results."""
+    from no_time_to_train_tpu_torch.data.few_shot_sampling import (
+        sample_memory_dataset)
+    t0 = time.perf_counter()
+    data = fabricate_coco(tmp)
+    (train_dir, train_json), (test_dir, test_json) = (data["train"],
+                                                      data["test"])
+    pkl = os.path.join(tmp, "refs.pkl")
+    sample_memory_dataset(train_json, pkl, RUNNER_SHOTS, remove_bad=True,
+                          dataset=RUNNER_SPLIT, seed=RUNNER_SEED)
+    log(f"  data set: {RUNNER_TRAIN} train + {len(RUNNER_TEST_WH)} test "
+        f"PNGs, references sampled, {time.perf_counter() - t0:.1f} s")
+    cfg_path = os.path.join(REPO, RUNNER_CONFIG)
+    save_dir = os.path.join(tmp, "results")
+    f = {k: os.path.join(tmp, k) for k in (
+        "memory.ckpt", "memory_post.ckpt", "export.json",
+        "export_many.json", "missing_sam2.pt")}
+    ds_args = "--model.init_args.dataset_cfgs"
+    base = ["test", "--config", cfg_path,
+            "--model.init_args.model_cfg.memory_bank_cfg.length",
+            str(RUNNER_SHOTS),
+            "--model.init_args.model_cfg.sam2_ckpt_path",
+            f["missing_sam2.pt"], "--trainer.devices", "1"]
+    fill = ["--model.test_mode", "fill_memory", "--out_path",
+            f["memory.ckpt"], f"{ds_args}.fill_memory.memory_pkl", pkl,
+            f"{ds_args}.fill_memory.memory_length", str(RUNNER_SHOTS),
+            f"{ds_args}.fill_memory.class_split", RUNNER_SPLIT,
+            f"{ds_args}.fill_memory.root", train_dir,
+            f"{ds_args}.fill_memory.json_file", train_json,
+            "--trainer.logger.save_dir", save_dir + "/"]
+    post = ["--model.test_mode", "postprocess_memory", "--ckpt_path",
+            f["memory.ckpt"], "--out_path", f["memory_post.ckpt"]]
+    test = ["--ckpt_path", f["memory_post.ckpt"], "--model.test_mode",
+            "test", "--model.init_args.model_cfg.dataset_name",
+            RUNNER_SPLIT, f"{ds_args}.test.class_split", RUNNER_SPLIT,
+            f"{ds_args}.test.root", test_dir,
+            f"{ds_args}.test.json_file", test_json,
+            "--trainer.logger.save_dir", save_dir + "/"]
+    return base, fill, post, test, f, data
+
+
 def run_runner(dev, smi, phase4=None):
     """Phase 9: fill_memory -> postprocess_memory -> test through the CLI,
     in process, and its checks (a) to (e), then C.11's 80-class bank.
@@ -2722,8 +2792,6 @@ def run_runner(dev, smi, phase4=None):
     from no_time_to_train_tpu_torch.config import yaml_lite
     from no_time_to_train_tpu_torch.data import rle
     from no_time_to_train_tpu_torch.data.datasets import COCORefTestDataset
-    from no_time_to_train_tpu_torch.data.few_shot_sampling import (
-        sample_memory_dataset)
     from no_time_to_train_tpu_torch.models.matching import memory_bank as mb
     from no_time_to_train_tpu_torch.models.matching.pipeline import (
         finalize_records)
@@ -2744,41 +2812,10 @@ def run_runner(dev, smi, phase4=None):
 
     totals = {}
     with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        data = fabricate_coco(tmp)
-        (train_dir, train_json), (test_dir, test_json) = (data["train"],
-                                                          data["test"])
-        pkl = os.path.join(tmp, "refs.pkl")
-        sample_memory_dataset(train_json, pkl, RUNNER_SHOTS, remove_bad=True,
-                              dataset=RUNNER_SPLIT, seed=RUNNER_SEED)
-        log(f"  data set: {RUNNER_TRAIN} train + {len(RUNNER_TEST_WH)} test "
-            f"PNGs, references sampled, {time.perf_counter() - t0:.1f} s")
+        base, fill, post, test, f, data = runner_cli(tmp)
+        test_dir, test_json = data["test"]
         cfg_path = os.path.join(REPO, RUNNER_CONFIG)
         save_dir = os.path.join(tmp, "results")
-        f = {k: os.path.join(tmp, k) for k in (
-            "memory.ckpt", "memory_post.ckpt", "export.json",
-            "export_many.json", "missing_sam2.pt")}
-        ds_args = "--model.init_args.dataset_cfgs"
-        base = ["test", "--config", cfg_path,
-                "--model.init_args.model_cfg.memory_bank_cfg.length",
-                str(RUNNER_SHOTS),
-                "--model.init_args.model_cfg.sam2_ckpt_path",
-                f["missing_sam2.pt"], "--trainer.devices", "1"]
-        fill = ["--model.test_mode", "fill_memory", "--out_path",
-                f["memory.ckpt"], f"{ds_args}.fill_memory.memory_pkl", pkl,
-                f"{ds_args}.fill_memory.memory_length", str(RUNNER_SHOTS),
-                f"{ds_args}.fill_memory.class_split", RUNNER_SPLIT,
-                f"{ds_args}.fill_memory.root", train_dir,
-                f"{ds_args}.fill_memory.json_file", train_json,
-                "--trainer.logger.save_dir", save_dir + "/"]
-        post = ["--model.test_mode", "postprocess_memory", "--ckpt_path",
-                f["memory.ckpt"], "--out_path", f["memory_post.ckpt"]]
-        test = ["--ckpt_path", f["memory_post.ckpt"], "--model.test_mode",
-                "test", "--model.init_args.model_cfg.dataset_name",
-                RUNNER_SPLIT, f"{ds_args}.test.class_split", RUNNER_SPLIT,
-                f"{ds_args}.test.root", test_dir,
-                f"{ds_args}.test.json_file", test_json,
-                "--trainer.logger.save_dir", save_dir + "/"]
 
         def call(what, args):
             reset_counts()
@@ -3935,6 +3972,545 @@ def run_sam2ref(dev, smi):
     return launch_counts(), per_test, summary
 
 
+# phase 12: data parallelism and the pipeline scripts' tools on one card.
+# (a) runs the CLI in PARALLEL_RANKS OS processes of one gloo group (NCCL
+# refuses two ranks on one GPU); the timing turns repeat the 6 test images
+# PARALLEL_TIMING_ROUNDS times per turn after one warm image
+PARALLEL_RANKS, PARALLEL_TIMING_ROUNDS = 2, 2
+PARALLEL_TURNS = ("shared", "alone", "shared", "alone")
+PARALLEL_TIMEOUT_S = 600
+# (c) the finalize pool's workers
+FINALIZE_WORKERS = 3
+# (e) launches of sam_bbox_to_segm_batch: Hiera-L once per image, one box
+# prompt per annotation (the decode of one prompt batch and K1 for the
+# upscaling norm, as phase 10 (a))
+BOX_DECODE = {"fused_t2i_attn": 3, "fused_i2t_norm": 2, "layer_norm": 1}
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def bank_state(path):
+    import torch
+    return torch.load(path, map_location="cpu", weights_only=True)[
+        "state_dict"]
+
+
+def fill_band(got, want):
+    """(features bit for bit, their relative L2, counts and masks equal) of
+    the positive banks of two checkpoints."""
+    key = "seg_model.memory_bank."
+    f_got, f_want = got[key + "feats"], want[key + "feats"]
+    rel = float((f_got.float() - f_want.float()).norm() / f_want.norm())
+    same = all(got[key + k].equal(want[key + k])
+               for k in ("fill_counts", "masks"))
+    return f_got.equal(f_want), rel, same
+
+
+def rank_worker(spec_path):
+    """Phase 12 (a), one rank: the CLI's fill_memory (the cross-process
+    fill), postprocess_memory and test with an export, then a test on the
+    single-process bank, then the timing turns. Writes what it saw to the
+    spec's `out` file."""
+    import torch
+    import torch.distributed as dist
+    from no_time_to_train_tpu_torch import cli
+    from no_time_to_train_tpu_torch.data.datasets import COCORefTestDataset
+    from no_time_to_train_tpu_torch.parallel import multihost
+    from no_time_to_train_tpu_torch.utils import checkpoint as ckpt_io
+    with open(spec_path) as fh:
+        spec = json.load(fh)
+    rank = int(os.environ["NTTT_PROCESS_ID"])
+    saves = []
+    save = ckpt_io.save_memory_bank
+
+    def counted_save(path, *a, **kw):
+        saves.append(os.path.basename(path))
+        return save(path, *a, **kw)
+
+    ckpt_io.save_memory_bank = counted_save
+    out = {"rank": rank, "saves": saves, "calls": {}, "turns": []}
+
+    def call(name, args):
+        reset_counts()
+        t0 = time.perf_counter()
+        runner = cli.main(spec["base"] + args)
+        torch.cuda.synchronize()
+        out["calls"][name] = dict(
+            seconds=time.perf_counter() - t0, counts=launch_counts(),
+            images=len(runner.time_queue), local=runner.local_devices,
+            result_none=runner.result is None)
+        return runner
+
+    call("fill", spec["fill"])
+    call("post", spec["post"])
+    call("test", spec["test"])
+    runner = call("test_same_bank", spec["test_same"])
+    out["world"], out["backend"] = dist.get_world_size(), dist.get_backend()
+
+    ds = COCORefTestDataset(*spec["test_ds"], class_split=RUNNER_SPLIT)
+    imgs = [ds[i]["target_img"] for i in range(len(ds))]
+    m = runner.matcher
+    for turn in PARALLEL_TURNS:
+        multihost.barrier(f"turn_{turn}")
+        if turn == "shared" or rank == 0:
+            m.test(imgs[0])
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            times = []
+            for img in imgs * PARALLEL_TIMING_ROUNDS:
+                t0 = time.perf_counter()
+                m.test(img)          # fetches to the host: fenced
+                times.append(time.perf_counter() - t0)
+            out["turns"].append(dict(
+                turn=turn, ms=1e3 * statistics.median(times),
+                mean_ms=1e3 * statistics.mean(times),
+                peak=torch.cuda.max_memory_allocated()))
+        multihost.barrier(f"turn_{turn}_done")
+    with open(spec["out"] % rank, "w") as fh:
+        json.dump(out, fh)
+    multihost.barrier("rank_worker_done")
+    dist.destroy_process_group()
+
+
+def dp_fill_dataset(base, fill):
+    """The fill data set the CLI builds from `base + fill`."""
+    from no_time_to_train_tpu_torch import cli
+    from no_time_to_train_tpu_torch.config import yaml_lite
+    from no_time_to_train_tpu_torch.runner import (_apply_dotted_hacks,
+                                                   get_dataset)
+    args, overrides = cli.parse_args(base + fill)
+    cfg = yaml_lite.load_file(args["config"])
+    for k, v in overrides:
+        cli._set_dotted(cfg, k, v)
+    init = cfg["model"]["init_args"]
+    model_cfg, ds_cfgs = _apply_dotted_hacks(init["model_cfg"],
+                                             init["dataset_cfgs"])
+    ds_cfgs["fill_memory"]["memory_length"] = \
+        model_cfg["memory_bank_cfg"]["length"]
+    return get_dataset(ds_cfgs["fill_memory"], "fill_memory")
+
+
+def run_parallel(dev, smi):
+    """Phase 12: (a) two CLI ranks in two OS processes on the card, (b) two
+    in-process replicas, (c) the finalize pool, (d) the memory poller,
+    (e) sam_bbox_to_segm_batch, (f) lvis_eval, and the timing turns of (a).
+    Returns the launch counts of the main path's runs."""
+    import csv
+    import dataclasses
+    import gc
+    import tempfile
+    import numpy as np
+    import torch
+    from no_time_to_train_tpu_torch import cli
+    from no_time_to_train_tpu_torch.config import yaml_lite
+    from no_time_to_train_tpu_torch.data import rle
+    from no_time_to_train_tpu_torch.data.converters import (
+        sam_bbox_to_segm_batch)
+    from no_time_to_train_tpu_torch.data.datasets import (
+        COCORefTestDataset, load_image)
+    from no_time_to_train_tpu_torch.models.matching.pipeline import (
+        finalize_records)
+    from no_time_to_train_tpu_torch.models.sam2.image_predictor import (
+        SAM2ImagePredictor)
+    from no_time_to_train_tpu_torch.parallel.mesh import (
+        make_data_parallel_fill, make_data_parallel_test)
+    from no_time_to_train_tpu_torch.runner import MatcherRunner
+    from no_time_to_train_tpu_torch.utils.finalize_pool import FinalizePool
+
+    faults = []
+
+    def check(ok, msg):
+        if not ok:
+            log(f"  FAILED {msg}")
+            faults.append(msg)
+        return ok
+
+    totals = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+
+    with tempfile.TemporaryDirectory() as tmp:
+        base, fill, post, test, f, data = runner_cli(tmp)
+        test_dir, test_json = data["test"]
+        cfg = yaml_lite.load_file(os.path.join(REPO, RUNNER_CONFIG))
+        test_size = cfg["model"]["init_args"]["dataset_cfgs"]["test"][
+            "image_size"]
+        n_img = len(RUNNER_TEST_WH)
+
+        # the single-process chain: phase 9's commands
+        for what, args in (("fill_memory", fill), ("postprocess_memory", post),
+                           ("test", test + ["--export_result",
+                                            f["export.json"]])):
+            reset_counts()
+            t0 = time.perf_counter()
+            cli.main(base + args)
+            torch.cuda.synchronize()
+            add(launch_counts())
+            log(f"  single process, cli {what}: "
+                f"{time.perf_counter() - t0:.2f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (a) two ranks in two OS processes, one gloo group, one card
+        work = os.path.join(tmp, "ranks")
+        os.makedirs(work)
+        shared = ["--trainer.logger.save_dir", os.path.join(work, "results")]
+
+        def to_work(args):
+            return [os.path.join(work, os.path.basename(a))
+                    if a in (f["memory.ckpt"], f["memory_post.ckpt"]) else a
+                    for a in args]
+
+        spec = dict(
+            base=[a if a != "1" or base[i - 1] != "--trainer.devices"
+                  else str(PARALLEL_RANKS) for i, a in enumerate(base)],
+            fill=to_work(fill) + shared, post=to_work(post),
+            test=to_work(test) + shared + [
+                "--export_result", os.path.join(work, "export_chain.json")],
+            test_same=test + shared + [
+                "--export_result", os.path.join(work, "export_same.json")],
+            test_ds=[test_dir, test_json, test_size],
+            out=os.path.join(work, "rank_%d.json"))
+        spec_path = os.path.join(work, "spec.json")
+        with open(spec_path, "w") as fh:
+            json.dump(spec, fh)
+        env = dict(os.environ, NTTT_NUM_PROCESSES=str(PARALLEL_RANKS),
+                   NTTT_COORDINATOR=f"127.0.0.1:{free_port()}",
+                   NTTT_DIST_BACKEND="gloo", NTTT_RUN_ID="phase12")
+        t0 = time.perf_counter()
+        logs = [open(os.path.join(work, f"log_{r}.txt"), "w+")
+                for r in range(PARALLEL_RANKS)]
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--rank-worker",
+             spec_path], env=dict(env, NTTT_PROCESS_ID=str(r)),
+            stdout=logs[r], stderr=subprocess.STDOUT, cwd=REPO)
+            for r in range(PARALLEL_RANKS)]
+        try:
+            rcs = [p.wait(timeout=PARALLEL_TIMEOUT_S) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, fh in enumerate(logs):
+            fh.seek(0)
+            tail = fh.read()[-3000:]
+            fh.close()
+            if rcs[r] != 0:
+                fail(f"phase 12 (a): rank {r} exited {rcs[r]}:\n{tail}")
+        log(f"  (a) {PARALLEL_RANKS} ranks, gloo, one card: "
+            f"{time.perf_counter() - t0:.1f} s of wall")
+        ranks = []
+        for r in range(PARALLEL_RANKS):
+            with open(spec["out"] % r) as fh:
+                ranks.append(json.load(fh))
+        for info in ranks:
+            r = info["rank"]
+            check(info["world"] == PARALLEL_RANKS
+                  and info["backend"] == "gloo",
+                  f"(a) rank {r}: world {info['world']} {info['backend']}")
+            for name, c in info["calls"].items():
+                add(c["counts"])
+                check(c["local"] == 1, f"(a) rank {r} {name}: drives "
+                      f"{c['local']} devices")
+                log(f"  (a) rank {r} cli {name}: {c['seconds']:.2f} s")
+            for name in ("test", "test_same_bank"):
+                c = info["calls"][name]
+                per = {k: v / c["images"] for k, v in c["counts"].items()
+                       if v}
+                check(c["images"] == n_img // PARALLEL_RANKS
+                      and per == RUNNER_PER_IMAGE,
+                      f"(a) rank {r} {name}: {c['images']} images, "
+                      f"launches per image {per}")
+                check(c["result_none"] == (r != 0),
+                      f"(a) rank {r} {name}: returned "
+                      f"{'None' if c['result_none'] else 'stats'}")
+        check(ranks[0]["saves"] == ["memory.ckpt", "memory_post.ckpt"]
+              and ranks[1]["saves"] == [],
+              f"(a) checkpoint writes by rank: "
+              f"{[i['saves'] for i in ranks]}")
+        log(f"  (a) launches per test image on each rank {RUNNER_PER_IMAGE};"
+            f" rank 0 wrote {ranks[0]['saves']}, rank 1 "
+            f"{ranks[1]['saves']}; rank 1's test returned None")
+        single_fill = bank_state(f["memory.ckpt"])
+        exact, rel, same = fill_band(
+            bank_state(os.path.join(work, "memory.ckpt")), single_fill)
+        check(same and (exact or rel <= FEAT_REL_BAND),
+              f"(a) the cross-process fill: bit for bit {exact}, features "
+              f"relative L2 {rel:.3g}, counts and masks equal {same}")
+        log(f"  (a) the cross-process fill (batches of 2, one reference a "
+            f"rank) against the single-process fill (batches of 8): bit "
+            f"for bit {exact}; features relative L2 {rel:.3g} (band "
+            f"{FEAT_REL_BAND}); counts and masks equal {same}")
+        with open(f["export.json"]) as fh:
+            single_export = json.load(fh)
+        with open(os.path.join(work, "export_same.json")) as fh:
+            same_export = json.load(fh)
+        with open(os.path.join(work, "export_chain.json")) as fh:
+            chain_export = json.load(fh)
+        check(same_export == single_export,
+              "(a) rank 0's merged export on the single-process bank differs "
+              "from the single-process export")
+        if exact:
+            check(chain_export == single_export,
+                  "(a) the chain's merged export differs from the "
+                  "single-process export on a bit-for-bit bank")
+        log(f"  (a) merged export on the same bank = the single-process "
+            f"export bit for bit ({len(same_export)} records); the chain's "
+            f"own export {len(chain_export)} records, equal "
+            f"{chain_export == single_export}")
+        with open(os.path.join(work, "results", "metrics_log.csv")) as fh:
+            rows = list(csv.DictReader(fh))
+        check(len(rows) == 2, f"(a) COCOeval rows {len(rows)}: once per "
+              f"test call expected (rank 0 only)")
+        alone = [t for t in ranks[0]["turns"] if t["turn"] == "alone"]
+        shared_t = [(i["rank"], t) for i in ranks for t in i["turns"]
+                    if t["turn"] == "shared"]
+        log("  (a) fenced ms per image (median of "
+            f"{n_img * PARALLEL_TIMING_ROUNDS}), in turns "
+            f"{'/'.join(PARALLEL_TURNS)}: one rank alone "
+            + ", ".join(f"{t['ms']:.1f} (mean {t['mean_ms']:.1f}, peak "
+                        f"{t['peak'] / 2**30:.2f} GiB)" for t in alone)
+            + "; two ranks sharing the card "
+            + ", ".join(f"rank {r} {t['ms']:.1f} (mean {t['mean_ms']:.1f}, "
+                        f"peak {t['peak'] / 2**30:.2f} GiB)"
+                        for r, t in shared_t) + f"; on {smi}")
+
+        # (b) two replicas in this process on one card
+        model_cfg = cfg["model"]["init_args"]["model_cfg"]
+        model_cfg["sam2_ckpt_path"] = f["missing_sam2.pt"]
+        ref = MatcherRunner(model_cfg, {}, test_mode="test",
+                            seed=int(cfg["seed_everything"]), device=dev)
+        ref.load_ckpt(f["memory_post.ckpt"])
+        m = ref.matcher
+        ds = COCORefTestDataset(test_dir, test_json, test_size,
+                                class_split=RUNNER_SPLIT)
+        items = [ds[i] for i in range(len(ds))]
+        alone_out = [m.test(it["target_img"]) for it in items]
+        run = make_data_parallel_test(m, [dev, dev])
+        reset_counts()
+        for lo in range(0, n_img, 2):
+            out = run(np.stack([it["target_img"] for it in items[lo:lo + 2]]))
+            for j in range(2):
+                got = m.fetch_test({k: v[j] for k, v in out.items()})
+                want = alone_out[lo + j]
+                check(all(np.array_equal(got[k], want[k]) for k in want),
+                      f"(b) replica {j}, image {lo + j}: differs from test()")
+        counts = launch_counts()
+        add(counts)
+        per = {k: v / n_img for k, v in counts.items() if v}
+        check(per == RUNNER_PER_IMAGE, f"(b) replicas: launches per image "
+              f"{per}")
+        log(f"  (b) make_data_parallel_test on [{dev}, {dev}] (a thread and "
+            f"a stream each): {n_img} images bit for bit test() alone, "
+            f"launches per image {per}")
+        filled = m.bank
+        m.bank = dataclasses.replace(
+            filled, fill_counts=torch.zeros_like(filled.fill_counts),
+            feats=torch.zeros_like(filled.feats),
+            masks=torch.zeros_like(filled.masks))
+        fds = dp_fill_dataset(base, fill)
+        dp_fill = make_data_parallel_fill(m, [dev, dev])
+        reset_counts()
+        for lo in range(0, len(fds), 2):
+            batch = [fds[i] for i in range(lo, min(lo + 2, len(fds)))]
+            n_valid = len(batch)
+            batch += [batch[-1]] * (2 - n_valid)
+            dp_fill([b["cat_ind"] for b in batch],
+                    np.stack([b["img"] for b in batch]),
+                    np.stack([b["mask"] for b in batch]), n_valid=n_valid)
+        add(launch_counts())
+        dp_path = os.path.join(tmp, "dp_fill.ckpt")
+        ref.save_ckpt(dp_path, "  (b) replica fill saved to")
+        exact_b, rel_b, same_b = fill_band(bank_state(dp_path), single_fill)
+        check(same_b and (exact_b or rel_b <= FEAT_REL_BAND),
+              f"(b) the replicas' fill: bit for bit {exact_b}, features "
+              f"relative L2 {rel_b:.3g}, counts and masks equal {same_b}")
+        log(f"  (b) make_data_parallel_fill on [{dev}, {dev}], {len(fds)} "
+            f"references: bit for bit the single-process fill {exact_b}; "
+            f"features relative L2 {rel_b:.3g} (band {FEAT_REL_BAND}); "
+            f"counts and masks equal {same_b}")
+        m.bank = filled
+        if torch.cuda.device_count() >= 2:
+            dp_dir = os.path.join(tmp, "dp")
+            base2 = [a if a != "1" or base[i - 1] != "--trainer.devices"
+                     else "2" for i, a in enumerate(base)]
+            dp_ckpt = os.path.join(dp_dir, "memory.ckpt")
+            cli.main(base2 + [a if a != f["memory.ckpt"] else dp_ckpt
+                              for a in fill])
+            exact_2, rel_2, same_2 = fill_band(bank_state(dp_ckpt),
+                                               single_fill)
+            check(same_2 and (exact_2 or rel_2 <= FEAT_REL_BAND),
+                  f"(b) the runner's fill on 2 GPUs: bit for bit {exact_2}, "
+                  f"features relative L2 {rel_2:.3g}")
+            cli.main(base2 + test + [
+                "--trainer.logger.save_dir", dp_dir, "--export_result",
+                os.path.join(tmp, "export_dp.json")])
+            with open(os.path.join(tmp, "export_dp.json")) as fh:
+                check(json.load(fh) == single_export,
+                      "(b) the runner on 2 GPUs: export differs")
+            log(f"  (b) the runner with devices=2 on 2 GPUs: the fill bit "
+                f"for bit the single-process fill {exact_2} (features "
+                f"relative L2 {rel_2:.3g}), the export = the single-process "
+                f"export bit for bit")
+        else:
+            try:
+                MatcherRunner(model_cfg, {}, devices=2, device=dev)
+                check(False, "(b) devices=2 on one GPU did not raise")
+            except ValueError as e:
+                log(f"  (b) one GPU: the runner with devices=2 raises "
+                    f"({e})")
+
+        # (c) the finalize pool on (b)'s outputs
+        def compute_apps():
+            return subprocess.run(
+                ["nvidia-smi", "--query-compute-apps=pid",
+                 "--format=csv,noheader"], capture_output=True, text=True,
+                timeout=60).stdout.split()
+
+        before = compute_apps()
+        pool = FinalizePool(FINALIZE_WORKERS)
+        try:
+            apps = compute_apps()
+            worker_pids = {w["pid"] for w in pool.workers}
+            # the card's list may hold pids of another pid namespace, so
+            # the count of contexts is checked too
+            check(len(apps) == len(before) and not worker_pids & {
+                int(p) for p in apps if p.isdigit()},
+                f"(c) compute apps {before} before the pool, {apps} with "
+                f"its workers {sorted(worker_pids)} alive")
+            check(all(w["CUDA_VISIBLE_DEVICES"] == "" and not w["torch_loaded"]
+                      for w in pool.workers),
+                  f"(c) workers started with {pool.workers}")
+            futs = []
+            for it, raw in zip(items, alone_out):
+                info = it["target_img_info"]
+                nv = int(raw["valid"].sum())
+                futs.append(pool.submit_row(raw["lr_logits"][:nv],
+                                            info["ori_height"],
+                                            info["ori_width"]))
+            n_rec = 0
+            for it, raw, fut in zip(items, alone_out, futs):
+                info = it["target_img_info"]
+                segs, boxes = fut.result(timeout=120)
+                want = finalize_records(raw, info["ori_height"],
+                                        info["ori_width"])
+                check(segs == want["segs"]
+                      and np.array_equal(boxes, want["bboxes"]),
+                      f"(c) image {info['id']}: the pool's records differ")
+                n_rec += len(segs)
+        finally:
+            pool.shutdown()
+        log(f"  (c) FinalizePool({FINALIZE_WORKERS}): {n_rec} records bit "
+            f"for bit finalize_records; workers {sorted(worker_pids)} all "
+            f"with CUDA_VISIBLE_DEVICES='' and no torch; compute apps on the "
+            f"card {before} before the pool and {apps} with it alive (this "
+            f"process is pid {os.getpid()} here)")
+
+        # (d) the memory poller beside a test loop (C.16)
+        mem_csv = os.path.join(tmp, "mem.csv")
+        poller = subprocess.Popen(
+            [sys.executable, "-m",
+             "no_time_to_train_tpu_torch.utils.memory_poller", "--out",
+             mem_csv, "--interval", "0.1"], cwd=REPO,
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
+        try:
+            deadline = time.time() + 60
+            while time.time() < deadline and (
+                    not os.path.exists(mem_csv)
+                    or len(open(mem_csv).read().splitlines()) < 2):
+                time.sleep(0.1)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for it in items * 2:
+                m.test(it["target_img"])
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            time.sleep(1.0)
+        finally:
+            poller.terminate()
+            _, err = poller.communicate(timeout=60)
+        with open(mem_csv) as fh:
+            rows = list(csv.DictReader(fh))
+        used = max((int(r["used_mib"]) for r in rows), default=0)
+        check(rows and used * 2**20 >= peak,
+              f"(d) the poller read {used} MiB at most against a peak of "
+              f"{peak / 2**20:.0f} MiB allocated ({err.decode()[-500:]})")
+        log(f"  (d) memory_poller beside {2 * n_img} test images: "
+            f"{len(rows)} rows, at most {used} MiB used on the device; the "
+            f"loop's max_memory_allocated {peak / 2**20:.0f} MiB; on {smi}")
+        del ref, m, run, dp_fill, alone_out
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (e) sam_bbox_to_segm_batch on SAM2-L's image predictor
+        with open(test_json) as fh:
+            boxes = json.load(fh)
+        for a in boxes["annotations"]:
+            del a["segmentation"]
+        box_json = os.path.join(tmp, "boxes.json")
+        with open(box_json, "w") as fh:
+            json.dump(boxes, fh)
+        pred = SAM2ImagePredictor(build_sam2(dev, SAM2_CFG))
+        mark = launch_counts()
+        t0 = time.perf_counter()
+        got = sam_bbox_to_segm_batch(box_json, test_dir,
+                                     os.path.join(tmp, "segm.json"), pred,
+                                     progress=False)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        n_box = len(got["annotations"])
+        now = expect_exact(
+            f"(e) sam_bbox_to_segm_batch, {n_img} images, {n_box} boxes",
+            mark, plus(*[IMAGE_ENCODE] * n_img, *[BOX_DECODE] * n_box))
+        add({k: now[k] - mark[k] for k in now})
+        by_img = {}
+        for a in got["annotations"]:
+            by_img.setdefault(a["image_id"], []).append(a)
+        for im in got["images"]:
+            img, _, _ = load_image(os.path.join(test_dir, im["file_name"]))
+            pred.set_image(img)
+            for a in by_img[im["id"]]:
+                x, y, w, h = a["bbox"]
+                masks, _, _ = pred.predict(box=[x, y, x + w, y + h],
+                                           multimask_output=False)
+                check(a.get("segmentation") == rle.encode_mask(masks[0, 0]),
+                      f"(e) annotation {a['id']}: the RLE differs from "
+                      f"predict(box) called directly")
+        log(f"  (e) every one of {n_box} annotations gained an RLE equal to "
+            f"predict(box=..., multimask_output=False); {sec:.2f} s; on "
+            f"{smi}")
+        del pred
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (f) lvis_eval's entry on (a)'s export
+        res = subprocess.run(
+            [sys.executable, "-m", "no_time_to_train_tpu_torch.data.lvis_eval",
+             "--gt", test_json, "--results",
+             os.path.join(work, "export_same.json"), "--iou-type", "segm"],
+            cwd=REPO, capture_output=True, text=True, timeout=300)
+        check(res.returncode == 0 and " AP =" in res.stdout,
+              f"(f) lvis_eval: {res.returncode} {res.stderr[-1000:]}")
+        from no_time_to_train_tpu_torch.data.lvis_eval import LVISEval
+        from no_time_to_train_tpu_torch.data.coco_api import COCO
+        check(LVISEval(COCO(test_json), COCO(test_json)).params.maxDets
+              == [300], "(f) LVISEval's maxDets")
+        log(f"  (f) python -m no_time_to_train_tpu_torch.data.lvis_eval "
+            f"(maxDets 300) on (a)'s export: "
+            + " ".join(res.stdout.split()[-24:]))
+    if faults:
+        fail(f"phase 12: {len(faults)} checks failed: {faults}")
+    return totals
+
+
 def kernel_registers():
     """`--registers`: compile every source of csrc/ once more with
     `-Xptxas -v` (all started together) and print, per kernel entry, the
@@ -3994,6 +4570,9 @@ def main():
     sys.path.insert(0, REPO)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:2] == ["--rank-worker"]:
+        rank_worker(sys.argv[2])
+        return 0
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
@@ -4044,6 +4623,12 @@ def main():
         log("[10] the image path's other entries")
         run_image_entries(dev, smi)
         phase_done("10")
+        print(smi)
+        return 0
+    if sys.argv[1:] == ["--parallel"]:
+        log("[12] data parallelism and the pipeline scripts' tools")
+        run_parallel(dev, smi)
+        phase_done("12")
         print(smi)
         return 0
     if sys.argv[1:] == ["--sam2ref"]:
@@ -4117,6 +4702,13 @@ def main():
         totals[k] = totals.get(k, 0) + v
     summary += ref_summary
     phase_done("11")
+
+    log("[12] data parallelism on one card: two CLI ranks in two processes, "
+        "two in-process replicas, the finalize pool, the memory poller, "
+        "sam_bbox_to_segm_batch on SAM2-L, lvis_eval")
+    for k, v in run_parallel(dev, smi).items():
+        totals[k] = totals.get(k, 0) + v
+    phase_done("12")
 
     kernels = [dict(k, launches=totals[k["name"]], **kres[k["name"]],
                     amg_launches_per_image=per_amg.get(k["name"], 0),

@@ -2,6 +2,8 @@
 same subcommand, YAML schema, dotted overrides and extra flags) over the
 port's runner, plus one flag of its own, `--device` (default `cuda`; `cpu`
 runs on the CPU, and without a CUDA device nothing else does).
+With NTTT_NUM_PROCESSES > 1 and NTTT_COORDINATOR set it first joins the
+process group of `parallel/multihost.py`'s contract.
 
     python -m no_time_to_train_tpu_torch.cli test --config cfg.yaml \\
         --model.test_mode fill_memory --out_path memory.ckpt \\
@@ -15,6 +17,7 @@ runs on the CPU, and without a CUDA device nothing else does).
         [--export_result out.json] [--device cpu]
 """
 import ast
+import os
 import pickle
 import sys
 
@@ -80,7 +83,8 @@ def parse_args(argv):
 
 
 def main(argv=None):
-    """Run one phase; returns the MatcherRunner it used."""
+    """Run one phase; returns the MatcherRunner it used, with what its
+    `run` returned as `.result`."""
     argv = argv if argv is not None else sys.argv[1:]
     args, overrides = parse_args(argv)
     if args["subcommand"] != "test":
@@ -90,6 +94,15 @@ def main(argv=None):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the port's CLI runs on the GPU; "
                            "pass --device cpu to run it on the CPU")
+
+    if os.environ.get("NTTT_COORDINATOR"):
+        # the process group of NTTT_NUM_PROCESSES processes starts before
+        # the runner is built (run_lightning.py:119-125)
+        from no_time_to_train_tpu_torch.parallel import multihost
+        backend = multihost.backend(device)
+        if backend == "nccl":
+            torch.cuda.set_device(device.index or 0)
+        multihost.initialize(backend_name=backend)
 
     cfg = yaml_lite.load_file(args["config"])
     for key, val in overrides:
@@ -136,9 +149,11 @@ def main(argv=None):
     if args.get("n_shot") and args.get("seed"):
         output_name += f"{args['n_shot']}shot_{args['seed']}seed"
 
-    runner.run(ckpt_path=args.get("ckpt_path"), out_path=args.get("out_path"),
-               export_result=args.get("export_result"),
-               output_name=output_name)
+    # a test phase's COCO stats; None on ranks other than 0
+    runner.result = runner.run(ckpt_path=args.get("ckpt_path"),
+                               out_path=args.get("out_path"),
+                               export_result=args.get("export_result"),
+                               output_name=output_name)
 
     if test_mode == "test_support" and args.get("out_support_res"):
         results = [r for q in runner.output_queue for r in q]

@@ -18,12 +18,13 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["lib", "build_seconds", "check", "dtype_code", "no_grad_operands",
-           "require", "stream_ptr"]
+__all__ = ["lib", "build_seconds", "check", "count", "dtype_code",
+           "no_grad_operands", "require", "stream_ptr"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 _LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 _STATE = {"lib": None, "build_s": None}
 
 _VP, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
@@ -139,6 +140,14 @@ def check(err, name):
     """Raise when a launch returned a CUDA error code."""
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+
+
+def count(launches, name):
+    """Add one launch of `name` to a wrapper's counter dict. Replicas of a
+    model launch from several threads at once (`parallel/mesh.py`), so the
+    add holds a lock."""
+    with _COUNT_LOCK:
+        launches[name] += 1
 
 
 def dtype_code(dtype):

@@ -231,7 +231,7 @@ def fused_i2t_norm(keys, pe_q, tok_k, tok_v, wq, bq, wout, bout, norm_w,
                            bq, wout, bout, norm_w, norm_b)
     out, name = _i2t("nttt_i2t_norm", keys, pe_q, tok_k, tok_v, wq, bq, wout,
                      bout, norm_w, norm_b, num_heads, eps)
-    LAUNCHES[name] += 1
+    _cuda.count(LAUNCHES, name)
     return out
 
 
@@ -277,7 +277,7 @@ def fused_i2t_norm_pair(keys2, pe_q2, tok_k2, tok_v2, wq, bq, wout, bout,
                            tok_v2, wq, bq, wout, bout, norm_w, norm_b)
     out = _i2t_pair("nttt_i2t_norm", keys2, pe_q2, tok_k2, tok_v2, wq, bq,
                     wout, bout, norm_w, norm_b, num_heads, eps)
-    LAUNCHES["fused_i2t_norm_pair"] += 1
+    _cuda.count(LAUNCHES, "fused_i2t_norm_pair")
     return out
 
 
@@ -346,7 +346,7 @@ def fused_t2i_attn(keys, pe_k, tok_q, wk, bk, wv, bv, *, num_heads):
                            bv)
     out, name = _t2i("nttt_t2i_attn", keys, pe_k, tok_q, wk, bk, wv, bv,
                      num_heads)
-    LAUNCHES[name] += 1
+    _cuda.count(LAUNCHES, name)
     return out
 
 

@@ -224,7 +224,7 @@ def flash_sdpa_bnhd(q, k, v, *, splits=None):
         *_bnhd_args(q, k, v, out, b, nq, nk, h, d), splits, _ptr(part_o),
         _ptr(part_ml), _cuda.stream_ptr(q.device))
     _cuda.check(err, "nttt_onepass_attn")
-    LAUNCHES["flash_sdpa_bnhd"] += 1
+    _cuda.count(LAUNCHES, "flash_sdpa_bnhd")
     return out
 
 
@@ -271,7 +271,7 @@ def flash_sdpa_window_qkv(qkv, heads, win):
         return window_qkv_plain(qkv, heads, win)
     _cuda.no_grad_operands("flash_sdpa_window_qkv", qkv)
     out = _launch_window("nttt_window_attn", qkv, heads, win)
-    LAUNCHES["flash_sdpa_window_qkv"] += 1
+    _cuda.count(LAUNCHES, "flash_sdpa_window_qkv")
     return out
 
 
@@ -488,7 +488,7 @@ def flash_sdpa(q, k, v, *, splits=None):
         return flash_bh_plain(q, k, v)
     _cuda.no_grad_operands("flash_sdpa", q, k, v)
     out = _launch_flash("flash_bh", q, k, v, splits=splits)
-    LAUNCHES["flash_sdpa"] += 1
+    _cuda.count(LAUNCHES, "flash_sdpa")
     return out
 
 
@@ -553,7 +553,7 @@ def flash_sdpa_masked(q, k, v, key_valid, *, splits=None):
     _cuda.no_grad_operands("flash_sdpa_masked", q, k, v)
     _cuda.require(key_valid.device == q.device, "key_valid on q's device")
     out = _launch_flash("flash_masked", q, k, v, key_valid, splits)
-    LAUNCHES["flash_sdpa_masked"] += 1
+    _cuda.count(LAUNCHES, "flash_sdpa_masked")
     return out
 
 

@@ -1,7 +1,7 @@
 """Phase runner (port of `no_time_to_train_tpu/runner.py`) — the
 orchestration layer replacing the reference's Lightning wrapper
 (no_time_to_train/pl_wrapper/sam2matcher_pl.py) and the phase logic of
-run_lightning.py's after_test, on one device.
+run_lightning.py's after_test.
 
 Modes (reference test_step dispatch, sam2matcher_pl.py:163-200):
   fill_memory / fill_memory_neg -> feature extraction + bank writes, then a
@@ -11,8 +11,21 @@ Modes (reference test_step dispatch, sam2matcher_pl.py:163-200):
   test / test_support -> per-image test steps, a loader thread and a
       two-deep pipeline, COCO RLE encoding, FPS report (the reference's
       format, run_lightning.py:152-161), optional json export, COCOeval.
-Not ported: the data-parallel test and fill (several devices or
-processes), the finalize pool, `vis_memory` and online visualization.
+
+Data parallelism (`parallel/`): `devices` is the number of devices of the
+run, as Lightning's `trainer.devices` on one node, and a run of
+NTTT_NUM_PROCESSES processes drives devices / NTTT_NUM_PROCESSES of them in
+each (one process per GPU, each given its own with CUDA_VISIBLE_DEVICES).
+A process with several devices runs one replica on each: the fill in
+batches of one reference per replica, the test in batches of one image per
+replica, finalized in `finalize_workers` processes when the data-loading
+config asks for them. Several processes deal the test images round-robin
+and rank 0 merges the results through a shared directory; with
+NTTT_COORDINATOR set and more than one device, the fill is the
+cross-process one (every rank encodes its rows of each batch and the
+features are gathered). On CUDA, more devices than the process sees
+raise; on the CPU, devices=n runs n replicas on the CPU.
+Not ported: `vis_memory` and online visualization.
 """
 import copy
 import csv
@@ -31,6 +44,9 @@ from no_time_to_train_tpu_torch.data.datasets import (
 from no_time_to_train_tpu_torch.data.metainfo import METAINFO
 from no_time_to_train_tpu_torch.models.matching.pipeline import (
     MatchingConfig, NoAMGMatcher, finalize_records, finalize_results)
+from no_time_to_train_tpu_torch.parallel import multihost
+from no_time_to_train_tpu_torch.parallel.mesh import (
+    interleave_results, make_data_parallel_fill, make_data_parallel_test)
 from no_time_to_train_tpu_torch.utils import checkpoint as ckpt_io
 
 
@@ -78,6 +94,26 @@ def get_dataset(dataset_cfg, stage):
     raise NotImplementedError(stage)
 
 
+def _local_devices(devices, device):
+    """The devices this process drives: devices / NTTT_NUM_PROCESSES in a
+    world of several processes (at least 1), all of them in one process.
+    Raises where a CUDA process sees fewer GPUs."""
+    n_proc, _ = multihost.env_world()
+    if devices < 1:
+        raise ValueError(f"devices={devices}")
+    if n_proc > 1 and devices > 1 and devices % n_proc:
+        raise ValueError(f"devices={devices} do not split over {n_proc} "
+                         f"processes")
+    local = max(1, devices // n_proc)
+    if torch.device(device).type == "cuda" \
+            and local > torch.cuda.device_count():
+        raise ValueError(
+            f"devices={devices}: this process drives {local} GPUs and sees "
+            f"{torch.cuda.device_count()} (give each process its GPUs with "
+            f"CUDA_VISIBLE_DEVICES)")
+    return local
+
+
 # sam2_infer_cfgs keys of the JAX package's matcher that the port does not
 # have, with the one value it computes
 _NOT_PORTED = {"decoder_impl": "dense", "encoder_quant": "none"}
@@ -100,10 +136,8 @@ class MatcherRunner:
         name = model_cfg.get("name", "matching_baseline_noAMG").lower()
         if name != "matching_baseline_noamg":
             raise ValueError(f"unknown model {name}")
-        if int(devices) != 1:
-            raise NotImplementedError(
-                f"devices={devices}: the port's runner drives one device "
-                f"(its data-parallel runner is not ported)")
+        self.devices = int(devices)
+        self.local_devices = _local_devices(self.devices, device)
         if model_cfg.get("online_vis", False):
             raise NotImplementedError("online visualization is not ported")
 
@@ -177,6 +211,26 @@ class MatcherRunner:
                                  self.matcher.bank_neg)
         print(f"{msg} {out_path}")
 
+    def _save_ckpt_rank0(self, out_path, mode, msg):
+        """Every rank holds the same bank (gathered fill, replicated
+        postprocess), so only rank 0 writes: saves of one path from several
+        processes tear the file. The barrier keeps the other ranks from
+        reading it before it is written (a no-op without a process group,
+        where the phases are separate CLI calls anyway)."""
+        n_proc, proc_id = multihost.env_world()
+        if proc_id == 0:
+            self.save_ckpt(out_path, msg)
+        if n_proc > 1:
+            multihost.barrier(f"nttt_ckpt_saved_{mode}")
+
+    def _replica_devices(self):
+        """One entry per device this process drives."""
+        dev = self.matcher.device
+        if dev.type == "cuda":
+            return [torch.device("cuda", i)
+                    for i in range(self.local_devices)]
+        return [dev] * self.local_devices
+
     def _since(self, t0):
         if self.matcher.device.type == "cuda":
             torch.cuda.synchronize(self.matcher.device)
@@ -196,15 +250,16 @@ class MatcherRunner:
         mode = self.test_mode
         self.load_ckpt(ckpt_path)
         if mode in ("fill_memory", "fill_memory_neg"):
-            self._fill(positive=(mode == "fill_memory"), progress=progress)
+            self._fill(mode, progress=progress)
             if out_path:
-                self.save_ckpt(out_path, "Checkpoint with memory is saved to")
+                self._save_ckpt_rank0(out_path, mode,
+                                      "Checkpoint with memory is saved to")
         elif mode in ("postprocess_memory", "postprocess_memory_neg"):
             self.matcher.postprocess_memory(
                 positive=(mode == "postprocess_memory"))
             if out_path:
-                self.save_ckpt(
-                    out_path,
+                self._save_ckpt_rank0(
+                    out_path, mode,
                     "Checkpoint with post-processed memory is saved to")
         elif mode in ("test", "test_support"):
             return self._test(mode, export_result, output_name, progress)
@@ -212,13 +267,30 @@ class MatcherRunner:
             raise NotImplementedError(f"Unrecognized test mode {mode}")
         return None
 
-    def _fill(self, positive, progress):
-        """Batches of 8 references; the next two batches load while the
+    def _fill(self, mode, progress):
+        """Batches of 8 references, or of one reference per replica where
+        this run drives several devices; the next two batches load while the
         device encodes the current one, one worker thread per reference
-        (the crop resizes release the interpreter lock)."""
-        ds = get_dataset(self.dataset_cfgs["fill_memory"],
-                         "fill_memory" if positive else "fill_memory_neg")
-        bs = 8
+        (the crop resizes release the interpreter lock). With several
+        processes, NTTT_COORDINATOR set and more than one device, the batch
+        spans the processes: every process loads it, encodes the rows of
+        its replicas, and the features are gathered (the reference's DDP
+        fill, model_utils.py:74-91); the tail batch is padded and the pad
+        dropped after the gather."""
+        positive = mode == "fill_memory"
+        ds = get_dataset(self.dataset_cfgs["fill_memory"], mode)
+        n_proc, _ = multihost.env_world()
+        dp_fill, bs = None, 8
+        if (n_proc > 1 and self.devices > 1
+                and os.environ.get("NTTT_COORDINATOR")):
+            multihost.initialize()
+            dp_fill = make_data_parallel_fill(
+                self.matcher, self._replica_devices(), positive=positive)
+            bs = self.local_devices * n_proc
+        elif self.local_devices > 1:
+            dp_fill = make_data_parallel_fill(
+                self.matcher, self._replica_devices(), positive=positive)
+            bs = self.local_devices
         batches = [list(range(i, min(i + bs, len(ds))))
                    for i in range(0, len(ds), bs)]
 
@@ -231,10 +303,18 @@ class MatcherRunner:
                 items = [f.result() for f in futs.pop(0)]
                 if bi + 2 < len(batches):
                     futs.append(load(batches[bi + 2]))
-                self.matcher.fill_memory(
-                    np.stack([it["img"] for it in items]),
-                    np.stack([it["mask"] for it in items]),
-                    [it["cat_ind"] for it in items], positive=positive)
+                if dp_fill is None:
+                    self.matcher.fill_memory(
+                        np.stack([it["img"] for it in items]),
+                        np.stack([it["mask"] for it in items]),
+                        [it["cat_ind"] for it in items], positive=positive)
+                else:
+                    n_valid = len(items)
+                    items += [items[-1]] * (bs - n_valid)
+                    dp_fill([it["cat_ind"] for it in items],
+                            np.stack([it["img"] for it in items]),
+                            np.stack([it["mask"] for it in items]),
+                            n_valid=n_valid)
                 if progress:
                     print(f"fill {min((bi + 1) * bs, len(ds))}/{len(ds)}")
 
@@ -250,51 +330,183 @@ class MatcherRunner:
     def _test(self, mode, export_result, output_name, progress):
         """A loader thread keeps two images ahead; the device pipeline is two
         deep: image i + 1 is queued before image i is fetched and finalized
-        on the host."""
+        on the host. With several processes each runs its padded
+        round-robin shard (the reference's DistributedSampler deal), and
+        rank 0 merges the shards through the shared directory
+        `<save_dir>/multihost_gather` (run_lightning.py:23-78)."""
         stage_cfg = self.dataset_cfgs["test" if mode == "test" else "support"]
         ds = get_dataset(stage_cfg, mode)
         # the bank's instance similarity, on the host once (a read of it
         # per image would wait for the image in flight)
         self._ins_sim = self.matcher.bank.ins_sim_avg.double().cpu().numpy()
+        n_proc, proc_id = multihost.env_world()
+        if n_proc > 1 and os.environ.get("NTTT_COORDINATOR"):
+            multihost.initialize()
+        indices = multihost.process_shard_indices(len(ds), n_proc, proc_id)
+        gather_dir = multihost.run_gather_dir(
+            os.path.join(self.save_dir, "multihost_gather"))
+        if n_proc > 1:  # drop a stale part before compute starts
+            multihost.clear_rank_part(gather_dir, proc_id)
+            # with a process group, no rank starts before every stale part
+            # is gone (without one, NTTT_RUN_ID closes that window)
+            multihost.barrier(f"nttt_parts_cleared_{mode}")
+        world = (n_proc, proc_id, gather_dir)
+        if self.local_devices > 1:
+            return self._run_test_data_parallel(ds, indices, world,
+                                                export_result, output_name,
+                                                progress)
         workers = max(1, int(self.data_load_cfgs.get("workers", 0)) or 1)
-        n = len(ds)
+        n = len(indices)
+        # the shard's pad duplicates (its tail) keep the merge aligned and
+        # stay out of the analysis rows
+        n_real = multihost.rank_real_count(len(ds), n_proc, proc_id)
 
-        def finalize(item, device_out, dt):
+        def finalize(item, device_out, dt, analysis):
             self.time_queue.append(dt)
             raw = self._fetch(device_out)
-            self.output_queue.append(self._finalize_one(ds, item, raw))
+            self.output_queue.append(self._finalize_one(ds, item, raw,
+                                                        analysis=analysis))
 
         with ThreadPoolExecutor(max_workers=workers) as pool:
-            futures = [pool.submit(ds.__getitem__, j) for j in range(min(2, n))]
-            pending = None  # (item, device_out, dt)
+            futures = [pool.submit(ds.__getitem__, j) for j in indices[:2]]
+            pending = None  # (item, device_out, dt, analysis)
             for pos in range(n):
                 item = futures.pop(0).result()
                 if pos + 2 < n:
-                    futures.append(pool.submit(ds.__getitem__, pos + 2))
+                    futures.append(pool.submit(ds.__getitem__,
+                                               indices[pos + 2]))
                 t0 = time.time()
                 out = self.matcher.test_async(item["target_img"])
                 if pending is not None:
                     finalize(*pending)  # host work overlaps this compute
                 out["scores"].cpu()     # completion fence (timed like the
                 dt = time.time() - t0   # reference's synchronized forward)
-                pending = (item, out, dt)
+                pending = (item, out, dt, pos < n_real)
                 if progress and (pos + 1) % 20 == 0:
                     print(f"test {pos + 1}/{n}")
             if pending is not None:
                 finalize(*pending)
 
-        return self._report_and_evaluate(ds, self.output_queue, export_result,
-                                         output_name,
-                                         np.array(self.time_queue))
+        return self._report_and_evaluate(ds, self.output_queue, world,
+                                         export_result, output_name,
+                                         np.array(self.time_queue),
+                                         n_images=len(self.time_queue))
 
-    def _finalize_one(self, ds, item, raw):
-        """Per-image tail of the test loop: finalize the raw device output
-        at the original resolution, COCO-encode it and queue the analysis
-        scalars. Returns the encoded per-image results."""
+    def _fetch_dp(self, out):
+        """The host copy of a data-parallel batch: `fetch_test` of each
+        replica's outputs (the valid prefix of the logits only), stacked on
+        a leading axis."""
+        per = [self.matcher.fetch_test({k: v[j] for k, v in out.items()})
+               for j in range(len(out["valid"]))]
+        return {k: np.stack([o[k] for o in per]) for k in per[0]}
+
+    def _run_test_data_parallel(self, ds, indices, world, export_result,
+                                output_name, progress):
+        """This process's shard `indices` over one replica per device
+        (`parallel/mesh.py`), in batches of one image per replica, with the
+        single-device loop's structure: a loader thread two batches ahead
+        and a two-deep pipeline, batch i fetched and finalized while batch
+        i + 1 computes. With data_load_cfgs["finalize_workers"] = W > 0 the
+        native finalize of each row runs in W worker processes
+        (`utils/finalize_pool.py`). Replica j sees indices[j::n], so
+        zipping the replicas' lists restores the shard's order."""
+        n_proc, proc_id, _ = world
+        n = self.local_devices
+        run = make_data_parallel_test(self.matcher, self._replica_devices())
+        per_replica = [[] for _ in range(n)]
+        batches = [indices[i:i + n] for i in range(0, len(indices), n)]
+
+        def load(batch):
+            items = [ds[j] for j in batch]
+            # pad the tail batch; the interleave truncates it
+            return items + [items[-1]] * (n - len(items))
+
+        fin_pool = None
+        fw = int(self.data_load_cfgs.get("finalize_workers", 0) or 0)
+        if fw > 0:
+            from no_time_to_train_tpu_torch.utils import native
+            if native.has_finalize():
+                from no_time_to_train_tpu_torch.utils.finalize_pool import (
+                    FinalizePool)
+                fin_pool = FinalizePool(fw)
+        # the shard's pads sit at its tail (rank_real_count), on top of the
+        # tail batch's pads
+        n_real = multihost.rank_real_count(len(ds), n_proc, proc_id)
+
+        def finalize(items, n_valid, out, dt, base):
+            self.time_queue.append(dt / n)
+            raw_all = self._fetch_dp(out)
+            lr = raw_all["lr_logits"].shape[-1]
+            futs = [None] * n
+            for j, item in enumerate(items):
+                info = item["target_img_info"]
+                # an image smaller than the logits takes the antialiased
+                # downscale in process
+                if fin_pool is not None and info["ori_height"] >= lr \
+                        and info["ori_width"] >= lr:
+                    nv = int(raw_all["valid"][j].sum())
+                    futs[j] = fin_pool.submit_row(
+                        raw_all["lr_logits"][j, :nv], info["ori_height"],
+                        info["ori_width"])
+            for j, item in enumerate(items):
+                fin = None
+                if futs[j] is not None:
+                    segs, boxes = futs[j].result()
+                    nv = len(segs)
+                    fin = dict(segs=segs, bboxes=boxes,
+                               scores=np.asarray(raw_all["scores"][j, :nv],
+                                                 np.float32),
+                               labels=raw_all["labels"][j, :nv])
+                raw = {k: v[j] for k, v in raw_all.items()}
+                # pads (the tail batch's, or the shard's) keep the merge
+                # aligned and stay out of the analysis rows
+                per_replica[j].append(self._finalize_one(
+                    ds, item, raw, analysis=j < n_valid and base + j < n_real,
+                    fin=fin))
+
+        workers = max(1, int(self.data_load_cfgs.get("workers", 0)) or 1)
+        try:
+            with ThreadPoolExecutor(max_workers=workers) as pool:
+                futures = [pool.submit(load, b) for b in batches[:2]]
+                pending = None
+                for bi, batch in enumerate(batches):
+                    items = futures.pop(0).result()
+                    if bi + 2 < len(batches):
+                        futures.append(pool.submit(load, batches[bi + 2]))
+                    t0 = time.time()
+                    out = run(np.stack([it["target_img"] for it in items]))
+                    if pending is not None:
+                        finalize(*pending)  # host work overlaps this compute
+                    for scores in out["scores"]:
+                        scores.cpu()        # completion fence
+                    dt = time.time() - t0
+                    pending = (items, len(batch), out, dt, bi * n)
+                    if progress and (bi + 1) % 20 == 0:
+                        print(f"test {(bi + 1) * n}/{len(indices)}")
+                if pending is not None:
+                    finalize(*pending)
+        finally:
+            if fin_pool is not None:
+                fin_pool.shutdown()
+        merged = interleave_results(per_replica, len(indices))
+        self.output_queue.extend(merged)
+        return self._report_and_evaluate(ds, merged, world, export_result,
+                                         output_name,
+                                         np.array(self.time_queue),
+                                         n_images=len(indices), time_scale=n)
+
+    def _finalize_one(self, ds, item, raw, analysis=True, fin=None):
+        """Per-image tail of the test loops: finalize the raw device output
+        at the original resolution, COCO-encode it and, for rows that are
+        not pads (analysis=True), queue the analysis scalars. Returns the
+        encoded per-image results. `fin` passes in a finalize computed by a
+        worker process."""
         info = item["target_img_info"]
-        # fused native finalize: upsample + binarize + RLE + box in one pass
-        # per mask, full-res masks never materialized
-        fin = finalize_records(raw, info["ori_height"], info["ori_width"])
+        if fin is None:
+            # fused native finalize: upsample + binarize + RLE + box in one
+            # pass per mask, full-res masks never materialized
+            fin = finalize_records(raw, info["ori_height"],
+                                   info["ori_width"])
         if fin is None:
             fin = finalize_results(raw, info["ori_height"], info["ori_width"])
         per_img = dict(img_id=info["id"], scores=fin["scores"],
@@ -304,23 +516,38 @@ class MatcherRunner:
         else:
             per_img["masks"] = fin["binary_masks"]
         encoded = ds.encode_results([per_img])
-        self._queue_scalars(item, raw, fin)
+        if analysis:
+            self._queue_scalars(item, raw, fin)
         return encoded
 
-    def _report_and_evaluate(self, ds, results, export_result, output_name,
-                             times_np):
-        """Tail of the test loop: FPS report (reference sam2matcher_pl.py
-        summary format), analysis pkl dumps, result export, COCO evaluation,
-        metrics CSV."""
+    def _report_and_evaluate(self, ds, results, world, export_result,
+                             output_name, times_np, n_images, time_scale=1):
+        """Tail of the test loops: FPS report (reference sam2matcher_pl.py
+        summary format), then with several processes the publish of this
+        rank's part and rank 0's interleaved merge (reference
+        collect_results_cpu, run_lightning.py:23-78), the analysis pkl dumps
+        of the merged rows, result export, COCO evaluation, metrics CSV.
+        Ranks other than 0 return None after publishing. `times_np` holds
+        seconds per image, a data-parallel batch's divided by its devices
+        (`time_scale`)."""
+        n_proc, proc_id, gather_dir = world
         print("\n[Validation] Inference Time Benchmark:")
-        print(f"  Total images: {len(times_np)}")
-        print(f"  Total time: {np.sum(times_np):.4f} s")
+        print(f"  Total images: {n_images}")
+        print(f"  Total time: {np.sum(times_np) * time_scale:.4f} s")
         print(f"  Average time per image: {np.mean(times_np):.4f} s")
         print(f"  FPS: {1.0 / np.mean(times_np):.2f}")
 
+        scalars, triplets = list(self.scalars_queue), list(self.triplets_queue)
+        if n_proc > 1:
+            multihost.save_rank_results(gather_dir, proc_id, results,
+                                        scalars, triplets)
+            if proc_id != 0:
+                return None
+            results, scalars, triplets = multihost.collect_results(
+                gather_dir, n_proc, len(ds))
         results_unpacked = [r for per_img in results for r in per_img]
-        for fname, rows in (("scalars_all.pkl", self.scalars_queue),
-                            ("triplets_all.pkl", self.triplets_queue)):
+        for fname, rows in (("scalars_all.pkl", scalars),
+                            ("triplets_all.pkl", triplets)):
             if rows:
                 os.makedirs(self.save_dir, exist_ok=True)
                 with open(os.path.join(self.save_dir, fname), "wb") as f:
@@ -329,7 +556,7 @@ class MatcherRunner:
             with open(export_result, "w") as f:
                 json.dump(results_unpacked, f)
         stats = ds.evaluate(results_unpacked, output_name=output_name)
-        self._write_metrics_csv(stats, times_np)
+        self._write_metrics_csv(stats, times_np, n_images=n_images)
         return stats
 
     def _queue_scalars(self, item, raw, fin):
@@ -375,10 +602,12 @@ class MatcherRunner:
         self.triplets_queue.append(np.stack([sims, pred_ious, oracle],
                                             axis=1))
 
-    def _write_metrics_csv(self, stats, times_np, path=None):
+    def _write_metrics_csv(self, stats, times_np, path=None, n_images=None):
         """CSV metrics record (replaces the reference's Lightning CSVLogger,
-        new_exps/*.yaml:59-63)."""
-        row = {"images": len(times_np),
+        new_exps/*.yaml:59-63). `n_images` overrides the count of
+        `times_np`, which holds one entry per batch in the data-parallel
+        loop."""
+        row = {"images": n_images if n_images is not None else len(times_np),
                "mean_time_s": float(np.mean(times_np)),
                "fps": float(1.0 / np.mean(times_np))}
         if stats:

@@ -134,7 +134,33 @@ Run from the root of a checkout. Phases, each of which raises on failure:
      predictor on a box-only copy of the test set: exact launches, every
      RLE equal to predict(box=...) called directly; (f) lvis_eval's
      `python -m` entry on (a)'s export.
+  13. the front ends, on phase 9's fabricated set and configuration with a
+     bank of 20 x 3 (seeded random weights, bf16, "pallas"): (g)
+     golden_ap_check.run_pipeline (fill, postprocess, test through
+     `cli.main`) and a metrics row that `compare` reads; (a) `vis_memory`
+     through `cli.main` on that bank and the first reference of each
+     class: one panel per reference, exact
+     launches per reference, the first reference's features against
+     no_fusion() within FEAT_REL_BAND, every panel bit for bit
+     `vis_memory` on the host over the same fetched features; (b) the CLI
+     test with online_vis: one panel per test image, the export bit for
+     bit the export without it, phase 4's launches per image, the test
+     loop's ms per image with the visualization off and on in turns; (c)
+     eval_video_olive (3 shots, 2 images x 20 classes): the same launches
+     for every query, the first query's last-frame logits against
+     no_fusion() in phase 7's bands, the results json and COCOeval, ms per
+     (image, class) query; (d) eval_sam3_video_olive --backend sam2_video
+     on the harness's data_root layout (2 queries, COCOeval) and
+     eval_sam3_olive_dispersion --backend nttt (2 classes, shots 1 and 3),
+     then episodes A B A whose A gives the same test output both times,
+     bit for bit (a zero bank per episode); (e) demo_single_image on
+     Hiera-T + DINOv2-S; (f) the box prompt's SAM2 side equal to
+     predict(box=...) called directly, with exact launches; (g) without
+     data golden_ap_check prints SKIPPED and exits 0, with --strict 3.
+     The kernel table gains each kernel's launches per eval_video_olive
+     query.
 `python3 chip_smoke.py --kernels` runs phases 1 to 3 only;
+`python3 chip_smoke.py --front-ends` runs phases 1, 2 and 13 only;
 `python3 chip_smoke.py --parallel` runs phases 1, 2 and 12 only;
 `python3 chip_smoke.py --runner` runs phases 1, 2 and 9 only;
 `python3 chip_smoke.py --image-entries` runs phases 1, 2 and 10 only;
@@ -4511,6 +4537,510 @@ def run_parallel(dev, smi):
     return totals
 
 
+# phase 13: the front ends — the runner's vis_memory and online_vis, and
+# the entries of no_time_to_train_tpu_torch/scripts, examples and tools —
+# on phase 9's fabricated set, seeded random weights, bf16, "pallas"
+FRONT_SHOTS = 3               # references per class in the bank: 60 in all
+FRONT_SIZE = 1024             # the test images' and the harnesses' input
+FRONT_SAM2 = SAM2_CFG
+# vis_memory, on the first reference of each class (20): DINOv2-L once
+# per reference at the fill's 518^2, its 24 layers on kernel 9 and
+# 2 x 24 + 1 norms on K1
+VIS_MEMORY_PER_REF = {"flash_sdpa_bnhd": 24, "layer_norm": 49}
+# (b): the test loop with online_vis off and on, in turns
+VIS_TURNS = ("off", "on", "on", "off")
+# (c) eval_video_olive: test images and supports per class (each query is
+# a pseudo-video of OLIVE_SHOTS prompted frames and the query frame)
+OLIVE_IMAGES, OLIVE_SHOTS = 2, 3
+# (d) eval_sam3_video_olive: queries (one frame a class, 20 objects) and
+# eval_sam3_olive_dispersion: classes of its data set, one episode a class
+# and shot count, and the shots of the A B A episodes
+V3_QUERIES, DISP_CLASSES, DISP_SHOTS = 2, 2, (1, 3)
+# (f) the box prompt: Hiera-L once, one box decoded (K2 3, K3 2), and K1
+# once more for the upscaling norm
+BOX_PER_CALL = dict(IMAGE_ENCODE, layer_norm=HIERA_L_K1 + 1, **PREDICT_DECODE)
+
+
+@contextlib.contextmanager
+def in_dir(path):
+    """The front ends write under the working directory
+    (./results_analysis, work_dirs/): run them inside `path`."""
+    old = os.getcwd()
+    os.chdir(path)
+    try:
+        yield
+    finally:
+        os.chdir(old)
+
+
+@contextlib.contextmanager
+def patched(obj, name, value):
+    old = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, old)
+
+
+def counted(fn, per_call):
+    """fn that appends the launches of each call to per_call."""
+    def wrapper(*a, **kw):
+        before = launch_counts()
+        out = fn(*a, **kw)
+        now = launch_counts()
+        per_call.append({k: now[k] - before[k] for k in now
+                         if now[k] != before[k]})
+        return out
+    return wrapper
+
+
+def front_config(tmp, data):
+    """The 10-shot SAM2-L + DINOv2-L YAML with its data and checkpoint
+    paths moved to the fabricated set (and to files that do not exist, so
+    the weights are drawn from the seed)."""
+    (train_dir, train_json), (test_dir, test_json) = (data["train"],
+                                                      data["test"])
+    with open(os.path.join(REPO, RUNNER_CONFIG)) as fh:
+        text = fh.read()
+    for old, new in (
+            ("./checkpoints/sam2_hiera_large.pt",
+             os.path.join(tmp, "missing_sam2.pt")),
+            ("./data/coco/annotations/instances_train2017.json", train_json),
+            ("./data/coco/annotations/instances_val2017.json", test_json),
+            ("./data/coco/train2017", train_dir),
+            ("./data/coco/val2017", test_dir),
+            ("sam2_hiera_l.yaml", FRONT_SAM2),
+            ("image_size: 1024", f"image_size: {FRONT_SIZE}")):
+        if old not in text:
+            fail(f"phase 13: {RUNNER_CONFIG} has no {old!r}")
+        text = text.replace(old, new)
+    path = os.path.join(tmp, "front_ends.yaml")
+    with open(path, "w") as fh:
+        fh.write(text)
+    return path
+
+
+def run_front_ends(dev, smi):
+    """Phase 13: (g) golden_ap_check.run_pipeline on the fabricated set,
+    whose bank (a) vis_memory and (b) the test with online_vis use; (c)
+    eval_video_olive, (d) the sam2_video and nttt backends, (e) the demo,
+    (f) the box prompt, then golden_ap_check's skip. Returns (the launch
+    counts of the phase's runs, launches per eval_video_olive query)."""
+    import filecmp
+    import pickle
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from no_time_to_train_tpu_torch import cli
+    from no_time_to_train_tpu_torch.config.presets import SAM2_PRESETS
+    from no_time_to_train_tpu_torch.data import visualization as vis
+    from no_time_to_train_tpu_torch.data.coco_api import COCO
+    from no_time_to_train_tpu_torch.data.datasets import load_image
+    from no_time_to_train_tpu_torch.data.image_io import read_rgb, save_png
+    from no_time_to_train_tpu_torch.examples import demo_single_image
+    from no_time_to_train_tpu_torch.examples import sam2_vs_sam3_box_prompt
+    from no_time_to_train_tpu_torch.models.matching import pipeline
+    from no_time_to_train_tpu_torch.models.sam2.image_predictor import (
+        SAM2ImagePredictor)
+    from no_time_to_train_tpu_torch.ops.upscale_product import no_fusion
+    from no_time_to_train_tpu_torch.runner import get_dataset
+    from no_time_to_train_tpu_torch.scripts import (
+        eval_sam3_olive_dispersion, eval_sam3_video_olive, eval_video_olive,
+        golden_ap_check)
+    from no_time_to_train_tpu_torch.utils import entry
+
+    faults = []
+
+    def check(ok, msg):
+        if not ok:
+            log(f"  FAILED {msg}")
+            faults.append(msg)
+        return ok
+
+    totals = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+
+    def timed(what, fn):
+        """fn() with its launches added to the phase's; returns (its
+        result, its launches, its seconds)."""
+        reset_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        counts = {k: v for k, v in launch_counts().items() if v}
+        add(counts)
+        log(f"  {what}: {sec:.2f} s; on {smi}")
+        return out, counts, sec
+
+    with tempfile.TemporaryDirectory() as tmp, in_dir(tmp):
+        data = fabricate_coco(tmp)
+        (train_dir, train_json), (test_dir, test_json) = (data["train"],
+                                                          data["test"])
+        cfg = front_config(tmp, data)
+        res = os.path.join(tmp, "golden")
+        missing_dino = os.path.join(tmp, "missing_dino")
+        n_img = len(RUNNER_TEST_WH)
+
+        # (g) the four stages of few_shot_full_pipeline.sh through the CLI
+        row, _, _ = timed("(g) golden_ap_check.run_pipeline (fill, "
+                          "postprocess, test)", lambda: (
+                              golden_ap_check.run_pipeline(
+                                  cfg, missing_dino, FRONT_SHOTS,
+                                  RUNNER_SEED, RUNNER_SPLIT, res,
+                                  device=str(dev))))
+        ok, lines = golden_ap_check.compare(
+            row, {"bbox": float(row["bbox_AP"]),
+                  "segm": float(row["segm_AP"])}, 0.3)
+        check(ok and len(lines) == 2, f"(g) compare on the row {row}")
+        log(f"  (g) metrics row read by compare: bbox AP {row['bbox_AP']}, "
+            f"segm AP {row['segm_AP']} (random weights)")
+        post = os.path.join(res, "memory_postprocessed.ckpt")
+        pkl = os.path.join(res, f"few_shot_{FRONT_SHOTS}shot_seed"
+                                f"{RUNNER_SEED}.pkl")
+        export_off = os.path.join(res, f"results_{FRONT_SHOTS}shot_"
+                                       f"{RUNNER_SEED}seed.json")
+        ds_args = "--model.init_args.dataset_cfgs"
+        common = ["test", "--config", cfg, "--device", str(dev),
+                  "--model.init_args.model_cfg.memory_bank_cfg.length",
+                  str(FRONT_SHOTS),
+                  "--model.init_args.model_cfg.encoder_ckpt_path",
+                  missing_dino, "--ckpt_path", post]
+
+        # (a) vis_memory through the CLI, on the first reference of each
+        # class; vis_memory's inputs recorded
+        with open(pkl, "rb") as fh:
+            refs = pickle.load(fh)
+        pkl1 = os.path.join(tmp, "refs_1shot.pkl")
+        with open(pkl1, "wb") as fh:
+            pickle.dump({c: r[:1] for c, r in refs.items()}, fh)
+        drawn = []
+
+        def recording(*a, **kw):
+            drawn.append((a, kw))
+            return real_vis_memory(*a, **kw)
+
+        real_vis_memory = vis.vis_memory
+        with patched(vis, "vis_memory", recording):
+            runner, counts, _ = timed("(a) cli vis_memory", lambda: cli.main(
+                common + ["--model.test_mode", "vis_memory",
+                          f"{ds_args}.fill_memory.memory_pkl", pkl1,
+                          f"{ds_args}.fill_memory.memory_length", "1",
+                          f"{ds_args}.fill_memory.class_split",
+                          RUNNER_SPLIT]))
+        n_ref = 20
+        vis_dir = os.path.join(tmp, "results_analysis", "memory_vis")
+        files = sorted(os.listdir(vis_dir))
+        check(len(files) == len(drawn) == n_ref,
+              f"(a) {len(files)} panels for {len(drawn)} references, "
+              f"expected {n_ref}")
+        check(counts == {k: v * n_ref for k, v in
+                         VIS_MEMORY_PER_REF.items()},
+              f"(a) launches {counts}, expected {n_ref} x "
+              f"{VIS_MEMORY_PER_REF}")
+        ds = get_dataset(runner.dataset_cfgs["fill_memory"], "vis_memory")
+        item = ds[0]
+        m = runner.matcher
+        args = (m._as_tensor(item["img"][None]),
+                m._as_tensor(item["mask"][None]))
+        with no_fusion():
+            plain = m._fill_features(*args)[0][0].float().cpu().numpy()
+        got = drawn[0][0][1].reshape(plain.shape)
+        rel = float(np.linalg.norm(got - plain) / np.linalg.norm(plain))
+        check(rel <= FEAT_REL_BAND, f"(a) features against no_fusion(): "
+              f"relative L2 {rel:.4f} (band {FEAT_REL_BAND})")
+        host_dir = os.path.join(tmp, "memory_vis_host")
+        same = 0
+        for a, kw in drawn:
+            path = real_vis_memory(*a[:4], host_dir, **kw)
+            same += filecmp.cmp(path, os.path.join(
+                vis_dir, os.path.basename(path)), shallow=False)
+        check(same == n_ref, f"(a) {n_ref - same} panels differ from "
+              f"vis_memory on the host over the same features")
+        log(f"  (a) {len(files)} panels ({files[0]} ...), launches "
+            f"{counts} = {n_ref} x {VIS_MEMORY_PER_REF}; features of "
+            f"reference 0 against no_fusion(): relative L2 {rel:.4f} (band "
+            f"{FEAT_REL_BAND}); every panel bit for bit vis_memory on the "
+            f"host over the fetched features")
+        del runner, m
+
+        # (b) the test with online_vis through the CLI, then the test loop
+        # with the visualization off and on, in turns
+        export_on = os.path.join(tmp, "export_vis.json")
+        runner, counts, _ = timed("(b) cli test, online_vis", lambda: (
+            cli.main(common + [
+                "--model.test_mode", "test",
+                f"{ds_args}.test.class_split", RUNNER_SPLIT,
+                "--model.init_args.model_cfg.test.online_vis", "True",
+                "--export_result", export_on,
+                "--trainer.logger.save_dir", res])))
+        per_image = {k: v / n_img for k, v in counts.items()}
+        check(per_image == RUNNER_PER_IMAGE, f"(b) launches per test image "
+              f"{per_image}, expected {RUNNER_PER_IMAGE}")
+        panels = sorted(os.listdir(os.path.join(tmp, "results_analysis",
+                                                "coco")))
+        want_panels = sorted(i["file_name"] for i in
+                             COCO(test_json).dataset["images"])
+        check(panels == want_panels, f"(b) panels {panels}, expected "
+              f"{want_panels}")
+        with open(export_on) as fh, open(export_off) as fh2:
+            check(json.load(fh) == json.load(fh2),
+                  "(b) the export with online_vis differs from the export "
+                  "without it")
+        ms = {"off": [], "on": []}
+        for turn in VIS_TURNS:
+            runner.online_vis = turn == "on"
+            runner.output_queue, runner.time_queue = [], []
+            runner.scalars_queue, runner.triplets_queue = [], []
+            reset_counts()
+            runner.run(progress=False)
+            add({k: v for k, v in launch_counts().items() if v})
+            ms[turn].append(1e3 * float(np.mean(runner.time_queue)))
+        log(f"  (b) {len(panels)} panels, export bit for bit the export "
+            f"without online_vis, launches per test image {per_image}; "
+            f"test loop ms per image in turns {list(VIS_TURNS)}: off "
+            f"{[round(x, 1) for x in ms['off']]}, on "
+            f"{[round(x, 1) for x in ms['on']]}; on {smi}")
+        del runner
+        torch.cuda.empty_cache()
+
+        # (c) eval_video_olive: launches per query, the first query against
+        # no_fusion(), the records and COCOeval
+        per_query, preds = [], []
+
+        def build(*a, **kw):
+            preds.append(real_build(*a, **kw))
+            return preds[-1]
+
+        real_build = eval_video_olive.build_predictor
+        olive_json = os.path.join(tmp, "olive.json")
+        with patched(eval_video_olive, "build_predictor", build), \
+                patched(eval_video_olive, "propagate_one_query", counted(
+                    eval_video_olive.propagate_one_query, per_query)):
+            out, _, _ = timed("(c) eval_video_olive", lambda: (
+                eval_video_olive.main([
+                    "--test-json", test_json, "--test-root", test_dir,
+                    "--memory-pkl", pkl, "--train-json", train_json,
+                    "--train-root", train_dir, "--sam2-cfg", FRONT_SAM2,
+                    "--sam2-ckpt", os.path.join(tmp, "missing_sam2.pt"),
+                    "--n-shot", str(OLIVE_SHOTS), "--max-images",
+                    str(OLIVE_IMAGES), "--out-json", olive_json,
+                    "--device", str(dev)])))
+        n_q = 20 * OLIVE_IMAGES
+        check(len(per_query) == n_q and all(q == per_query[0]
+                                            for q in per_query),
+              f"(c) {len(per_query)} queries, launches not the same for "
+              f"each: {per_query[:2]}")
+        check(all(per_query[0].get(k) for k in (
+            "layer_norm", "fused_t2i_attn", "fused_i2t_norm",
+            "flash_sdpa_bnhd", "flash_sdpa_window_qkv", "flash_sdpa")),
+              f"(c) a video row missing from a query's launches "
+              f"{per_query[0]}")
+        check(os.path.exists(olive_json) and json.load(open(olive_json))
+              == out["results"], "(c) the results json")
+        check(not out["results"] or set(out["stats"]) == {"bbox", "segm"},
+              "(c) COCOeval did not run")
+        supports = eval_video_olive.load_supports(
+            train_json, train_dir, refs, OLIVE_SHOTS, FRONT_SIZE)
+        first = sorted(COCO(test_json).imgs)[0]
+        query = load_image(os.path.join(test_dir, COCO(test_json).imgs[
+            first]["file_name"]), image_size=FRONT_SIZE)[0]
+        imgs, masks = next(iter(supports.values()))
+        pred = preds[0]
+        got = eval_video_olive.propagate_one_query(pred, imgs, masks, query)
+        with no_fusion():
+            ref = eval_video_olive.propagate_one_query(pred, imgs, masks,
+                                                       query)
+        mask_gap("(c) the first query's last frame against no_fusion()",
+                 {0: got.float()}, {0: ref.float()})
+        ms_query = 1e3 * float(np.mean(out["seconds"])) / 20
+        log(f"  (c) {n_q} queries ({OLIVE_IMAGES} images x 20 classes, "
+            f"{OLIVE_SHOTS} shots), launches per query {per_query[0]}; "
+            f"{len(out['results'])} records, COCOeval "
+            f"{sorted(out['stats'])}; {ms_query:.1f} ms per (image, class) "
+            f"query (fenced per image, over 20 classes); on {smi}")
+        del preds, pred
+        torch.cuda.empty_cache()
+
+        # (d) eval_sam3_video_olive --backend sam2_video on the harness's
+        # data_root layout, then the nttt backend's episodes
+        droot = os.path.join(tmp, "olive")
+        os.makedirs(os.path.join(droot, "annotations"))
+        os.symlink(train_dir, os.path.join(droot, "train2017"))
+        os.symlink(test_dir, os.path.join(droot, "val2017"))
+        shutil.copy(train_json, os.path.join(
+            droot, "annotations", "instances_train2017.json"))
+        shutil.copy(test_json, os.path.join(
+            droot, "annotations", "instances_val2017.json"))
+        out3_dir = os.path.join(tmp, "sam3_video")
+        out3, counts, _ = timed("(d) eval_sam3_video_olive sam2_video",
+                                lambda: eval_sam3_video_olive.main([
+                                    "--shots", "1", "--seed", "42",
+                                    "--data_root", droot, "--class_split",
+                                    RUNNER_SPLIT, "--image_size",
+                                    str(FRONT_SIZE), "--sam2_cfg",
+                                    FRONT_SAM2, "--output_dir", out3_dir,
+                                    "--max_queries", str(V3_QUERIES),
+                                    "--evaluate_coco", "--device",
+                                    str(dev)]))
+        rt = json.load(open(os.path.join(out3_dir, "sam3_runtime.json")))
+        check(rt["num_queries"] == V3_QUERIES and rt["fps"] > 0
+              and rt["peak_vram_mib"], f"(d) runtime {rt}")
+        check(json.load(open(os.path.join(out3_dir, "sam3_predictions.json")))
+              == out3["predictions"], "(d) the predictions json")
+        check(not out3["predictions"] or set(out3["stats"]) == {"bbox",
+                                                                 "segm"},
+              "(d) COCOeval did not run")
+        log(f"  (d) sam2_video: {len(out3['predictions'])} predictions, "
+            f"mIoU per class over {len(out3['miou'])} classes, runtime "
+            f"{rt}; launches {counts}")
+
+        coco = COCO(train_json)
+        cats = sorted(coco.cats)[:DISP_CLASSES]
+        anns = [a for a in coco.dataset["annotations"]
+                if a["category_id"] in cats]
+        keep = {a["image_id"] for a in anns}
+        sub = {"images": [i for i in coco.dataset["images"]
+                          if i["id"] in keep],
+               "annotations": anns,
+               "categories": [c for c in coco.dataset["categories"]
+                              if c["id"] in cats]}
+        sub_json = os.path.join(tmp, "dispersion.json")
+        with open(sub_json, "w") as fh:
+            json.dump(sub, fh)
+        runs, raws = [], []
+
+        def build_backend(*a, **kw):
+            runs.append(real_backend(*a, **kw))
+            return runs[-1]
+
+        def recording_finalize(out, *a, **kw):
+            raws.append(out)
+            return real_finalize(out, *a, **kw)
+
+        real_backend = eval_sam3_olive_dispersion.build_nttt_backend
+        real_finalize = pipeline.finalize_results
+        with patched(eval_sam3_olive_dispersion, "build_nttt_backend",
+                     build_backend), \
+                patched(pipeline, "finalize_results", recording_finalize):
+            disp, counts, _ = timed("(d) eval_sam3_olive_dispersion nttt",
+                                    lambda: eval_sam3_olive_dispersion.main([
+                                        "--coco_json", sub_json, "--img_dir",
+                                        train_dir, "--sam2_cfg", FRONT_SAM2,
+                                        "--image_size", str(FRONT_SIZE),
+                                        "--shots", ",".join(
+                                            map(str, DISP_SHOTS)),
+                                        "--episodes", "1", "--out_json",
+                                        os.path.join(tmp, "disp.json"),
+                                        "--device", str(dev)]))
+            n_ep = sum(len(v) for d in disp["final"].values()
+                       for v in d.values())
+            check(not disp["errors"] and n_ep == DISP_CLASSES
+                  * len(DISP_SHOTS), f"(d) {n_ep} episodes, errors "
+                  f"{disp['errors']}")
+
+            def episode(cat, shots, query_at):
+                ids = sorted(coco.getImgIds(catIds=[cat]))
+                load = eval_sam3_olive_dispersion.load_image_and_gt
+                return ([load(coco, train_dir, i, cat)[:2]
+                         for i in ids[:shots]],
+                        load(coco, train_dir, ids[query_at], cat)[0])
+
+            a_ep = episode(cats[0], DISP_SHOTS[-1], -1)
+            b_ep = episode(cats[1], DISP_SHOTS[0], -1)
+            raws.clear()
+            reset_counts()
+            masks_aba = [runs[0](*ep) for ep in (a_ep, b_ep, a_ep)]
+            add({k: v for k, v in launch_counts().items() if v})
+        first, third = raws[0], raws[2]
+        check(all(np.array_equal(first[k], third[k]) for k in first)
+              and np.array_equal(masks_aba[0], masks_aba[2]),
+              "(d) episode A run again after B gives another result")
+        differ = not all(np.array_equal(raws[0][k], raws[1][k])
+                         for k in raws[0])
+        log(f"  (d) nttt: {n_ep} episodes (shots {DISP_SHOTS}, "
+            f"{DISP_CLASSES} classes), launches {counts}; A B A: A's test "
+            f"output and mask bit for bit the same both times (A: "
+            f"{int(first['valid'].sum())} valid, its mask "
+            f"{float(masks_aba[0].mean()):.4f} of the query; B's output "
+            f"{'differs from' if differ else 'equals'} A's)")
+        del runs
+        torch.cuda.empty_cache()
+
+        # (e) the demo on Hiera-T + DINOv2-S
+        ann = coco.loadAnns(coco.getAnnIds(imgIds=[1]))[0]
+        ref_mask = os.path.join(tmp, "ref_mask.png")
+        save_png(ref_mask, coco.annToMask(ann).astype(np.uint8) * 255)
+        demo_out = os.path.join(tmp, "demo.png")
+        query_path = os.path.join(test_dir, "test_000.png")
+        (fin, path), counts, _ = timed("(e) demo_single_image", lambda: (
+            demo_single_image.main([
+                "--ref-image", os.path.join(train_dir, "train_000.png"),
+                "--ref-mask", ref_mask, "--query-image", query_path,
+                "--out", demo_out, "--device", str(dev)])))
+        check(read_rgb(path).shape == read_rgb(query_path).shape,
+              "(e) the overlay's shape")
+        check(all(counts.get(k) for k in ("layer_norm", "fused_t2i_attn",
+                                          "fused_i2t_norm", "fused_post_t1",
+                                          "flash_sdpa_bnhd",
+                                          "flash_sdpa_window_qkv")),
+              f"(e) a kernel of the test step did not run: {counts}")
+        log(f"  (e) demo on Hiera-T + DINOv2-S: {len(fin['scores'])} "
+            f"detections, overlay written; launches {counts}")
+
+        # (f) the box prompt's SAM2 side against predict(box=...) called
+        # directly on the same model
+        model = entry.build_sam2(SAM2_PRESETS[FRONT_SAM2], device=dev,
+                                 dtype=entry.compute_dtype(dev))
+        box_img = os.path.join(test_dir, "test_000.png")
+        tcoco = COCO(test_json)
+        bx, by, bw, bh = tcoco.loadAnns(tcoco.getAnnIds(imgIds=[1]))[0][
+            "bbox"]
+        box = [bx, by, bx + bw, by + bh]
+        with patched(sam2_vs_sam3_box_prompt, "build_sam2",
+                     lambda *a, **kw: model):
+            (mask, iou, _), counts, _ = timed(
+                "(f) sam2_vs_sam3_box_prompt", lambda: (
+                    sam2_vs_sam3_box_prompt.main([
+                        "--image", box_img, "--box", *map(str, box),
+                        "--sam2-cfg", FRONT_SAM2, "--out",
+                        os.path.join(tmp, "box.png"), "--device",
+                        str(dev)])))
+        check(counts == BOX_PER_CALL, f"(f) launches {counts}, expected "
+              f"{BOX_PER_CALL}")
+        direct = SAM2ImagePredictor(model)
+        direct.set_image(read_rgb(box_img).astype(np.float32) / 255.0)
+        masks, ious, _ = direct.predict(box=np.asarray(box, np.float32),
+                                        multimask_output=True)
+        best = int(np.argmax(ious[0]))
+        check(np.array_equal(mask, masks[0, best])
+              and iou == float(ious[0, best]),
+              "(f) the example's mask is not predict(box=...)'s")
+        log(f"  (f) box prompt: mask ({float(mask.mean()):.4f} of the "
+            f"image, IoU {iou:.3f}) bit for bit predict(box=...) called "
+            f"directly; launches {counts}")
+        del model, direct
+
+        # (g) the skip without data, and --strict
+        skip = golden_ap_check.main(["--config", os.path.join(
+            REPO, RUNNER_CONFIG), "--device", str(dev)])
+        strict = golden_ap_check.main(["--config", os.path.join(
+            REPO, RUNNER_CONFIG), "--strict", "--device", str(dev)])
+        check(skip == 0 and strict == 3, f"(g) exit codes {skip} (skip) "
+              f"and {strict} (--strict), expected 0 and 3")
+        log(f"  (g) without data: exit {skip} (SKIPPED), --strict exit "
+            f"{strict}")
+    torch.cuda.empty_cache()
+    if faults:
+        fail(f"phase 13: {len(faults)} checks failed: {faults}")
+    return totals, per_query[0] if per_query else {}
+
+
 def kernel_registers():
     """`--registers`: compile every source of csrc/ once more with
     `-Xptxas -v` (all started together) and print, per kernel entry, the
@@ -4631,6 +5161,14 @@ def main():
         phase_done("12")
         print(smi)
         return 0
+    if sys.argv[1:] == ["--front-ends"]:
+        log("[13] the front ends: golden_ap_check, vis_memory, online_vis, "
+            "eval_video_olive, the sam2_video and nttt backends, the demo, "
+            "the box prompt")
+        run_front_ends(dev, smi)
+        phase_done("13")
+        print(smi)
+        return 0
     if sys.argv[1:] == ["--sam2ref"]:
         log("[11] SAM2Ref: fill, test, train, the head, the guard")
         run_sam2ref(dev, smi)
@@ -4710,9 +5248,19 @@ def main():
         totals[k] = totals.get(k, 0) + v
     phase_done("12")
 
+    log("[13] the front ends on phase 9's fabricated set: golden_ap_check, "
+        "vis_memory and online_vis through the CLI, eval_video_olive, the "
+        "sam2_video and nttt backends, the demo on Hiera-T + DINOv2-S, the "
+        "box prompt on SAM2-L")
+    counts, per_olive = run_front_ends(dev, smi)
+    for k, v in counts.items():
+        totals[k] = totals.get(k, 0) + v
+    phase_done("13")
+
     kernels = [dict(k, launches=totals[k["name"]], **kres[k["name"]],
                     amg_launches_per_image=per_amg.get(k["name"], 0),
-                    sam2ref_launches_per_test=per_ref.get(k["name"], 0))
+                    sam2ref_launches_per_test=per_ref.get(k["name"], 0),
+                    olive_launches_per_query=per_olive.get(k["name"], 0))
                for k in KERNELS]
     idle = [k["name"] for k in kernels if k["launches"] == 0]
     if idle:

@@ -7,11 +7,18 @@ main path.
 - `read_rgb`: any image file as uint8 RGB [H, W, 3], as PIL's
   `Image.open(path).convert("RGB")` gives it. PNG goes through `read_png`;
   every other format (JPEG) through PIL, imported inside the function.
+- `read_gray`: any image file as uint8 [H, W], as PIL's
+  `Image.open(path).convert("L")` gives it (ITU-R 601-2 luma in PIL's
+  16-bit fixed point).
 - `resize_like_pil`: PIL's default `Image.resize` filter (bicubic, a = -0.5)
   in numpy, bit for bit: PIL's coefficients in 22-bit fixed point, a
   horizontal pass rounded to uint8, then a vertical one. The data layer
   always resizes with it, with PIL installed or not.
-- `save_png`: a plain PNG writer (filter 0), for fabricated data sets.
+- `resize_linear_cv2` / `resize_nearest_cv2`: what OpenCV's `cv2.resize`
+  gives with INTER_LINEAR on float32 and INTER_NEAREST, bit for bit, for the
+  scripts that the reference wrote on cv2 (the port has no cv2).
+- `save_png`: a plain PNG writer (filter 0), for fabricated data sets and
+  the visualizations.
 """
 import math
 import struct
@@ -19,7 +26,8 @@ import zlib
 
 import numpy as np
 
-__all__ = ["read_png", "read_rgb", "resize_like_pil", "save_png"]
+__all__ = ["read_png", "read_rgb", "read_gray", "resize_like_pil",
+           "resize_linear_cv2", "resize_nearest_cv2", "save_png"]
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # PNG colour type -> channels per pixel (0 gray, 2 RGB, 3 palette, 4 gray +
@@ -135,6 +143,21 @@ def read_rgb(path):
         return np.asarray(img.convert("RGB"))
 
 
+def read_gray(path):
+    """Image file -> uint8 [H, W], as PIL's `Image.open(path).convert("L")`
+    gives it: gray PNGs as they are, colour ones through PIL's luma
+    (R 19595 + G 38470 + B 7471 + 2^15) >> 16."""
+    with open(path, "rb") as f:
+        is_png = f.read(len(PNG_SIGNATURE)) == PNG_SIGNATURE
+    if is_png:
+        px, ctype, _ = read_png(path)
+        if ctype in (0, 4):
+            return np.ascontiguousarray(px[..., 0])
+    rgb = read_rgb(path).astype(np.uint32)
+    return ((rgb[..., 0] * 19595 + rgb[..., 1] * 38470 + rgb[..., 2] * 7471
+             + 0x8000) >> 16).astype(np.uint8)
+
+
 def _bicubic(x):
     """PIL's bicubic_filter, a = -0.5, in its order of operations."""
     x = np.abs(x)
@@ -197,6 +220,57 @@ def resize_like_pil(img, size):
     if h != img.shape[0]:
         img = _resample_axis(img, 0, h)
     return img
+
+
+def _linear_taps(n_in, n_out):
+    """Two-tap linear weights with half-pixel centres, the position in
+    float64, the edges clamped: (left index, right index, right weight as
+    float32)."""
+    pos = (np.arange(n_out) + 0.5) * (n_in / n_out) - 0.5
+    left = np.floor(pos).astype(np.int64)
+    frac = pos - left
+    frac[left < 0] = 0.0
+    left = np.clip(left, 0, n_in - 1)
+    frac[left >= n_in - 1] = 0.0
+    return left, np.minimum(left + 1, n_in - 1), frac.astype(np.float32)
+
+
+def _lerp(a, b, t):
+    """a + (b - a) t on float32 as a fused multiply-add: the product is
+    exact in float64 and the sum is rounded to float64, then to float32
+    (twice rounded only where the float64 sum falls on a float32 midpoint,
+    which no shape in the tests meets)."""
+    d = (b - a).astype(np.float64)
+    return (d * t.astype(np.float64) + a).astype(np.float32)
+
+
+def resize_linear_cv2(x, size):
+    """float32 [H, W, ...] -> [h, w, ...], size (h, w): `cv2.resize(x, (w,
+    h), interpolation=cv2.INTER_LINEAR)` as OpenCV's wheels compute it for
+    float32 (through Intel IPP), bit for bit: half-pixel centres, edges
+    clamped, a horizontal pass and then a vertical one, each a + (b - a) t
+    with a fused multiply-add."""
+    x = np.asarray(x, np.float32)
+    h, w = size
+    l, r, t = _linear_taps(x.shape[1], w)
+    t = t.reshape((1, w) + (1,) * (x.ndim - 2))
+    x = _lerp(x[:, l], x[:, r], t)
+    l, r, t = _linear_taps(x.shape[0], h)
+    return _lerp(x[l], x[r], t.reshape((h,) + (1,) * (x.ndim - 1)))
+
+
+def resize_nearest_cv2(x, size):
+    """[H, W, ...] -> [h, w, ...], size (h, w): `cv2.resize(x, (w, h),
+    interpolation=cv2.INTER_NEAREST)`, bit for bit: source index
+    floor(i * in / out)."""
+    x = np.asarray(x)
+    h, w = size
+
+    def index(n_in, n_out):
+        return np.minimum(np.floor(np.arange(n_out) * (1.0 / (n_out / n_in))
+                                   ).astype(np.int64), n_in - 1)
+
+    return x[index(x.shape[0], h)][:, index(x.shape[1], w)]
 
 
 def save_png(path, img):

@@ -10,7 +10,12 @@ Modes (reference test_step dispatch, sam2matcher_pl.py:163-200):
       device;
   test / test_support -> per-image test steps, a loader thread and a
       two-deep pipeline, COCO RLE encoding, FPS report (the reference's
-      format, run_lightning.py:152-161), optional json export, COCOeval.
+      format, run_lightning.py:152-161), optional json export, COCOeval;
+      with `online_vis` a GT-vs-prediction panel of each image under
+      ./results_analysis/<dataset name>/ (`data/visualization.py`);
+  vis_memory -> each reference of the fill data set through the encoder,
+      drawn beside the k-means and PCA overlays of the loaded bank under
+      ./results_analysis/memory_vis/<cat>_<img_id>.png.
 
 Data parallelism (`parallel/`): `devices` is the number of devices of the
 run, as Lightning's `trainer.devices` on one node, and a run of
@@ -25,7 +30,6 @@ NTTT_COORDINATOR set and more than one device, the fill is the
 cross-process one (every rank encodes its rows of each batch and the
 features are gathered). On CUDA, more devices than the process sees
 raise; on the CPU, devices=n runs n replicas on the CPU.
-Not ported: `vis_memory` and online visualization.
 """
 import copy
 import csv
@@ -81,7 +85,7 @@ def get_dataset(dataset_cfg, stage):
     name = cfg.pop("name", None)
     if name != "coco":
         raise ValueError(f"unknown dataset {name}")
-    if stage in ("fill_memory", "fill_memory_neg"):
+    if stage in ("fill_memory", "vis_memory", "fill_memory_neg"):
         # test-grid key; the fill dataset class does not accept it
         cfg.pop("n_points_per_edge", None)
         if stage != "fill_memory":
@@ -138,8 +142,6 @@ class MatcherRunner:
             raise ValueError(f"unknown model {name}")
         self.devices = int(devices)
         self.local_devices = _local_devices(self.devices, device)
-        if model_cfg.get("online_vis", False):
-            raise NotImplementedError("online visualization is not ported")
 
         infer = dict(model_cfg.get("sam2_infer_cfgs", {}))
         for key, only in _NOT_PORTED.items():
@@ -199,6 +201,8 @@ class MatcherRunner:
         self.scalars_queue = []
         self.triplets_queue = []
         self.time_queue = []
+        self.online_vis = bool(model_cfg.get("online_vis", False))
+        self.vis_thr = float(model_cfg.get("vis_thr", 0.5))
 
     # ----------------------------------------------------------------- phases
     def load_ckpt(self, ckpt_path):
@@ -263,6 +267,8 @@ class MatcherRunner:
                     "Checkpoint with post-processed memory is saved to")
         elif mode in ("test", "test_support"):
             return self._test(mode, export_result, output_name, progress)
+        elif mode == "vis_memory":
+            self._vis_memory()
         else:
             raise NotImplementedError(f"Unrecognized test mode {mode}")
         return None
@@ -318,6 +324,33 @@ class MatcherRunner:
                 if progress:
                     print(f"fill {min((bi + 1) * bs, len(ds))}/{len(ds)}")
 
+    def _vis_memory(self):
+        """Each reference's [gs, gs, D] encoder grid on the device, drawn
+        with the bank's k-means centres and PCA on the host."""
+        from no_time_to_train_tpu_torch.data.visualization import vis_memory
+        ds = get_dataset(self.dataset_cfgs["fill_memory"], "vis_memory")
+        gs = self.matcher.enc_cfg.grid_size
+        out_dir = "./results_analysis/memory_vis"
+        for i in range(len(ds)):
+            item = ds[i]
+            feats, _ = self.matcher._fill_features(
+                self.matcher._as_tensor(item["img"][None]),
+                self.matcher._as_tensor(item["mask"][None]))
+            grid = feats[0].cpu().numpy().reshape(gs, gs, -1)
+            vis_memory(item["img"], grid, item["cat_ind"], self.matcher.bank,
+                       out_dir, img_id=item["img_info"]["id"])
+        print(f"memory visualizations -> {out_dir}")
+
+    def _vis_dir(self, stage_cfg):
+        """The online visualization's directory, or None when it is
+        off."""
+        if not self.online_vis:
+            return None
+        vis_dir = os.path.join("./results_analysis",
+                               stage_cfg.get("name", "coco"))
+        os.makedirs(vis_dir, exist_ok=True)
+        return vis_dir
+
     def _fetch(self, out):
         """fetch_test of an image whose work has finished. On a GPU the
         copies run on a side stream, so they do not queue behind the next
@@ -351,10 +384,11 @@ class MatcherRunner:
             # is gone (without one, NTTT_RUN_ID closes that window)
             multihost.barrier(f"nttt_parts_cleared_{mode}")
         world = (n_proc, proc_id, gather_dir)
+        vis_dir = self._vis_dir(stage_cfg)
         if self.local_devices > 1:
-            return self._run_test_data_parallel(ds, indices, world,
-                                                export_result, output_name,
-                                                progress)
+            return self._run_test_data_parallel(ds, stage_cfg, vis_dir,
+                                                indices, world, export_result,
+                                                output_name, progress)
         workers = max(1, int(self.data_load_cfgs.get("workers", 0)) or 1)
         n = len(indices)
         # the shard's pad duplicates (its tail) keep the merge aligned and
@@ -364,8 +398,8 @@ class MatcherRunner:
         def finalize(item, device_out, dt, analysis):
             self.time_queue.append(dt)
             raw = self._fetch(device_out)
-            self.output_queue.append(self._finalize_one(ds, item, raw,
-                                                        analysis=analysis))
+            self.output_queue.append(self._finalize_one(
+                ds, stage_cfg, vis_dir, item, raw, analysis=analysis))
 
         with ThreadPoolExecutor(max_workers=workers) as pool:
             futures = [pool.submit(ds.__getitem__, j) for j in indices[:2]]
@@ -400,16 +434,18 @@ class MatcherRunner:
                for j in range(len(out["valid"]))]
         return {k: np.stack([o[k] for o in per]) for k in per[0]}
 
-    def _run_test_data_parallel(self, ds, indices, world, export_result,
-                                output_name, progress):
+    def _run_test_data_parallel(self, ds, stage_cfg, vis_dir, indices, world,
+                                export_result, output_name, progress):
         """This process's shard `indices` over one replica per device
         (`parallel/mesh.py`), in batches of one image per replica, with the
         single-device loop's structure: a loader thread two batches ahead
         and a two-deep pipeline, batch i fetched and finalized while batch
         i + 1 computes. With data_load_cfgs["finalize_workers"] = W > 0 the
         native finalize of each row runs in W worker processes
-        (`utils/finalize_pool.py`). Replica j sees indices[j::n], so
-        zipping the replicas' lists restores the shard's order."""
+        (`utils/finalize_pool.py`), unless the online visualization is on:
+        its panels need the binary masks in process. Replica j sees
+        indices[j::n], so zipping the replicas' lists restores the shard's
+        order."""
         n_proc, proc_id, _ = world
         n = self.local_devices
         run = make_data_parallel_test(self.matcher, self._replica_devices())
@@ -423,7 +459,7 @@ class MatcherRunner:
 
         fin_pool = None
         fw = int(self.data_load_cfgs.get("finalize_workers", 0) or 0)
-        if fw > 0:
+        if fw > 0 and vis_dir is None:
             from no_time_to_train_tpu_torch.utils import native
             if native.has_finalize():
                 from no_time_to_train_tpu_torch.utils.finalize_pool import (
@@ -461,8 +497,8 @@ class MatcherRunner:
                 # pads (the tail batch's, or the shard's) keep the merge
                 # aligned and stay out of the analysis rows
                 per_replica[j].append(self._finalize_one(
-                    ds, item, raw, analysis=j < n_valid and base + j < n_real,
-                    fin=fin))
+                    ds, stage_cfg, vis_dir, item, raw,
+                    analysis=j < n_valid and base + j < n_real, fin=fin))
 
         workers = max(1, int(self.data_load_cfgs.get("workers", 0)) or 1)
         try:
@@ -495,16 +531,20 @@ class MatcherRunner:
                                          np.array(self.time_queue),
                                          n_images=len(indices), time_scale=n)
 
-    def _finalize_one(self, ds, item, raw, analysis=True, fin=None):
+    def _finalize_one(self, ds, stage_cfg, vis_dir, item, raw, analysis=True,
+                      fin=None):
         """Per-image tail of the test loops: finalize the raw device output
         at the original resolution, COCO-encode it and, for rows that are
-        not pads (analysis=True), queue the analysis scalars. Returns the
-        encoded per-image results. `fin` passes in a finalize computed by a
-        worker process."""
+        not pads (analysis=True), queue the analysis scalars and draw the
+        online visualization into vis_dir (None: off). Returns the encoded
+        per-image results. `fin` passes in a finalize computed by a worker
+        process."""
         info = item["target_img_info"]
-        if fin is None:
+        if fin is None and vis_dir is None:
             # fused native finalize: upsample + binarize + RLE + box in one
-            # pass per mask, full-res masks never materialized
+            # pass per mask, full-res masks never materialized; the panels
+            # need the binary masks, so the visualization keeps
+            # finalize_results (the same records)
             fin = finalize_records(raw, info["ori_height"],
                                    info["ori_width"])
         if fin is None:
@@ -518,6 +558,16 @@ class MatcherRunner:
         encoded = ds.encode_results([per_img])
         if analysis:
             self._queue_scalars(item, raw, fin)
+            if vis_dir is not None:
+                from no_time_to_train_tpu_torch.data.visualization import (
+                    vis_results_online)
+                vis_results_online(
+                    fin, item.get("tar_anns_by_cat"),
+                    (info["ori_height"], info["ori_width"]),
+                    os.path.join(ds.root, info["file_name"]), vis_dir,
+                    score_thr=self.vis_thr,
+                    dataset_name=stage_cfg.get("name"),
+                    class_names=ds.cat_names)
         return encoded
 
     def _report_and_evaluate(self, ds, results, world, export_result,

@@ -3,8 +3,8 @@
 The port (`no_time_to_train_tpu_torch/`, `chip_smoke.py`) imports torch and
 nothing of the JAX package, not even a module there that does not import
 JAX; only the tests import both. Nor does it import the packages the
-machine with the GPU lacks (PyYAML, cv2, safetensors, transformers,
-pycocotools), or PIL anywhere but inside the JPEG branch of
+machine with the GPU lacks (PyYAML, cv2, matplotlib, safetensors,
+transformers, pycocotools), or PIL anywhere but inside the JPEG branch of
 `data/image_io.py`.
 """
 import ast
@@ -38,7 +38,8 @@ def test_port_file_names_neither_jax_nor_the_jax_package(path):
     assert "no_time_to_train_tpu." not in text, path
 
 
-FORBIDDEN = ("yaml", "cv2", "safetensors", "transformers", "pycocotools")
+FORBIDDEN = ("yaml", "cv2", "matplotlib", "safetensors", "transformers",
+             "pycocotools")
 # the one place PIL may be imported: inside a function of this file
 PIL_HOME = ROOT / "no_time_to_train_tpu_torch" / "data" / "image_io.py"
 
@@ -84,8 +85,8 @@ import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax",
                                     "no_time_to_train_tpu", "yaml", "PIL",
-                                    "cv2", "safetensors", "transformers",
-                                    "pycocotools"))
+                                    "cv2", "matplotlib", "safetensors",
+                                    "transformers", "pycocotools"))
 assert not bad, bad
 print(len(mods))
 """

@@ -274,17 +274,16 @@ def test_cli_parses_like_run_lightning():
 
 
 def test_runner_refuses_what_is_not_ported(monkeypatch):
-    """The factored decoder and online visualization are not ported; and a
-    CUDA run that would drive more GPUs than the process sees raises before
-    it builds anything (data parallelism itself is ported:
-    tests/test_torch_parallel.py)."""
+    """The factored decoder is not ported; and a CUDA run that would drive
+    more GPUs than the process sees raises before it builds anything (data
+    parallelism itself is ported: tests/test_torch_parallel.py; the online
+    visualization too: tests/test_torch_frontends.py)."""
     from no_time_to_train_tpu_torch.runner import MatcherRunner
     base = {"sam2_cfg_file": "sam2_hiera_t.yaml",
             "encoder_cfg": {"name": "dinov2_small"}}
-    for extra in ({"sam2_infer_cfgs": {"decoder_impl": "factored"}},
-                  {"online_vis": True}):
-        with pytest.raises(NotImplementedError):
-            MatcherRunner(dict(base, **extra), {}, device="cpu")
+    with pytest.raises(NotImplementedError):
+        MatcherRunner(dict(base, sam2_infer_cfgs={"decoder_impl": "factored"}),
+                      {}, device="cpu")
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     with pytest.raises(ValueError, match="devices=2"):
         MatcherRunner(base, {}, devices=2, device="cuda")

@@ -159,7 +159,24 @@ Run from the root of a checkout. Phases, each of which raises on failure:
      data golden_ap_check prints SKIPPED and exits 0, with --strict 3.
      The kernel table gains each kernel's launches per eval_video_olive
      query.
+  14. the JAX package's last two matcher options: (a) the W8A8 kernels
+     (quant_rows, int8_gemm) bit for bit against their plain versions at
+     the slice's shapes, bf16 and float32, a zero row and channel, and
+     device ms beside the plain version, torch._int_mm with the same
+     epilogue (bit for bit too), F.linear in bf16 and the bound; (b)
+     encoder_quant="int8" on SAM2-L + DINOv2-L and + DINOv3-L: phase 4's
+     step with exact launches of the two kernels per image, the features
+     against the same weights unquantized (cosine) and against
+     no_fusion(), B = 2 bit for bit its images alone, ms per image and peak
+     memory of "none" and "int8" in turns; (c) decoder_impl="factored": the
+     grid decode against the dense decoder in float32 and in bf16, the step
+     with no decoder kernel launched, B = 2, ms and peaks of dense and
+     factored in turns; (d) the CLI on phase 9's fabricated set with
+     encoder_quant=int8 (fill, postprocess, test) and then decoder_impl=
+     factored: exact launches, finite exports, COCOeval, and an unknown
+     value raising before anything is built.
 `python3 chip_smoke.py --kernels` runs phases 1 to 3 only;
+`python3 chip_smoke.py --matcher-options` runs phases 1, 2 and 14 only;
 `python3 chip_smoke.py --front-ends` runs phases 1, 2 and 13 only;
 `python3 chip_smoke.py --parallel` runs phases 1, 2 and 12 only;
 `python3 chip_smoke.py --runner` runs phases 1, 2 and 9 only;
@@ -273,6 +290,8 @@ PATHS = [("dinov2_l xla", "dinov2_large", "xla", 2),
 FLASH_PER_IMAGE = {"flash_sdpa_bnhd": 27, "flash_sdpa_window_qkv": 39}
 # kernels that only the video path launches (SAM2 memory attention)
 VIDEO_ONLY = ("flash_sdpa", "flash_sdpa_masked")
+# kernels that only encoder_quant="int8" launches (phase 14)
+INT8_ONLY = ("quant_rows", "int8_gemm")
 # kernels that only the batched path (phase 8) launches
 BATCHED_ONLY = ("fused_post_t1_from_t1", "fused_t2i_attn_p2",
                 "fused_i2t_norm_p2", "fused_i2t_norm_pre_p2",
@@ -381,6 +400,14 @@ KERNELS = [
     dict(name="flash_sdpa_masked", route="cuda",
          source="no_time_to_train_tpu_torch/csrc/flash_masked.cu",
          replaces="no_time_to_train_tpu/ops/flash_attention.py:395"),
+    # no Pallas kernel: the quantize steps and the int8 lax.dot_general of
+    # int8_dot, which XLA sent to the MXU
+    dict(name="quant_rows", route="cuda",
+         source="no_time_to_train_tpu_torch/csrc/int8_linear.cu",
+         replaces="no_time_to_train_tpu/ops/quant.py:55"),
+    dict(name="int8_gemm", route="cuda",
+         source="no_time_to_train_tpu_torch/csrc/int8_linear.cu",
+         replaces="no_time_to_train_tpu/ops/quant.py:60"),
 ]
 
 # kernel 9 at the slice's shapes: (label, B, Nq, Nk, heads, D, q / k / v as
@@ -1716,8 +1743,9 @@ def _counters():
     from no_time_to_train_tpu_torch.ops import decoder_attention as da
     from no_time_to_train_tpu_torch.ops import flash_attention as fa
     from no_time_to_train_tpu_torch.ops import fused_ln as fl
+    from no_time_to_train_tpu_torch.ops import quant as tq
     from no_time_to_train_tpu_torch.ops import upscale_product as up
-    return (fl.LAUNCHES, da.LAUNCHES, up.LAUNCHES, fa.LAUNCHES)
+    return (fl.LAUNCHES, da.LAUNCHES, up.LAUNCHES, fa.LAUNCHES, tq.LAUNCHES)
 
 
 def launch_counts():
@@ -1762,13 +1790,16 @@ def synthetic_target(rng, size=1024, n_obj=6):
 
 
 def run_path(dev, label, encoder, impl, n_test, matcher=None,
-             flash=FLASH_PER_IMAGE, k1=None):
+             flash=FLASH_PER_IMAGE, k1=None, step=STEP_SINGLE, exact=None,
+             idle=INT8_ONLY):
     """One path of phase 4, then its phases 5 and 6. Returns the warm
     fenced ms/img, n_valid per image, the path's launch counts and the
     launches per test image. `matcher`: one built elsewhere (20 classes x
     10 shots, bf16) instead of the SAM2-L one; `flash`: the encoder flash
     kernels' launches per test image under "pallas"; `k1`: K1's, checked
-    where given. Under "pallas" the Hiera + FPN features are also held
+    where given; `step`: the decode kernels' per test image; `exact`: other
+    kernels' launches in all the test images; `idle`: kernels the path does
+    not launch. Under "pallas" the Hiera + FPN features are also held
     against no_fusion() where a matcher is given."""
     import numpy as np
     import torch
@@ -1827,14 +1858,18 @@ def run_path(dev, label, encoder, impl, n_test, matcher=None,
     log(f"  kernel launches: fill + test {counts}, in test {in_test}")
     flash_on = impl == "pallas"
     missing = [k for k, v in in_test.items()
-               if v == 0 and k not in VIDEO_ONLY + BATCHED_ONLY
-               and (flash_on or k not in flash)]
+               if v == 0 and k not in VIDEO_ONLY + BATCHED_ONLY + idle
+               and step.get(k, 1) != 0 and (flash_on or k not in flash)]
     if missing:
         fail(f"kernels not launched during test: {missing}")
-    stray = [k for k in VIDEO_ONLY + BATCHED_ONLY if counts[k]]
+    stray = [k for k in VIDEO_ONLY + BATCHED_ONLY + idle if counts[k]]
     if stray:
         fail(f"the single-image path launched {stray}")
-    for k, per_image in STEP_SINGLE.items():
+    for k, want in (exact or {}).items():
+        if in_test[k] != want:
+            fail(f"{k}: {in_test[k]} launches in {n_test} test images, "
+                 f"expected {want}")
+    for k, per_image in step.items():
         if in_test[k] != per_image * n_test:
             fail(f"{k}: {in_test[k]} launches in {n_test} test images, "
                  f"expected {per_image} per image")
@@ -2759,10 +2794,10 @@ def fabricate_coco(root):
     return out
 
 
-def runner_cli(tmp):
-    """Phase 9's data set fabricated under tmp, references sampled, and its
-    CLI arguments: (base, fill, post, test, files, data). The phases write
-    their results under <tmp>/results."""
+def runner_cli(tmp, shots=RUNNER_SHOTS):
+    """Phase 9's data set fabricated under tmp, `shots` references a class
+    sampled, and its CLI arguments: (base, fill, post, test, files, data).
+    The phases write their results under <tmp>/results."""
     from no_time_to_train_tpu_torch.data.few_shot_sampling import (
         sample_memory_dataset)
     t0 = time.perf_counter()
@@ -2770,7 +2805,7 @@ def runner_cli(tmp):
     (train_dir, train_json), (test_dir, test_json) = (data["train"],
                                                       data["test"])
     pkl = os.path.join(tmp, "refs.pkl")
-    sample_memory_dataset(train_json, pkl, RUNNER_SHOTS, remove_bad=True,
+    sample_memory_dataset(train_json, pkl, shots, remove_bad=True,
                           dataset=RUNNER_SPLIT, seed=RUNNER_SEED)
     log(f"  data set: {RUNNER_TRAIN} train + {len(RUNNER_TEST_WH)} test "
         f"PNGs, references sampled, {time.perf_counter() - t0:.1f} s")
@@ -2782,12 +2817,12 @@ def runner_cli(tmp):
     ds_args = "--model.init_args.dataset_cfgs"
     base = ["test", "--config", cfg_path,
             "--model.init_args.model_cfg.memory_bank_cfg.length",
-            str(RUNNER_SHOTS),
+            str(shots),
             "--model.init_args.model_cfg.sam2_ckpt_path",
             f["missing_sam2.pt"], "--trainer.devices", "1"]
     fill = ["--model.test_mode", "fill_memory", "--out_path",
             f["memory.ckpt"], f"{ds_args}.fill_memory.memory_pkl", pkl,
-            f"{ds_args}.fill_memory.memory_length", str(RUNNER_SHOTS),
+            f"{ds_args}.fill_memory.memory_length", str(shots),
             f"{ds_args}.fill_memory.class_split", RUNNER_SPLIT,
             f"{ds_args}.fill_memory.root", train_dir,
             f"{ds_args}.fill_memory.json_file", train_json,
@@ -3845,6 +3880,7 @@ def guard_part(dev):
     from no_time_to_train_tpu_torch.ops import decoder_attention as da
     from no_time_to_train_tpu_torch.ops import flash_attention as fa
     from no_time_to_train_tpu_torch.ops import fused_ln as fl
+    from no_time_to_train_tpu_torch.ops import quant as tq
     from no_time_to_train_tpu_torch.ops import upscale_product as up
     g = torch.Generator(device=dev).manual_seed(12)
     bf = torch.bfloat16
@@ -3894,6 +3930,11 @@ def guard_part(dev):
         ("flash_sdpa", lambda a: fa.flash_sdpa(*a), (q, kv, kv.clone())),
         ("flash_sdpa_masked", lambda a: fa.flash_sdpa_masked(*a, valid),
          (q, kv, kv.clone())),
+        ("quant_rows", lambda a: tq.quant_rows(*a)[0],
+         (rn(300, 144, dtype=bf),)),
+        ("int8_gemm", lambda a: tq.int8_gemm(*a, bf),
+         tq.quant_rows(rn(300, 144, dtype=bf)) + tq.quant_rows(rn(96, 144))
+         + (rn(96),)),
     ]
     for env in ((), ("NTTT_PERPROMPT_PAIR",), ("NTTT_PROMPT_PAIR",)):
         for name, fn, args in entries:
@@ -5041,6 +5082,475 @@ def run_front_ends(dev, smi):
     return totals, per_query[0] if per_query else {}
 
 
+# phase 14: the JAX package's last two matcher options. (a) the W8A8
+# kernels against their plain versions, bit for bit, at the slice's shapes:
+# quant_rows on the activations of Hiera-L's stage 1, DINOv2-L and the input
+# of Hiera-L's stage-4 fc2; int8_gemm at Hiera-L's stage-1 qkv (K 144, not a
+# multiple of the 64-byte K step), stage-3 qkv and stage-4 fc2, and
+# DINOv2-L's fc1 and fc2
+INT8_QUANT_SHAPES = [(65536, 144), (1370, 1024), (1024, 4608)]
+INT8_GEMM_SHAPES = [("hiera_l stage-1 qkv", 65536, 144, 432),
+                    ("hiera_l stage-3 qkv", 4096, 576, 1728),
+                    ("hiera_l stage-4 fc2", 1024, 4608, 1152),
+                    ("dinov2_l fc1", 1370, 1024, 4096),
+                    ("dinov2_l fc2", 1370, 4096, 1024)]
+PEAK_INT8 = 1979e12                  # int8 tensor-core operations / s
+# (b) launches of the two kernels per 1024^2 test image under
+# encoder_quant="int8": DINOv2-L's (and DINOv3-L's) 24 layers x 6 W8A8
+# layers (query / key / value / output or q / k / v / o, fc1 / fc2 or up /
+# down), and Hiera-L's as the JAX package picks them: the MLP of its 48
+# blocks (2 each) and the qkv and proj of the 3 blocks its stage flow leaves
+# spatial (2, 8, 44). Each layer quantizes its input once (quant_rows) and
+# runs one product (int8_gemm); a layer's weight is quantized at its first
+# call and kept (one more quant_rows), DINO's in the fill, Hiera's in the
+# first test image.
+INT8_DINO_LAYERS = 24 * 6
+INT8_HIERA_LAYERS = 48 * 2 + 3 * 2
+INT8_PER_IMAGE = INT8_DINO_LAYERS + INT8_HIERA_LAYERS
+INT8_TEST_IMAGES = 2
+# the features of the int8 towers against the same weights unquantized: the
+# JAX package's drift band (tests/test_quant.py:48-79), cosine on each leaf
+INT8_COSINE = 0.98
+# (c) decoder_impl="factored": the decode launches no decoder kernel; K1
+# takes the encoders' 145 norms and, in each of the 4 chunks, the 7 token
+# norms (256 prompts x 8 tokens) and the upscaling norm
+FACTORED_STEP = {"fused_t2i_attn": 0, "fused_i2t_norm": 0,
+                 "fused_post_t1": 0}
+FACTORED_K1 = 145 + 4 * (7 + 1)
+# the factored form against the dense decoder on one image's grid: float32
+# (TF32 off) at tests/test_factored_decode.py's bands; bf16 re-associates
+# the sums and rounds at other places: read on an H100 (NVIDIA H100 80GB
+# HBM3, 700.00 W) max |d iou| 0.0039 (one bf16 unit below 1), sign agreement
+# 0.99944, mean |d logit| 0.59 % of the mean |logit|; the bands: two
+# units, 3.6 x the share of pixels read disagreeing, 3.4 x the gap
+FACTORED_F32_IOU, FACTORED_F32_MASK = 2e-4, 2e-3
+FACTORED_BF16_IOU, FACTORED_BF16_SIGN, FACTORED_BF16_GAP = 2 ** -7, 0.998, 0.02
+INFER = "--model.init_args.model_cfg.sam2_infer_cfgs."
+# (d) fills a bank of 2 shots a class (40 references): the chain's
+# mechanics are phase 9's, the options only change the towers and decoder
+OPTIONS_SHOTS = 2
+
+
+def int8_kernels(dev):
+    """(a): returns the kernel-table rows of quant_rows and int8_gemm, the
+    first shape of each, with every shape under `shapes`."""
+    import torch
+    import torch.nn.functional as F
+    from no_time_to_train_tpu_torch.ops import quant as tq
+    g = torch.Generator(device=dev).manual_seed(14)
+    bf = torch.bfloat16
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    def row(name, label, fn, plain, lib, n_bytes, ops, peak, extra=None):
+        r = dict(shape=label, max_abs_err=0.0, ms=cuda_ms(fn),
+                 plain_ms=cuda_ms(plain), device_ms=queued_ms(fn),
+                 plain_device_ms=queued_ms(plain),
+                 library_ms=None if lib is None else cuda_ms(lib),
+                 library_device_ms=None if lib is None else queued_ms(lib),
+                 **bound(n_bytes, ops, peak))
+        for k, fn_k in (extra or {}).items():
+            r[k] = queued_ms(fn_k)
+        log(f"  time {name} {label}: device ms kernel {r['device_ms']:.4f}, "
+            f"plain {r['plain_device_ms']:.4f}"
+            + ("" if lib is None else
+               f", _int_mm + epilogue {r['library_device_ms']:.4f}")
+            + "".join(f", {k} {r[k]:.4f}" for k in extra or {})
+            + f", bound {r['bound_ms']:.4f} by {r['bound_by']}; one call on "
+            f"an idle card {r['ms']:.3f} ms")
+        return r
+
+    rows = {}
+    for r_, c in INT8_QUANT_SHAPES:
+        for dt in (bf, torch.float32):
+            x = (rn(r_, c) * 3).to(dt)
+            x[1] = 0
+            q, s = tq.quant_rows(x)
+            qp, sp = tq.quant_rows_plain(x)
+            ok = (torch.equal(q, qp) and torch.equal(s, sp)
+                  and not q[1].any() and float(s[1]) == 1.0)
+            log(f"  quant_rows {str(dt):15s} [{r_}, {c}]: levels and "
+                f"scales bit for bit the plain version, zero row -> levels 0,"
+                f" scale 1: {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"quant_rows {dt} [{r_}, {c}] disagrees with its plain "
+                     "version")
+            if dt == bf:
+                rw = row("quant_rows", f"[{r_}, {c}] bf16",
+                         lambda: tq.quant_rows(x),
+                         lambda: tq.quant_rows_plain(x), None,
+                         nbytes(x) + q.numel() + nbytes(s), 3 * x.numel(),
+                         PEAK_F32)
+                rows.setdefault("quant_rows", dict(rw, shapes=[])
+                                )["shapes"].append(rw)
+    for label, m, k, f in INT8_GEMM_SHAPES:
+        w = rn(f, k, scale=k ** -0.5)
+        w[7] = 0
+        bias = rn(f, scale=0.1)
+        wq, ws = tq.quant_rows(w)
+        for dt in (bf, torch.float32):
+            x = rn(m, k).to(dt)
+            x[3] = 0
+            xq, xs = tq.quant_rows(x)
+            y = tq.int8_gemm(xq, xs, wq, ws, bias, dt)
+            yp = tq.int8_gemm_plain(xq, xs, wq, ws, bias, dt)
+            y0 = tq.int8_gemm(xq, xs, wq, ws, None, dt)
+            whole = torch.equal(tq.int8_linear(x, w, bias),
+                                tq.int8_linear_plain(x, w, bias))
+            ref = F.linear(x.float(), w, bias)
+            rel = float((y.float() - ref).norm() / ref.norm())
+            ok = (torch.equal(y, yp) and whole
+                  and bool(torch.isfinite(y).all())
+                  and not y0[3].any() and not y0[:, 7].any()
+                  and rel < 0.02)
+            log(f"  int8_gemm  {str(dt):15s} {label} ({m}, {k} -> {f}): "
+                f"bit for bit the plain version {torch.equal(y, yp)}, the "
+                f"layer with its quantize {whole}, zero row and channel -> "
+                f"0, relative L2 to the float32 product {rel:.4f} (the JAX "
+                f"test's 0.02): {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"int8_gemm {dt} {label} disagrees with its plain "
+                     "version")
+        x = rn(m, k).to(bf)
+        xq, xs = tq.quant_rows(x)
+        wb, bb = w.to(bf), bias.to(bf)
+        wt = wq.t()
+
+        def int_mm():
+            acc = torch._int_mm(xq, wt)
+            return (acc.float() * xs[:, None] * ws[None, :] + bias).to(bf)
+
+        same = torch.equal(int_mm(), tq.int8_gemm(xq, xs, wq, ws, bias, bf))
+        log(f"    _int_mm + the same epilogue equals the kernel bit for bit: "
+            f"{same}")
+        if not same:
+            fail(f"int8_gemm {label}: the kernel differs from _int_mm with "
+                 "its epilogue")
+        rw = row("int8_gemm", f"{label} ({m}, {k} -> {f}) bf16",
+                 lambda: tq.int8_gemm(xq, xs, wq, ws, bias, bf),
+                 lambda: tq.int8_gemm_plain(xq, xs, wq, ws, bias, bf),
+                 int_mm, xq.numel() + wq.numel() + nbytes(xs, ws, bias)
+                 + 2 * m * f, 2 * m * k * f, PEAK_INT8,
+                 extra={"bf16_linear_device_ms":
+                        lambda: F.linear(x, wb, bb)})
+        rows.setdefault("int8_gemm", dict(rw, shapes=[]))["shapes"].append(rw)
+    _QUEUE.clear()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def leaf_cosines(a, b):
+    """Cosine of each pair of flattened leaves."""
+    return [float((x.float().ravel() @ y.float().ravel())
+                  / (x.float().norm() * y.float().norm())) for x, y in zip(a, b)]
+
+
+def resident_gib(matcher):
+    """GiB the matcher keeps on the card: its models' parameters and
+    buffers, the W8A8 layers' quantized weights, the bank."""
+    from no_time_to_train_tpu_torch.ops.quant import Int8Linear
+    seen, total = set(), 0
+    tensors = [t for m in (matcher.sam2, matcher.dino)
+               for t in list(m.parameters()) + list(m.buffers())]
+    for m in (matcher.sam2, matcher.dino):
+        for mod in m.modules():
+            if isinstance(mod, Int8Linear):
+                tensors += [t for hit in mod._quantized.values()
+                            for t in hit[2]]
+    for f in vars(matcher.bank).values():
+        if hasattr(f, "untyped_storage"):
+            tensors.append(f)
+    for t in tensors:
+        key = t.untyped_storage().data_ptr()
+        if key not in seen:
+            seen.add(key)
+            total += t.untyped_storage().nbytes()
+    return total / 2**30
+
+
+def in_turns_ms(label_a, a, label_b, b, imgs):
+    """Fenced ms per image of a.test and b.test in turns a, b, b, a over
+    `imgs`, and each one's peak: what it keeps on the card
+    (`resident_gib`) plus the most its test calls allocated beyond what was
+    allocated before them. Returns {label: (ms, peak GiB)}."""
+    import torch
+    out = {label_a: [], label_b: []}
+    for label, m in ((label_a, a), (label_b, b), (label_b, b),
+                     (label_a, a)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for img in imgs:
+            m.test(img)
+        ms = (time.perf_counter() - t0) * 1e3 / len(imgs)
+        out[label].append((ms, (torch.cuda.max_memory_allocated() - base)
+                           / 2**30))
+    res = {k: (min(t for t, _ in v),
+               resident_gib(m) + max(p for _, p in v))
+           for (k, v), m in zip(out.items(), (a, b))}
+    log("  fenced ms per image in turns (" + ", ".join(
+        f"{k} {[round(t, 2) for t, _ in v]}" for k, v in out.items())
+        + "); peak GiB (resident + the test's transient) " + ", ".join(
+        f"{k} {res[k][1]:.2f}" for k in res))
+    return res
+
+
+def same_batch(what, matcher, imgs):
+    """test_batch_async on two targets, bit for bit `test` on each."""
+    import numpy as np
+    out = matcher.fetch_test(matcher.test_batch_async(np.stack(imgs)))
+    for b, img in enumerate(imgs):
+        alone = matcher.test(img)
+        for k in alone:
+            if not np.array_equal(np.asarray(out[k][b]), np.asarray(alone[k])):
+                fail(f"{what}: B = 2 image {b} {k} differs from the image "
+                     "alone")
+    log(f"  {what}: B = 2 bit for bit each image alone")
+
+
+def int8_part(dev, smi, encoder, readings):
+    """(b) for one DINO encoder: the int8 matcher's step with exact
+    launches, features against the unquantized towers and against
+    no_fusion(), B = 2, ms per image in turns. Returns (launch counts,
+    summary)."""
+    import numpy as np
+    import torch
+    from no_time_to_train_tpu_torch.models.matching.pipeline import (
+        MatchingConfig, NoAMGMatcher)
+    from no_time_to_train_tpu_torch.ops.resize import resize
+
+    def build(quant):
+        return NoAMGMatcher(
+            SAM2_CFG, encoder, MatchingConfig(
+                compute_dtype="bfloat16", attention_impl="pallas",
+                encoder_quant=quant), n_classes=20, memory_length=10, seed=0,
+            device=dev)
+
+    m8 = build("int8")
+    label = f"{encoder} int8"
+    n = INT8_TEST_IMAGES
+    # the int8 features against no_fusion() (both int8) differ by the other
+    # kernels' bf16 cast points, which move activations across rounding
+    # ties; read on an H100 0.018 (DINO) and 0.020 (FPN) relative L2,
+    # inside FEAT_REL_BAND
+    _, _, counts, _ = run_path(
+        dev, label, encoder, "pallas", n, matcher=m8, k1=RUNNER_PER_IMAGE[
+            "layer_norm"], idle=(),
+        exact={"quant_rows": INT8_PER_IMAGE * n + INT8_HIERA_LAYERS,
+               "int8_gemm": INT8_PER_IMAGE * n})
+    log(f"  {label}: quant_rows {INT8_PER_IMAGE} a test image and "
+        f"{INT8_HIERA_LAYERS} Hiera weights at the first, int8_gemm "
+        f"{INT8_PER_IMAGE} ({INT8_DINO_LAYERS} DINO + {INT8_HIERA_LAYERS} "
+        "Hiera layers)")
+    m0 = build("none")
+    m0.bank = m8.bank
+    img = torch.as_tensor(synthetic_target(np.random.default_rng(100),
+                                           TARGET_SIZE), device=dev)
+    e = m8.enc_cfg.img_size
+    enc_in = m8._normalize(resize(img[None], (e, e), mode="bicubic")).to(
+        m8.dtype)
+    sam_in = m8._normalize(img)[None].to(m8.dtype)
+    with torch.no_grad():
+        leaves8 = [m8.dino(enc_in)] + m8.sam2.image_encoder.trunk(sam_in)
+        leaves0 = [m0.dino(enc_in)] + m0.sam2.image_encoder.trunk(sam_in)
+    cos = leaf_cosines(leaves8, leaves0)
+    readings[f"{label} cosine to none"] = min(cos)
+    log(f"  {label} against the same weights unquantized: cosine by leaf "
+        f"(DINO, Hiera stages 1-4) {[round(c, 5) for c in cos]} (band > "
+        f"{INT8_COSINE})")
+    if min(cos) <= INT8_COSINE:
+        fail(f"{label}: features drift from the unquantized towers")
+    targets = [synthetic_target(np.random.default_rng(300 + k), TARGET_SIZE)
+               for k in range(2)]
+    same_batch(label, m8, targets)
+    res = in_turns_ms("none", m0, "int8", m8, targets + targets[:1])
+    del m0, m8
+    torch.cuda.empty_cache()
+    return counts, (f"{encoder} none {res['none'][0]:.1f} / int8 "
+                    f"{res['int8'][0]:.1f} ms/img (peaks {res['none'][1]:.2f}"
+                    f" / {res['int8'][1]:.2f} GiB)")
+
+
+def factored_part(dev, smi, readings):
+    """(c): the factored grid decode on the flagship: the step with exact
+    launches, against the dense decoder in float32 and in bf16, B = 2, ms
+    per image in turns. Returns (launch counts, summary)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from no_time_to_train_tpu_torch.models.matching.pipeline import (
+        MatchingConfig, NoAMGMatcher)
+
+    def build(impl, dtype="bfloat16", encoder="dinov2_large"):
+        return NoAMGMatcher(
+            SAM2_CFG, encoder, MatchingConfig(
+                compute_dtype=dtype, attention_impl="pallas",
+                decoder_impl=impl), n_classes=20, memory_length=10, seed=0,
+            device=dev)
+
+    def against_dense(m, img):
+        with torch.no_grad():
+            lr_f, iou_f, _ = m._decode_grid(img)
+            dense = dataclasses.replace(m.matching, decoder_impl="dense")
+            m.matching, keep = dense, m.matching
+            lr_d, iou_d, _ = m._decode_grid(img)
+            m.matching = keep
+        return lr_f.float(), iou_f.float(), lr_d.float(), iou_d.float()
+
+    img = torch.as_tensor(synthetic_target(np.random.default_rng(100),
+                                           TARGET_SIZE), device=dev)
+    m32 = build("factored", "float32", "dinov2_small")
+    lr_f, iou_f, lr_d, iou_d = against_dense(m32, img)
+    d_iou = float((iou_f - iou_d).abs().max())
+    ex_iou = float(((iou_f - iou_d).abs() - FACTORED_F32_IOU * iou_d.abs())
+                   .max())
+    ex_lr = float(((lr_f - lr_d).abs() - FACTORED_F32_MASK * lr_d.abs())
+                  .max())
+    readings["factored f32 max |d iou|"] = d_iou
+    readings["factored f32 max |d logit|"] = float((lr_f - lr_d).abs().max())
+    log(f"  factored vs dense, float32 (TF32 off): max |d iou| {d_iou:.2e}, "
+        f"max |d logit| {readings['factored f32 max |d logit|']:.2e} (mean "
+        f"|logit| {float(lr_d.abs().mean()):.3f}); bands "
+        f"{FACTORED_F32_IOU} / {FACTORED_F32_MASK} (atol = rtol)")
+    if ex_iou > FACTORED_F32_IOU or ex_lr > FACTORED_F32_MASK:
+        fail("factored decode disagrees with the dense decoder in float32")
+    del m32
+    torch.cuda.empty_cache()
+
+    mf = build("factored")
+    _, _, counts, _ = run_path(dev, "dinov2_large factored", "dinov2_large",
+                               "pallas", 2, matcher=mf, k1=FACTORED_K1,
+                               step=FACTORED_STEP)
+    lr_f, iou_f, lr_d, iou_d = against_dense(mf, img)
+    d_iou = float((iou_f - iou_d).abs().max())
+    agree = float(((lr_f > 0) == (lr_d > 0)).float().mean())
+    gap = float((lr_f - lr_d).abs().mean() / lr_d.abs().mean())
+    readings["factored bf16 max |d iou|"] = d_iou
+    readings["factored bf16 sign agreement"] = agree
+    log(f"  factored vs dense, bf16: max |d iou| {d_iou:.4f} (band "
+        f"{FACTORED_BF16_IOU}), mask sign agreement {agree:.5f} (band "
+        f"{FACTORED_BF16_SIGN}), mean |d logit| / mean |logit| {gap:.4f} "
+        f"(band {FACTORED_BF16_GAP})")
+    if d_iou > FACTORED_BF16_IOU or agree < FACTORED_BF16_SIGN \
+            or gap > FACTORED_BF16_GAP:
+        fail("factored decode disagrees with the dense decoder in bf16")
+    targets = [synthetic_target(np.random.default_rng(300 + k), TARGET_SIZE)
+               for k in range(2)]
+    same_batch("dinov2_large factored", mf, targets)
+    md = build("dense")
+    md.bank = mf.bank
+    res = in_turns_ms("dense", md, "factored", mf, targets + targets[:1])
+    del md, mf
+    torch.cuda.empty_cache()
+    return counts, (f"decoder dense {res['dense'][0]:.1f} / factored "
+                    f"{res['factored'][0]:.1f} ms/img (peaks "
+                    f"{res['dense'][1]:.2f} / {res['factored'][1]:.2f} GiB)")
+
+
+def options_cli(dev, smi):
+    """(d): the CLI on phase 9's fabricated set: fill, postprocess and test
+    with encoder_quant=int8, then test on that bank with
+    decoder_impl=factored too; an unknown value raises before anything is
+    built. Returns the launch counts."""
+    import csv
+    import math
+    import tempfile
+    import torch
+    from no_time_to_train_tpu_torch import cli
+
+    totals = {}
+    n_img = len(RUNNER_TEST_WH)
+    with tempfile.TemporaryDirectory() as tmp:
+        base, fill, post, test, f, _ = runner_cli(tmp, OPTIONS_SHOTS)
+        quant = [INFER + "encoder_quant", "int8"]
+        save_dir = os.path.join(tmp, "results")
+
+        def call(what, args, per_image=None):
+            reset_counts()
+            t0 = time.perf_counter()
+            runner = cli.main(base + quant + args + ["--device", str(dev)])
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            for k, v in counts.items():
+                totals[k] = totals.get(k, 0) + v
+            log(f"  cli {what}: {time.perf_counter() - t0:.2f} s; launches "
+                f"{ {k: v for k, v in counts.items() if v} }")
+            if per_image is not None:
+                moved = {k: v for k, v in counts.items() if v}
+                if moved != per_image:
+                    fail(f"(d) {what}: launches {moved}, expected {per_image}")
+            return runner
+
+        # a test run builds its matcher anew: every W8A8 weight is quantized
+        # at the first image
+        int8_test = dict(
+            {k: v * n_img for k, v in RUNNER_PER_IMAGE.items()},
+            quant_rows=INT8_PER_IMAGE * (n_img + 1),
+            int8_gemm=INT8_PER_IMAGE * n_img)
+        factored_test = dict(
+            int8_test, layer_norm=FACTORED_K1 * n_img,
+            **{k: 0 for k in FACTORED_STEP})
+        factored_test = {k: v for k, v in factored_test.items() if v}
+        call("fill_memory, encoder_quant=int8", fill)
+        call("postprocess_memory", post)
+        runs = [("test, encoder_quant=int8", [], f["export.json"],
+                 int8_test),
+                ("test, encoder_quant=int8 decoder_impl=factored",
+                 [INFER + "decoder_impl", "factored"], f["export_many.json"],
+                 factored_test)]
+        for what, extra, export, per in runs:
+            call(what, test + extra + ["--export_result", export], per)
+            with open(export) as fh:
+                recs = json.load(fh)
+            if not recs or not all(math.isfinite(r["score"]) for r in recs):
+                fail(f"(d) {what}: the export holds no finite scores")
+            log(f"  (d) {what}: {len(recs)} records, scores finite")
+        with open(os.path.join(save_dir, "metrics_log.csv")) as fh:
+            rows = list(csv.DictReader(fh))
+        if len(rows) != 2 or not all(r.get(f"{k}_AP") for r in rows
+                                     for k in ("bbox", "segm")):
+            fail(f"(d) COCOeval rows {rows}")
+        log(f"  (d) COCOeval ran on both exports: bbox / segm AP "
+            f"{[(r['bbox_AP'], r['segm_AP']) for r in rows]} (random "
+            "weights)")
+        for key, bad in (("decoder_impl", "bogus"), ("encoder_quant", "int4")):
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            try:
+                cli.main(base + test + [INFER + key, bad, "--device",
+                                        str(dev)])
+            except ValueError as e:
+                if key not in str(e):
+                    raise
+            else:
+                fail(f"(d) {key}={bad} did not raise")
+            if torch.cuda.memory_allocated() != held:
+                fail(f"(d) {key}={bad} allocated on the card before raising")
+            log(f"  (d) {key}={bad}: ValueError before anything was built")
+    torch.cuda.empty_cache()
+    return totals
+
+
+def run_matcher_options(dev, smi):
+    """Phase 14: (a) the W8A8 kernels, (b) encoder_quant="int8" on DINOv2-L
+    and DINOv3-L, (c) decoder_impl="factored", (d) both through the CLI.
+    Returns (the two kernels' table rows, launch counts, summary)."""
+    rows = int8_kernels(dev)
+    totals, summary, readings = {}, [], {}
+    for part in (lambda: int8_part(dev, smi, "dinov2_large", readings),
+                 lambda: int8_part(dev, smi, "dinov3_large", readings),
+                 lambda: factored_part(dev, smi, readings)):
+        counts, text = part()
+        totals = plus(totals, counts)
+        summary.append(text)
+    totals = plus(totals, options_cli(dev, smi))
+    log(f"  readings: {readings}")
+    log(f"  summary: {'; '.join(summary)}; on {smi}")
+    return rows, totals, summary
+
+
 def kernel_registers():
     """`--registers`: compile every source of csrc/ once more with
     `-Xptxas -v` (all started together) and print, per kernel entry, the
@@ -5169,6 +5679,13 @@ def main():
         phase_done("13")
         print(smi)
         return 0
+    if sys.argv[1:] == ["--matcher-options"]:
+        log("[14] the matcher options: the W8A8 kernels, encoder_quant=int8, "
+            "decoder_impl=factored, both through the CLI")
+        run_matcher_options(dev, smi)
+        phase_done("14")
+        print(smi)
+        return 0
     if sys.argv[1:] == ["--sam2ref"]:
         log("[11] SAM2Ref: fill, test, train, the head, the guard")
         run_sam2ref(dev, smi)
@@ -5256,6 +5773,16 @@ def main():
     for k, v in counts.items():
         totals[k] = totals.get(k, 0) + v
     phase_done("13")
+
+    log("[14] the matcher options: the W8A8 kernels, encoder_quant=int8 on "
+        "SAM2-L + DINOv2-L / DINOv3-L, decoder_impl=factored, both through "
+        "the CLI")
+    rows14, counts, summary14 = run_matcher_options(dev, smi)
+    kres.update(rows14)
+    for k, v in counts.items():
+        totals[k] = totals.get(k, 0) + v
+    summary += summary14
+    phase_done("14")
 
     kernels = [dict(k, launches=totals[k["name"]], **kres[k["name"]],
                     amg_launches_per_image=per_amg.get(k["name"], 0),

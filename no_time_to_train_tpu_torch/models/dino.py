@@ -2,7 +2,9 @@
 
 Parameter names are those of HF `transformers.Dinov2Model`, so its
 state_dict loads unchanged. Input is NHWC; the patch embedding runs on the
-NCHW view.
+NCHW view. `quant="int8"` builds the layers' query, key, value, output,
+fc1 / fc2 and SwiGLU weights_in / weights_out as W8A8 layers
+(ops/quant.py), as the JAX package's `quant`.
 """
 import torch
 import torch.nn as nn
@@ -10,6 +12,7 @@ import torch.nn.functional as F
 
 from no_time_to_train_tpu_torch.models.sam2.common import LayerNorm, _gelu_act
 from no_time_to_train_tpu_torch.ops.attention import sdpa_bnhd
+from no_time_to_train_tpu_torch.ops.quant import linear_cls
 from no_time_to_train_tpu_torch.ops.resize import resize
 
 __all__ = ["DinoV2"]
@@ -33,24 +36,25 @@ class _Embeddings(nn.Module):
 
 
 class _SelfAttention(nn.Module):
-    def __init__(self, d):
+    def __init__(self, d, quant):
         super().__init__()
-        self.query = nn.Linear(d, d)
-        self.key = nn.Linear(d, d)
-        self.value = nn.Linear(d, d)
+        lin = linear_cls(quant)
+        self.query = lin(d, d)
+        self.key = lin(d, d)
+        self.value = lin(d, d)
 
 
 class _SelfOutput(nn.Module):
-    def __init__(self, d):
+    def __init__(self, d, quant):
         super().__init__()
-        self.dense = nn.Linear(d, d)
+        self.dense = linear_cls(quant)(d, d)
 
 
 class _Attention(nn.Module):
-    def __init__(self, d, heads):
+    def __init__(self, d, heads, quant):
         super().__init__()
-        self.attention = _SelfAttention(d)
-        self.output = _SelfOutput(d)
+        self.attention = _SelfAttention(d, quant)
+        self.output = _SelfOutput(d, quant)
         self.heads = heads
         self.attention_impl = "pallas"
 
@@ -73,10 +77,11 @@ class _LayerScale(nn.Module):
 
 
 class _MLP(nn.Module):
-    def __init__(self, d, hidden):
+    def __init__(self, d, hidden, quant):
         super().__init__()
-        self.fc1 = nn.Linear(d, hidden)
-        self.fc2 = nn.Linear(hidden, d)
+        lin = linear_cls(quant)
+        self.fc1 = lin(d, hidden)
+        self.fc2 = lin(hidden, d)
 
     def forward(self, x):
         return self.fc2(_gelu_act(self.fc1(x)))
@@ -87,11 +92,12 @@ class _SwiGLU(nn.Module):
     width (4 d * 2/3, rounded up to a multiple of 8), silu(x1) * x2, then
     `weights_out`."""
 
-    def __init__(self, d):
+    def __init__(self, d, quant):
         super().__init__()
         hidden = (int(d * 4 * 2 / 3) + 7) // 8 * 8
-        self.weights_in = nn.Linear(d, 2 * hidden)
-        self.weights_out = nn.Linear(hidden, d)
+        lin = linear_cls(quant)
+        self.weights_in = lin(d, 2 * hidden)
+        self.weights_out = lin(hidden, d)
 
     def forward(self, x):
         x1, x2 = self.weights_in(x).chunk(2, dim=-1)
@@ -104,14 +110,14 @@ class _Layer(nn.Module):
     as the JAX package's `use_layer_scale=False`."""
 
     def __init__(self, d, heads, ffn_layer="mlp", mlp_ratio=4,
-                 layer_scale=True):
+                 layer_scale=True, quant="none"):
         super().__init__()
         self.norm1 = LayerNorm(d, eps=1e-6)
-        self.attention = _Attention(d, heads)
+        self.attention = _Attention(d, heads, quant)
         self.layer_scale1 = _LayerScale(d) if layer_scale else None
         self.norm2 = LayerNorm(d, eps=1e-6)
-        self.mlp = (_SwiGLU(d) if ffn_layer == "swiglu"
-                    else _MLP(d, mlp_ratio * d))
+        self.mlp = (_SwiGLU(d, quant) if ffn_layer == "swiglu"
+                    else _MLP(d, mlp_ratio * d, quant))
         self.layer_scale2 = _LayerScale(d) if layer_scale else None
 
     def forward(self, x):
@@ -126,11 +132,11 @@ class _Layer(nn.Module):
 
 
 class _Encoder(nn.Module):
-    def __init__(self, cfg):
+    def __init__(self, cfg, quant):
         super().__init__()
         self.layer = nn.ModuleList(
             _Layer(cfg.feat_dim, cfg.num_heads, cfg.ffn_layer,
-                   layer_scale=cfg.init_values is not None)
+                   layer_scale=cfg.init_values is not None, quant=quant)
             for _ in range(cfg.depth))
 
 
@@ -138,7 +144,7 @@ class DinoV2(nn.Module):
     """DINOv2: the MLP feed-forward (small to large) or the SwiGLU one
     (giant), with layer scale, or without it where init_values is None."""
 
-    def __init__(self, cfg):
+    def __init__(self, cfg, quant="none"):
         super().__init__()
         if cfg.ffn_layer not in ("mlp", "swiglu") or cfg.family != "dinov2":
             raise NotImplementedError(
@@ -146,7 +152,7 @@ class DinoV2(nn.Module):
                 "ported")
         self.cfg = cfg
         self.embeddings = _Embeddings(cfg)
-        self.encoder = _Encoder(cfg)
+        self.encoder = _Encoder(cfg, quant)
         self.layernorm = LayerNorm(cfg.feat_dim, eps=1e-6)
 
     def forward(self, imgs, drop_prefix_tokens=True):

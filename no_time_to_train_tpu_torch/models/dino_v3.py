@@ -6,6 +6,8 @@ with a zero bias, as the JAX converter does. CLS + register tokens + patches
 with no learned position embedding; 2-D RoPE over the patch-centre
 coordinates in [-1, 1] (half-split rotation, prefix tokens not rotated) in
 q's dtype; LayerScale on both branches; a plain or gated MLP. Input is NHWC.
+`quant="int8"` builds the q / k / v / o projections and the MLP's gate / up
+/ down as W8A8 layers (ops/quant.py), as the JAX package's `quant`.
 """
 from functools import lru_cache
 
@@ -16,6 +18,7 @@ import torch.nn.functional as F
 
 from no_time_to_train_tpu_torch.models.sam2.common import LayerNorm, _gelu_act
 from no_time_to_train_tpu_torch.ops.attention import sdpa_bnhd
+from no_time_to_train_tpu_torch.ops.quant import linear_cls
 
 __all__ = ["DinoV3", "uses_gated_mlp"]
 
@@ -46,12 +49,13 @@ def _rotate_half(x):
 
 
 class _Attention(nn.Module):
-    def __init__(self, d, heads, n_prefix, rope_theta):
+    def __init__(self, d, heads, n_prefix, rope_theta, quant):
         super().__init__()
-        self.q_proj = nn.Linear(d, d)
-        self.k_proj = nn.Linear(d, d)
-        self.v_proj = nn.Linear(d, d)
-        self.o_proj = nn.Linear(d, d)
+        lin = linear_cls(quant)
+        self.q_proj = lin(d, d)
+        self.k_proj = lin(d, d)
+        self.v_proj = lin(d, d)
+        self.o_proj = lin(d, d)
         self.heads, self.n_prefix, self.rope_theta = heads, n_prefix, rope_theta
         self.attention_impl = "pallas"
         self._tables = {}
@@ -100,12 +104,13 @@ class _LayerScale(nn.Module):
 
 
 class _MLP(nn.Module):
-    def __init__(self, d, hidden, gated):
+    def __init__(self, d, hidden, gated, quant):
         super().__init__()
+        lin = linear_cls(quant)
         if gated:
-            self.gate_proj = nn.Linear(d, hidden)
-        self.up_proj = nn.Linear(d, hidden)
-        self.down_proj = nn.Linear(hidden, d)
+            self.gate_proj = lin(d, hidden)
+        self.up_proj = lin(d, hidden)
+        self.down_proj = lin(hidden, d)
         self.gated = gated
 
     def forward(self, x):
@@ -115,13 +120,14 @@ class _MLP(nn.Module):
 
 
 class _Layer(nn.Module):
-    def __init__(self, d, heads, n_prefix, gated, rope_theta, mlp_ratio=4):
+    def __init__(self, d, heads, n_prefix, gated, rope_theta, mlp_ratio=4,
+                 quant="none"):
         super().__init__()
         self.norm1 = LayerNorm(d, eps=1e-5)
-        self.attention = _Attention(d, heads, n_prefix, rope_theta)
+        self.attention = _Attention(d, heads, n_prefix, rope_theta, quant)
         self.layer_scale1 = _LayerScale(d)
         self.norm2 = LayerNorm(d, eps=1e-5)
-        self.mlp = _MLP(d, mlp_ratio * d, gated)
+        self.mlp = _MLP(d, mlp_ratio * d, gated, quant)
         self.layer_scale2 = _LayerScale(d)
 
     def forward(self, x, grid_hw):
@@ -146,7 +152,8 @@ class _Embeddings(nn.Module):
 class DinoV3(nn.Module):
     """DINOv3 ViT (small to huge); `use_gated_mlp` as `uses_gated_mlp`."""
 
-    def __init__(self, cfg, use_gated_mlp=False, rope_theta=100.0):
+    def __init__(self, cfg, use_gated_mlp=False, rope_theta=100.0,
+                 quant="none"):
         super().__init__()
         if cfg.family != "dinov3":
             raise ValueError(f"{cfg.name} is not a DINOv3 configuration")
@@ -155,7 +162,7 @@ class DinoV3(nn.Module):
         self.embeddings = _Embeddings(cfg)
         self.layer = nn.ModuleList(
             _Layer(cfg.feat_dim, cfg.num_heads, n_prefix, use_gated_mlp,
-                   rope_theta) for _ in range(cfg.depth))
+                   rope_theta, quant=quant) for _ in range(cfg.depth))
         self.norm = LayerNorm(cfg.feat_dim, eps=1e-5)
 
     def forward(self, imgs, drop_prefix_tokens=True):

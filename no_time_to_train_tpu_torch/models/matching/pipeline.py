@@ -27,6 +27,8 @@ from no_time_to_train_tpu_torch.models.dino import DinoV2
 from no_time_to_train_tpu_torch.models.dino_v3 import DinoV3, uses_gated_mlp
 from no_time_to_train_tpu_torch.models.matching import memory_bank as mb
 from no_time_to_train_tpu_torch.models.matching import scoring
+from no_time_to_train_tpu_torch.models.sam2.factored_decode import (
+    factored_best_of_multimask)
 from no_time_to_train_tpu_torch.models.sam2.model import SAM2
 from no_time_to_train_tpu_torch.ops.attention import (
     check_attention_impl, set_attention_impl)
@@ -45,9 +47,13 @@ IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
 
 @dataclass(frozen=True)
 class MatchingConfig:
-    """sam2_infer_cfgs of the reference experiment YAMLs. The JAX package's
-    factored decoder and int8 encoders are not ported. `attention_impl` is
-    set on this matcher's two encoders only."""
+    """sam2_infer_cfgs of the reference experiment YAMLs and the JAX
+    package's options. `attention_impl` is set on this matcher's two
+    encoders only. `encoder_quant="int8"` builds both towers' GEMMs as W8A8
+    layers (ops/quant.py: the DINO layers, the Hiera trunk's blocks as the
+    JAX package picks them); `decoder_impl="factored"` decodes the grid on
+    the rank-factored form (models/sam2/factored_decode.py), one image at a
+    time. Other values raise ValueError."""
     points_per_side: int = 32
     testing_point_bs: int = 256
     iou_thr: float = 0.4
@@ -62,6 +68,16 @@ class MatchingConfig:
     analysis_res: int = 256
     compute_dtype: str = "float32"
     attention_impl: str = "pallas"
+    encoder_quant: str = "none"
+    decoder_impl: str = "dense"
+
+    def __post_init__(self):
+        if self.encoder_quant not in ("none", "int8"):
+            raise ValueError(f"encoder_quant={self.encoder_quant!r}: "
+                             "'none' or 'int8'")
+        if self.decoder_impl not in ("dense", "factored"):
+            raise ValueError(f"decoder_impl={self.decoder_impl!r}: "
+                             "'dense' or 'factored'")
 
 
 def grid_points(points_per_side, sam_input_size, device=None):
@@ -93,9 +109,13 @@ class NoAMGMatcher:
                         if isinstance(encoder_cfg, str) else encoder_cfg)
         self.matching = matching
         self.dtype = getattr(torch, matching.compute_dtype)
-        self.sam2 = self._build(SAM2, self.sam2_cfg, sam2_state_dict, seed)
-        dino_cls = (partial(DinoV3, use_gated_mlp=uses_gated_mlp(self.enc_cfg))
-                    if self.enc_cfg.family == "dinov3" else DinoV2)
+        quant = matching.encoder_quant
+        self.sam2 = self._build(partial(SAM2, encoder_quant=quant),
+                                self.sam2_cfg, sam2_state_dict, seed)
+        dino_cls = (partial(DinoV3, use_gated_mlp=uses_gated_mlp(self.enc_cfg),
+                            quant=quant)
+                    if self.enc_cfg.family == "dinov3"
+                    else partial(DinoV2, quant=quant))
         self.dino = self._build(dino_cls, self.enc_cfg, dino_state_dict,
                                 seed + 1)
         for model in (self.sam2, self.dino):
@@ -121,7 +141,8 @@ class NoAMGMatcher:
             sd = {k: torch.as_tensor(np.array(v)) for k, v in
                   state_dict.items()}
             model.load_state_dict(sd, strict=True)
-        # weights live in the compute dtype, as the JAX package pre-casts them
+        # weights live in the compute dtype, as the JAX package pre-casts
+        # them; W8A8 layers keep float32 masters (ops/quant.Int8Linear)
         return model.to(self.dtype).eval().requires_grad_(False)
 
     def _normalize(self, img):
@@ -165,9 +186,10 @@ class NoAMGMatcher:
     # ----------------------------------------------------------------- test
     def _decode_grid_batch(self, imgs):
         """Hiera + FPN once at the batch of imgs [B, S, S, 3], then the grid
-        decoded in chunks of B * chunk prompts. Returns (lr_masks
-        [B, P, 4h, 4w] in the compute dtype, pred_ious [B, P], points
-        [P, 2])."""
+        decoded in chunks of B * chunk prompts; under `decoder_impl=
+        "factored"` each image's chunk on its own factored form, whose shared
+        base is one image's embedding. Returns (lr_masks [B, P, 4h, 4w] in
+        the compute dtype, pred_ious [B, P], points [P, 2])."""
         m = self.matching
         s = self.sam2_cfg.image_size
         n_img = imgs.shape[0]
@@ -183,11 +205,28 @@ class NoAMGMatcher:
                              f"of {chunk}")
         lrs, ious = [], []
         labels = torch.ones((chunk, 1), dtype=torch.long, device=self.device)
+        decode = (self._decode_chunk_factored
+                  if m.decoder_impl == "factored"
+                  else self.sam2.forward_sam_heads_best)
         for pc in pts.reshape(n_pts // chunk, chunk, 1, 2):
-            lr, iou = self.sam2.forward_sam_heads_best(feats, pc, labels, hr)
+            lr, iou = decode(feats, pc, labels, hr)
             lrs.append(lr.reshape(n_img, chunk, *lr.shape[1:]))
             ious.append(iou.reshape(n_img, chunk))
         return torch.cat(lrs, dim=1), torch.cat(ious, dim=1), pts
+
+    def _decode_chunk_factored(self, feats, pc, labels, hr):
+        """`forward_sam_heads_best` on the factored form, image by image
+        (JAX `_decode_grid`'s factored branch): (mask [Bi * chunk, 4h, 4w]
+        in the compute dtype, iou [Bi * chunk]), image-major."""
+        pe = self.sam2.sam_prompt_encoder
+        sparse = pe.embed_points(pc, labels)
+        dense_pe, no_mask = pe.get_dense_pe(), pe.no_mask_dense()
+        outs = [factored_best_of_multimask(
+            self.sam2.sam_mask_decoder, feats[b:b + 1], dense_pe, sparse,
+            no_mask, None if hr is None else [f[b:b + 1] for f in hr])
+            for b in range(feats.shape[0])]
+        return (torch.cat([o[0] for o in outs]).to(self.dtype),
+                torch.cat([o[1] for o in outs]))
 
     def _decode_grid(self, img):
         """One image [S, S, 3]: (lr_masks [P, 4h, 4w], pred_ious [P],

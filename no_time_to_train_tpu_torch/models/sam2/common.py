@@ -10,6 +10,7 @@ import torch.nn.functional as F
 
 from no_time_to_train_tpu_torch.ops.fused_ln import (
     layer_norm, layer_norm_plain, ln_fusible)
+from no_time_to_train_tpu_torch.ops.quant import linear_cls
 
 __all__ = ["MLP", "LayerNorm", "LayerNorm2d", "_layer_norm", "_gelu_act",
            "conv1x1", "conv_transpose_2x2_s2"]
@@ -56,14 +57,17 @@ class LayerNorm2d(LayerNorm):
 
 class MLP(nn.Module):
     """Reference sam2_utils.MLP: `num_layers` Linear layers with the
-    activation between them, optional sigmoid output."""
+    activation between them, optional sigmoid output; `quant="int8"` builds
+    them as W8A8 layers (ops/quant.py; the Hiera blocks' MLPs under
+    `encoder_quant`)."""
 
     def __init__(self, input_dim, hidden_dim, output_dim, num_layers,
-                 activation="relu", sigmoid_output=False):
+                 activation="relu", sigmoid_output=False, quant="none"):
         super().__init__()
         dims = [input_dim] + [hidden_dim] * (num_layers - 1) + [output_dim]
+        lin = linear_cls(quant)
         self.layers = nn.ModuleList(
-            nn.Linear(dims[i], dims[i + 1]) for i in range(num_layers))
+            lin(dims[i], dims[i + 1]) for i in range(num_layers))
         self.act = ACT[activation]
         self.sigmoid_output = sigmoid_output
 

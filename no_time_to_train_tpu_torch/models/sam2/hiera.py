@@ -6,6 +6,14 @@ unpartitions on its own. The JAX package's window-major stage flow is a TPU
 layout device with the same numbers and is not ported; the window partition
 already hands the window kernel the window-major [B * nw, T, 3C] qkv that
 the stage flow would.
+
+Under `quant="int8"` (W8A8, ops/quant.py) the JAX package quantizes the MLP
+of every block, and the attention's qkv and proj only in the blocks its
+stage flow leaves on the spatial path: the stage flow builds its attention
+without the quant (JAX hiera.py:199-201). `stage_flow_blocks` names those
+blocks as the JAX loop picks them, and their attention runs the float
+product on the same weights. The block's dimension-changing `proj` stays
+unquantized in both packages (JAX hiera.py:211).
 """
 import torch
 import torch.nn as nn
@@ -13,9 +21,19 @@ import torch.nn.functional as F
 
 from no_time_to_train_tpu_torch.models.sam2.common import LayerNorm, MLP
 from no_time_to_train_tpu_torch.ops.attention import sdpa_bnhd, window_sdpa_qkv
+from no_time_to_train_tpu_torch.ops.quant import Int8Linear, linear_cls
 from no_time_to_train_tpu_torch.ops.resize import resize
 
 __all__ = ["Hiera", "window_partition", "window_unpartition"]
+
+
+def _linear(layer, x, quantized):
+    """layer(x); with `quantized` false an Int8Linear runs the float product
+    instead (the JAX stage flow's `nn.Dense`: the float32 weight cast to x's
+    dtype)."""
+    if quantized or not isinstance(layer, Int8Linear):
+        return layer(x)
+    return F.linear(x, layer.weight.to(x.dtype), layer.bias.to(x.dtype))
 
 
 def window_partition(x, ws):
@@ -58,53 +76,55 @@ class PatchEmbed(nn.Module):
 
 
 class MultiScaleAttention(nn.Module):
-    def __init__(self, dim, dim_out, num_heads, q_pool=False):
+    def __init__(self, dim, dim_out, num_heads, q_pool=False, quant="none"):
         super().__init__()
         self.dim_out = dim_out
         self.num_heads = num_heads
         self.q_pool = q_pool
         self.attention_impl = "pallas"
-        self.qkv = nn.Linear(dim, 3 * dim_out)
-        self.proj = nn.Linear(dim_out, dim_out)
+        lin = linear_cls(quant)
+        self.qkv = lin(dim, 3 * dim_out)
+        self.proj = lin(dim_out, dim_out)
 
-    def forward(self, x):
+    def forward(self, x, quantized=True):
         """x: [B, H, W, C] -> [B, H', W', dim_out] (H' = H/2 with q-pool).
         Windowed blocks (B = windows > 1) take the window kernel on the
         packed qkv where its gate opens; the rest split the heads as strided
-        views of the packed qkv and call `sdpa_bnhd`."""
+        views of the packed qkv and call `sdpa_bnhd`. `quantized=False`
+        runs W8A8 projections as float products."""
         b, h, w, _ = x.shape
         d, nh, impl = self.dim_out, self.num_heads, self.attention_impl
-        qkv = self.qkv(x).reshape(b, h * w, 3 * d)
+        qkv = _linear(self.qkv, x, quantized).reshape(b, h * w, 3 * d)
         if not self.q_pool and b > 1:
             out = window_sdpa_qkv(qkv, nh, h * w, impl)
             if out is not None:
-                return self.proj(out.reshape(b, h, w, d))
+                return _linear(self.proj, out.reshape(b, h, w, d), quantized)
         q, k, v = qkv.reshape(b, h * w, 3, nh, d // nh).unbind(2)
         if self.q_pool:
             q = _max_pool_2x2(q.reshape(b, h, w, d))
             h, w = q.shape[1:3]
             q = q.reshape(b, h * w, nh, d // nh)
         out = sdpa_bnhd(q, k, v, impl).reshape(b, h, w, d)
-        return self.proj(out)
+        return _linear(self.proj, out, quantized)
 
 
 class MultiScaleBlock(nn.Module):
     def __init__(self, dim, dim_out, num_heads, mlp_ratio=4.0, q_stride=False,
-                 window_size=0):
+                 window_size=0, quant="none"):
         super().__init__()
         self.dim, self.dim_out = dim, dim_out
         self.q_stride = q_stride
         self.window_size = window_size
         self.norm1 = LayerNorm(dim, eps=1e-6)
         self.attn = MultiScaleAttention(dim, dim_out, num_heads,
-                                        q_pool=q_stride)
+                                        q_pool=q_stride, quant=quant)
         self.norm2 = LayerNorm(dim_out, eps=1e-6)
         self.mlp = MLP(dim_out, int(dim_out * mlp_ratio), dim_out, 2,
-                       activation="gelu")
+                       activation="gelu", quant=quant)
         if dim != dim_out:
             self.proj = nn.Linear(dim, dim_out)
 
-    def forward(self, x):
+    def forward(self, x, quantized_attn=True):
         shortcut = x
         xn = self.norm1(x)
         if self.dim != self.dim_out:
@@ -117,7 +137,7 @@ class MultiScaleBlock(nn.Module):
             xw, pad_hw = window_partition(xn, ws)
         else:
             xw = xn
-        xw = self.attn(xw)
+        xw = self.attn(xw, quantized_attn)
         if self.q_stride:
             ws = self.window_size // 2
             h, w = shortcut.shape[1:3]
@@ -132,16 +152,19 @@ class MultiScaleBlock(nn.Module):
 
 class Hiera(nn.Module):
     """Returns the stage outputs [B, H_s, W_s, C_s], highest resolution
-    first."""
+    first. `quant="int8"`: W8A8 block GEMMs, as the JAX package's."""
 
     def __init__(self, embed_dim=96, num_heads=1, stages=(2, 3, 16, 3),
                  q_pool=3, dim_mul=2.0, head_mul=2.0,
                  window_pos_embed_bkg_spatial_size=(14, 14),
-                 window_spec=(8, 4, 14, 7), global_att_blocks=(12, 16, 20)):
+                 window_spec=(8, 4, 14, 7), global_att_blocks=(12, 16, 20),
+                 quant="none"):
         super().__init__()
         depth = sum(stages)
+        self.quant = quant
         self.stage_ends = [sum(stages[:i]) - 1 for i in range(1, len(stages) + 1)]
-        q_pool_blocks = [x + 1 for x in self.stage_ends[:-1]][:q_pool]
+        self.q_pool_blocks = q_pool_blocks = [
+            x + 1 for x in self.stage_ends[:-1]][:q_pool]
         self.patch_embed = PatchEmbed(embed_dim)
         bh, bw = window_pos_embed_bkg_spatial_size
         self.pos_embed = nn.Parameter(torch.zeros(1, embed_dim, bh, bw))
@@ -161,7 +184,7 @@ class Hiera(nn.Module):
                 cur_stage += 1
             blocks.append(MultiScaleBlock(
                 embed_dim, dim_out, num_heads, q_stride=i in q_pool_blocks,
-                window_size=window_size))
+                window_size=window_size, quant=quant))
             embed_dim = dim_out
         self.blocks = nn.ModuleList(blocks)
 
@@ -172,12 +195,44 @@ class Hiera(nn.Module):
         reps = (h // win.shape[0], w // win.shape[1], 1)
         return (pe + win.float().repeat(*reps)).to(dtype)
 
+    def stage_flow_blocks(self, h, w):
+        """The blocks that the JAX package's window-major stage flow runs on
+        token-major tensors for a patch grid of h x w (JAX
+        `Hiera.__call__`): runs of more than one block of a stage with one
+        window size that divides the grid, global blocks included, no
+        dimension change or q-pool."""
+        blocks, ends, pool = self.blocks, self.stage_ends, self.q_pool_blocks
+        flow, i = set(), 0
+        while i < len(blocks):
+            blk, ws = blocks[i], blocks[i].window_size
+            run = []
+            if not (i in pool or blk.dim != blk.dim_out or blk.q_stride) \
+                    and ws > 0 and h % ws == 0 and w % ws == 0:
+                for j in range(i, len(blocks)):
+                    bj = blocks[j]
+                    if (bj.q_stride or bj.dim != bj.dim_out or j in pool
+                            or bj.window_size not in (0, ws)):
+                        break
+                    run.append(j)
+                    if j in ends:
+                        break
+            if len(run) > 1:
+                flow.update(run)
+                i = run[-1] + 1
+                continue
+            if blk.q_stride:
+                h, w = h // 2, w // 2
+            i += 1
+        return flow
+
     def forward(self, x):
         x = self.patch_embed(x)
         x = x + self._pos_embed_for(x.shape[1], x.shape[2], x.dtype)
+        flow = (self.stage_flow_blocks(x.shape[1], x.shape[2])
+                if self.quant == "int8" else ())
         outputs = []
         for i, blk in enumerate(self.blocks):
-            x = blk(x)
+            x = blk(x, quantized_attn=i not in flow)
             if i in self.stage_ends:
                 outputs.append(x)
         return outputs

@@ -31,11 +31,14 @@ NO_OBJ_SCORE = -1024.0
 
 
 class SAM2(nn.Module):
-    def __init__(self, cfg):
+    def __init__(self, cfg, encoder_quant="none"):
+        """`encoder_quant="int8"`: W8A8 GEMMs in the image encoder's trunk
+        only (ops/quant.py); the neck, the prompt and mask towers stay in the
+        compute dtype, as in the JAX package."""
         super().__init__()
         self.cfg = c = cfg
         emb = c.sam_image_embedding_size
-        self.image_encoder = Sam2ImageEncoder(c)
+        self.image_encoder = Sam2ImageEncoder(c, quant=encoder_quant)
         self.sam_prompt_encoder = PromptEncoder(
             c.hidden_dim, (emb, emb), (c.image_size, c.image_size))
         self.sam_mask_decoder = MaskDecoder(

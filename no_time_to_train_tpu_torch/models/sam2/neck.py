@@ -53,14 +53,14 @@ class FpnNeck(nn.Module):
 
 
 class Sam2ImageEncoder(nn.Module):
-    def __init__(self, cfg):
+    def __init__(self, cfg, quant="none"):
         super().__init__()
         self.scalp = cfg.scalp
         self.trunk = Hiera(
             embed_dim=cfg.embed_dim, num_heads=cfg.num_heads,
             stages=cfg.stages, global_att_blocks=cfg.global_att_blocks,
             window_pos_embed_bkg_spatial_size=cfg.window_pos_embed_bkg_spatial_size,
-            window_spec=cfg.window_spec)
+            window_spec=cfg.window_spec, quant=quant)
         self.neck = FpnNeck(cfg.d_model, cfg.backbone_channel_list,
                             cfg.fpn_top_down_levels, cfg.fpn_interp_model)
 

@@ -62,6 +62,8 @@ _SIGNATURES = {
     "nttt_flash_masked_wmma": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I,
                                _I, _F, _I, _VP],
     "nttt_masked_tile_list": [_VP, _VP, _VP, _VP, _I, _I, _VP],
+    "nttt_quant_rows": [_VP, _VP, _VP, _I, _I, _I, _I, _VP],
+    "nttt_int8_gemm": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
 }
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC"]

@@ -118,11 +118,6 @@ def _local_devices(devices, device):
     return local
 
 
-# sam2_infer_cfgs keys of the JAX package's matcher that the port does not
-# have, with the one value it computes
-_NOT_PORTED = {"decoder_impl": "dense", "encoder_quant": "none"}
-
-
 class MatcherRunner:
     def __init__(self, model_cfg, dataset_cfgs, data_load_cfgs=None,
                  test_mode="none", seed=42, devices=1, save_dir=".",
@@ -144,11 +139,6 @@ class MatcherRunner:
         self.local_devices = _local_devices(self.devices, device)
 
         infer = dict(model_cfg.get("sam2_infer_cfgs", {}))
-        for key, only in _NOT_PORTED.items():
-            if str(infer.get(key, only)) != only:
-                raise NotImplementedError(
-                    f"sam2_infer_cfgs.{key}={infer[key]!r}: the port "
-                    f"computes {only!r} only")
         mb_cfg = dict(model_cfg.get("memory_bank_cfg", {}))
         if not mb_cfg.pop("enable", True):
             raise ValueError("memory_bank_cfg.enable must be true")
@@ -169,7 +159,9 @@ class MatcherRunner:
             cls_num_per_mask=int(infer.get("cls_num_per_mask", 1)),
             with_negative_refs=bool(infer.get("with_negative_refs", False)),
             compute_dtype=str(infer.get("compute_dtype", "float32")),
+            decoder_impl=str(infer.get("decoder_impl", "dense")),
             attention_impl=str(infer.get("attention_impl", "pallas")),
+            encoder_quant=str(infer.get("encoder_quant", "none")),
         )
 
         # weights from the checkpoints where the files exist, else from

@@ -274,16 +274,31 @@ def test_cli_parses_like_run_lightning():
 
 
 def test_runner_refuses_what_is_not_ported(monkeypatch):
-    """The factored decoder is not ported; and a CUDA run that would drive
-    more GPUs than the process sees raises before it builds anything (data
-    parallelism itself is ported: tests/test_torch_parallel.py; the online
-    visualization too: tests/test_torch_frontends.py)."""
+    """Both matcher options of the JAX package build (`decoder_impl:
+    factored`, `encoder_quant: int8`, on the tiny presets) and reach the
+    matcher; an unknown value of either raises ValueError, and so does a CUDA
+    run that would drive more GPUs than the process sees, before anything is
+    built (data parallelism itself: tests/test_torch_parallel.py; the online
+    visualization: tests/test_torch_frontends.py)."""
+    from no_time_to_train_tpu_torch.ops.quant import Int8Linear
     from no_time_to_train_tpu_torch.runner import MatcherRunner
-    base = {"sam2_cfg_file": "sam2_hiera_t.yaml",
-            "encoder_cfg": {"name": "dinov2_small"}}
-    with pytest.raises(NotImplementedError):
-        MatcherRunner(dict(base, sam2_infer_cfgs={"decoder_impl": "factored"}),
-                      {}, device="cpu")
+    monkeypatch.setitem(tpresets.SAM2_PRESETS, SAM_NAME,
+                        tpresets.Sam2Config(**SAM_FIELDS))
+    monkeypatch.setitem(tpresets.ENCODER_PRESETS, ENC_NAME,
+                        tpresets.EncoderConfig(*ENC_ARGS))
+    base = {"sam2_cfg_file": SAM_NAME, "encoder_cfg": {"name": ENC_NAME}}
+    built = MatcherRunner(dict(base, sam2_infer_cfgs={
+        "decoder_impl": "factored", "encoder_quant": "int8"}), {},
+        device="cpu").matcher
+    assert built.matching.decoder_impl == "factored"
+    assert built.matching.encoder_quant == "int8"
+    assert isinstance(built.dino.encoder.layer[0].mlp.fc1, Int8Linear)
+    assert isinstance(built.sam2.image_encoder.trunk.blocks[0].mlp.layers[0],
+                      Int8Linear)
+    for key, bad in (("decoder_impl", "bogus"), ("encoder_quant", "int4")):
+        with pytest.raises(ValueError, match=key):
+            MatcherRunner(dict(base, sam2_infer_cfgs={key: bad}), {},
+                          device="cpu")
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     with pytest.raises(ValueError, match="devices=2"):
         MatcherRunner(base, {}, devices=2, device="cuda")

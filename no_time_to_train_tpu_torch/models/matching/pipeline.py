@@ -14,6 +14,13 @@ the host, where `finalize_results` resizes them to the original image size.
 returns device tensors for `fetch_test`, so that the next image can be
 queued before the fetch; `test_batch_async` runs B images as one step: both
 encoders at batch B, every decode chunk at B * chunk prompts.
+
+Under a `torch.profiler` profile the step records spans at its layer
+boundaries (`utils/profiling.span`): `nttt.enqueue` (the body of
+`test_async` / `test_batch_async`), inside it `nttt.upload` (the host image
+to the device), `nttt.dino`, `nttt.hiera`, one `nttt.decode` per chunk and
+one `nttt.match` per image; then `nttt.fetch` (`fetch_test`) and one
+`nttt.finalize` per image (`finalize_results`, `finalize_records`).
 """
 from dataclasses import dataclass
 from functools import partial
@@ -37,6 +44,7 @@ from no_time_to_train_tpu_torch.ops.nms import batched_nms, take_first_kept
 from no_time_to_train_tpu_torch.ops.resize import (
     _resize_matrix_np, resize, resize_hw)
 from no_time_to_train_tpu_torch.utils.init import init_random_
+from no_time_to_train_tpu_torch.utils.profiling import span
 
 __all__ = ["MatchingConfig", "NoAMGMatcher", "grid_points",
            "finalize_results", "finalize_records"]
@@ -193,8 +201,9 @@ class NoAMGMatcher:
         m = self.matching
         s = self.sam2_cfg.image_size
         n_img = imgs.shape[0]
-        backbone = self.sam2.forward_image(
-            self._normalize(imgs).to(self.dtype))
+        with span("nttt.hiera"):
+            backbone = self.sam2.forward_image(
+                self._normalize(imgs).to(self.dtype))
         fpn = backbone["backbone_fpn"]
         feats, hr = fpn[-1], [fpn[0], fpn[1]]
         pts = grid_points(m.points_per_side, s, self.device)
@@ -209,9 +218,10 @@ class NoAMGMatcher:
                   if m.decoder_impl == "factored"
                   else self.sam2.forward_sam_heads_best)
         for pc in pts.reshape(n_pts // chunk, chunk, 1, 2):
-            lr, iou = decode(feats, pc, labels, hr)
-            lrs.append(lr.reshape(n_img, chunk, *lr.shape[1:]))
-            ious.append(iou.reshape(n_img, chunk))
+            with span("nttt.decode"):
+                lr, iou = decode(feats, pc, labels, hr)
+                lrs.append(lr.reshape(n_img, chunk, *lr.shape[1:]))
+                ious.append(iou.reshape(n_img, chunk))
         return torch.cat(lrs, dim=1), torch.cat(ious, dim=1), pts
 
     def _decode_chunk_factored(self, feats, pc, labels, hr):
@@ -237,8 +247,9 @@ class NoAMGMatcher:
     def _target_features(self, tar_imgs):
         """DINO features [B, gs * gs, D] float32 of tar_imgs [B, S, S, 3]."""
         e = self.enc_cfg.img_size
-        enc_in = self._normalize(resize(tar_imgs, (e, e), mode="bicubic"))
-        return self.dino(enc_in.to(self.dtype)).float()
+        with span("nttt.dino"):
+            enc_in = self._normalize(resize(tar_imgs, (e, e), mode="bicubic"))
+            return self.dino(enc_in.to(self.dtype)).float()
 
     @torch.no_grad()
     def _test_impl(self, tar_img):
@@ -263,74 +274,77 @@ class NoAMGMatcher:
     def _match(self, tar_feat, lr, pred_ious):
         """Scoring, NMS, IoS decay and top-K of one image: tar_feat
         [gs * gs, D] float32, lr [P, 4h, 4w], pred_ious [P]."""
-        m = self.matching
-        gs = self.enc_cfg.grid_size
-        bank = self.bank
-        n_masks, lr_res = lr.shape[0], lr.shape[-1]
-        valid = pred_ious > m.iou_thr
+        with span("nttt.match"):
+            m = self.matching
+            gs = self.enc_cfg.grid_size
+            bank = self.bank
+            n_masks, lr_res = lr.shape[0], lr.shape[-1]
+            valid = pred_ious > m.iou_thr
 
-        feat_sp = resize(tar_feat.reshape(gs, gs, -1)[None], (lr_res, lr_res),
-                         mode="bilinear", antialias=True)[0]
-        feat_sp = feat_sp.reshape(lr_res * lr_res, -1).to(self.dtype)
-        masks_bool = (lr > 0).reshape(n_masks, -1)
-        if m.with_negative_refs:
-            sim, obj_feats = scoring.sim_global_avg_with_neg(
-                feat_sp, masks_bool, bank.feats_avg,
-                self.bank_neg.feats_ins_avg, sigma=m.neg_sigma)
-        else:
-            sim, obj_feats = scoring.sim_global_avg(feat_sp, masks_bool,
-                                                    bank.feats_ins_avg)
+            feat_sp = resize(tar_feat.reshape(gs, gs, -1)[None],
+                             (lr_res, lr_res), mode="bilinear",
+                             antialias=True)[0]
+            feat_sp = feat_sp.reshape(lr_res * lr_res, -1).to(self.dtype)
+            masks_bool = (lr > 0).reshape(n_masks, -1)
+            if m.with_negative_refs:
+                sim, obj_feats = scoring.sim_global_avg_with_neg(
+                    feat_sp, masks_bool, bank.feats_avg,
+                    self.bank_neg.feats_ins_avg, sigma=m.neg_sigma)
+            else:
+                sim, obj_feats = scoring.sim_global_avg(feat_sp, masks_bool,
+                                                        bank.feats_ins_avg)
 
-        n_classes = bank.feats_ins_avg.shape[0]
-        k = n_classes if m.cls_num_per_mask == -1 else m.cls_num_per_mask
-        # stable sort: ties go to the lower class index, as lax.top_k does
-        top_scores, labels = torch.sort(sim, dim=1, descending=True,
-                                        stable=True)
-        top_scores, labels = top_scores[:, :k], labels[:, :k]
-        if k == n_classes:
-            top_scores = top_scores * (top_scores > top_scores[:, :1] * 0.6)
-        labels = labels.reshape(-1)
-        scores_all = top_scores.reshape(-1)
+            n_classes = bank.feats_ins_avg.shape[0]
+            k = n_classes if m.cls_num_per_mask == -1 else m.cls_num_per_mask
+            # stable sort: ties go to the lower class index, as lax.top_k does
+            top_scores, labels = torch.sort(sim, dim=1, descending=True,
+                                            stable=True)
+            top_scores, labels = top_scores[:, :k], labels[:, :k]
+            if k == n_classes:
+                top_scores = top_scores * (
+                    top_scores > top_scores[:, :1] * 0.6)
+            labels = labels.reshape(-1)
+            scores_all = top_scores.reshape(-1)
 
-        lr_boxes = batched_mask_to_box(lr > 0).float()
-        order, keep = batched_nms(lr_boxes.repeat_interleave(k, 0),
-                                  pred_ious.float().repeat_interleave(k, 0),
-                                  labels, valid.repeat_interleave(k, 0),
-                                  m.nms_thr)
-        out_num = min(m.num_out_instance * m.expand_ratio, n_masks * k)
-        sel, sel_valid = take_first_kept(order, keep, out_num)
-        scores_out = scores_all[sel]
-        labels_out = labels[sel]
-        mask_idx = sel // k
-        sel_valid = sel_valid & (scores_out > 0.0)
+            lr_boxes = batched_mask_to_box(lr > 0).float()
+            order, keep = batched_nms(
+                lr_boxes.repeat_interleave(k, 0),
+                pred_ious.float().repeat_interleave(k, 0), labels,
+                valid.repeat_interleave(k, 0), m.nms_thr)
+            out_num = min(m.num_out_instance * m.expand_ratio, n_masks * k)
+            sel, sel_valid = take_first_kept(order, keep, out_num)
+            scores_out = scores_all[sel]
+            labels_out = labels[sel]
+            mask_idx = sel // k
+            sel_valid = sel_valid & (scores_out > 0.0)
 
-        ar = m.analysis_res
-        lr_sel = lr[mask_idx]
-        n_sel = lr_sel.shape[0]
-        if ar == lr_res:
-            bin_up = (lr_sel > 0).reshape(n_sel, ar * ar)
-        else:
-            bin_up = (resize_hw(lr_sel, (ar, ar), mode="bilinear") > 0) \
-                .reshape(n_sel, ar * ar)
+            ar = m.analysis_res
+            lr_sel = lr[mask_idx]
+            n_sel = lr_sel.shape[0]
+            if ar == lr_res:
+                bin_up = (lr_sel > 0).reshape(n_sel, ar * ar)
+            else:
+                bin_up = (resize_hw(lr_sel, (ar, ar), mode="bilinear") > 0) \
+                    .reshape(n_sel, ar * ar)
 
-        obj_out = obj_feats[mask_idx]
-        obj_sim = (obj_out @ obj_out.T).clamp(min=0.0)
-        ios = scoring.semantic_ios(bin_up, labels_out, obj_sim,
-                                   valid=sel_valid)
-        scores_out = scores_out * torch.sqrt((1.0 - ios).clamp(min=0.0))
+            obj_out = obj_feats[mask_idx]
+            obj_sim = (obj_out @ obj_out.T).clamp(min=0.0)
+            ios = scoring.semantic_ios(bin_up, labels_out, obj_sim,
+                                       valid=sel_valid)
+            scores_out = scores_out * torch.sqrt((1.0 - ios).clamp(min=0.0))
 
-        final_n = min(m.num_out_instance, n_sel)
-        key = torch.where(sel_valid, -scores_out,
-                          torch.full_like(scores_out, float("inf")))
-        ranked = torch.argsort(key, stable=True)[:final_n]
-        f_valid = sel_valid[ranked]
-        return dict(
-            lr_logits=lr_sel[ranked].half(),
-            scores=torch.where(f_valid, scores_out[ranked],
-                               torch.zeros_like(scores_out[ranked])),
-            labels=labels_out[ranked],
-            pred_ious=pred_ious[mask_idx][ranked],
-            valid=f_valid)
+            final_n = min(m.num_out_instance, n_sel)
+            key = torch.where(sel_valid, -scores_out,
+                              torch.full_like(scores_out, float("inf")))
+            ranked = torch.argsort(key, stable=True)[:final_n]
+            f_valid = sel_valid[ranked]
+            return dict(
+                lr_logits=lr_sel[ranked].half(),
+                scores=torch.where(f_valid, scores_out[ranked],
+                                   torch.zeros_like(scores_out[ranked])),
+                labels=labels_out[ranked],
+                pred_ious=pred_ious[mask_idx][ranked],
+                valid=f_valid)
 
     def test(self, tar_img):
         """tar_img: [S, S, 3] float in [0, 1]. Returns a numpy dict with
@@ -342,20 +356,31 @@ class NoAMGMatcher:
         """Queue one test step and return its outputs on the device without
         waiting for them. `fetch_test` brings them to the host; queue the
         next image first to overlap its work with the fetch."""
-        return self._test_impl(self._as_tensor(tar_img))
+        with span("nttt.enqueue"):
+            with span("nttt.upload"):
+                img = self._as_tensor(tar_img)
+            return self._test_impl(img)
 
     def test_batch_async(self, tar_imgs):
         """tar_imgs [B, S, S, 3]: B images as one step, outputs on the
         device with a leading B axis (`fetch_test` takes them too)."""
-        return self._test_batch_impl(self._as_tensor(tar_imgs))
+        with span("nttt.enqueue"):
+            with span("nttt.upload"):
+                imgs = self._as_tensor(tar_imgs)
+            return self._test_batch_impl(imgs)
 
     @staticmethod
     def fetch_test(out):
         """Device outputs -> numpy; only the valid prefix of the logits is
         copied. A batched output gives the same dict with a leading B
         axis."""
+        with span("nttt.fetch"):
+            return NoAMGMatcher._fetch_host(out)
+
+    @staticmethod
+    def _fetch_host(out):
         if out["valid"].dim() == 2:
-            per = [NoAMGMatcher.fetch_test({k: v[b] for k, v in out.items()})
+            per = [NoAMGMatcher._fetch_host({k: v[b] for k, v in out.items()})
                    for b in range(out["valid"].shape[0])]
             return {k: np.stack([o[k] for o in per]) for k in per[0]}
         valid = out["valid"].cpu().numpy()
@@ -375,22 +400,23 @@ def finalize_records(out, ori_h, ori_w):
     bboxes, scores, labels), or None when the native library is missing or
     the image is smaller than the logits (callers then use
     finalize_results)."""
-    from no_time_to_train_tpu_torch.utils import native
-    if not native.has_finalize():
-        return None
-    lr = out["lr_logits"].shape[-1]
-    if ori_h < lr or ori_w < lr:
-        return None
-    n = int(np.asarray(out["valid"]).sum())
-    logits = np.asarray(out["lr_logits"][:n], np.float32)
-    segs, bboxes = [], np.zeros((n, 4), np.float32)
-    for i in range(n):
-        counts, box, _ = native.finalize_mask(logits[i], ori_h, ori_w)
-        segs.append({"size": [ori_h, ori_w], "counts": counts})
-        bboxes[i] = box
-    return dict(segs=segs, bboxes=bboxes,
-                scores=np.asarray(out["scores"][:n], np.float32),
-                labels=np.asarray(out["labels"][:n]))
+    with span("nttt.finalize"):
+        from no_time_to_train_tpu_torch.utils import native
+        if not native.has_finalize():
+            return None
+        lr = out["lr_logits"].shape[-1]
+        if ori_h < lr or ori_w < lr:
+            return None
+        n = int(np.asarray(out["valid"]).sum())
+        logits = np.asarray(out["lr_logits"][:n], np.float32)
+        segs, bboxes = [], np.zeros((n, 4), np.float32)
+        for i in range(n):
+            counts, box, _ = native.finalize_mask(logits[i], ori_h, ori_w)
+            segs.append({"size": [ori_h, ori_w], "counts": counts})
+            bboxes[i] = box
+        return dict(segs=segs, bboxes=bboxes,
+                    scores=np.asarray(out["scores"][:n], np.float32),
+                    labels=np.asarray(out["labels"][:n]))
 
 
 def finalize_results(out, ori_h, ori_w, exact_resize=False):
@@ -399,34 +425,38 @@ def finalize_results(out, ori_h, ori_w, exact_resize=False):
     padding. exact_resize=True, an image smaller than the logits or a
     missing native library use the torch-parity separable weights in numpy;
     otherwise the native library upsamples."""
-    valid = np.asarray(out["valid"])
-    n = int(valid.sum())
-    logits = np.asarray(out["lr_logits"][:n], np.float32)
-    scores = np.asarray(out["scores"][:n], np.float32)
-    labels = np.asarray(out["labels"][:n])
-    if n == 0:
-        return dict(binary_masks=np.zeros((0, ori_h, ori_w), bool),
-                    bboxes=np.zeros((0, 4), np.float32),
-                    scores=scores, labels=labels)
-    lr = logits.shape[-1]
-    masks = None
-    if not (exact_resize or ori_h < lr or ori_w < lr):
-        from no_time_to_train_tpu_torch.utils import native
-        masks = native.upsample_binarize(logits, ori_h, ori_w)
-    if masks is None:
-        wh = _resize_matrix_np(lr, ori_h, "bilinear", ori_h < lr).astype(np.float32)
-        ww = _resize_matrix_np(lr, ori_w, "bilinear", ori_w < lr).astype(np.float32)
-        up = np.einsum("oh,nhw->now", wh, logits)
-        masks = np.einsum("ow,nhw->nho", ww, up) > 0
-    masks = np.ascontiguousarray(masks)
-    rows = masks.any(axis=2)
-    cols = masks.any(axis=1)
-    has = rows.any(axis=1)
-    y0 = rows.argmax(axis=1)
-    y1 = ori_h - 1 - rows[:, ::-1].argmax(axis=1)
-    x0 = cols.argmax(axis=1)
-    x1 = ori_w - 1 - cols[:, ::-1].argmax(axis=1)
-    bboxes = np.where(has[:, None],
-                      np.stack([x0, y0, x1, y1], 1).astype(np.float32), 0.0)
-    return dict(binary_masks=masks, bboxes=bboxes, scores=scores,
-                labels=labels)
+    with span("nttt.finalize"):
+        valid = np.asarray(out["valid"])
+        n = int(valid.sum())
+        logits = np.asarray(out["lr_logits"][:n], np.float32)
+        scores = np.asarray(out["scores"][:n], np.float32)
+        labels = np.asarray(out["labels"][:n])
+        if n == 0:
+            return dict(binary_masks=np.zeros((0, ori_h, ori_w), bool),
+                        bboxes=np.zeros((0, 4), np.float32),
+                        scores=scores, labels=labels)
+        lr = logits.shape[-1]
+        masks = None
+        if not (exact_resize or ori_h < lr or ori_w < lr):
+            from no_time_to_train_tpu_torch.utils import native
+            masks = native.upsample_binarize(logits, ori_h, ori_w)
+        if masks is None:
+            wh = _resize_matrix_np(lr, ori_h, "bilinear",
+                                   ori_h < lr).astype(np.float32)
+            ww = _resize_matrix_np(lr, ori_w, "bilinear",
+                                   ori_w < lr).astype(np.float32)
+            up = np.einsum("oh,nhw->now", wh, logits)
+            masks = np.einsum("ow,nhw->nho", ww, up) > 0
+        masks = np.ascontiguousarray(masks)
+        rows = masks.any(axis=2)
+        cols = masks.any(axis=1)
+        has = rows.any(axis=1)
+        y0 = rows.argmax(axis=1)
+        y1 = ori_h - 1 - rows[:, ::-1].argmax(axis=1)
+        x0 = cols.argmax(axis=1)
+        x1 = ori_w - 1 - cols[:, ::-1].argmax(axis=1)
+        bboxes = np.where(
+            has[:, None], np.stack([x0, y0, x1, y1], 1).astype(np.float32),
+            0.0)
+        return dict(binary_masks=masks, bboxes=bboxes, scores=scores,
+                    labels=labels)

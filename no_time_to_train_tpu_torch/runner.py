@@ -52,6 +52,7 @@ from no_time_to_train_tpu_torch.parallel import multihost
 from no_time_to_train_tpu_torch.parallel.mesh import (
     interleave_results, make_data_parallel_fill, make_data_parallel_test)
 from no_time_to_train_tpu_torch.utils import checkpoint as ckpt_io
+from no_time_to_train_tpu_torch.utils.profiling import span
 
 
 def _apply_dotted_hacks(model_cfg, dataset_cfgs):
@@ -397,16 +398,19 @@ class MatcherRunner:
             futures = [pool.submit(ds.__getitem__, j) for j in indices[:2]]
             pending = None  # (item, device_out, dt, analysis)
             for pos in range(n):
-                item = futures.pop(0).result()
+                with span("nttt.load_wait"):
+                    item = futures.pop(0).result()
                 if pos + 2 < n:
                     futures.append(pool.submit(ds.__getitem__,
                                                indices[pos + 2]))
-                t0 = time.time()
+                t0 = time.perf_counter()
                 out = self.matcher.test_async(item["target_img"])
                 if pending is not None:
                     finalize(*pending)  # host work overlaps this compute
-                out["scores"].cpu()     # completion fence (timed like the
-                dt = time.time() - t0   # reference's synchronized forward)
+                # completion fence (timed like the reference's synchronized
+                # forward)
+                out["scores"].cpu()
+                dt = time.perf_counter() - t0
                 pending = (item, out, dt, pos < n_real)
                 if progress and (pos + 1) % 20 == 0:
                     print(f"test {pos + 1}/{n}")
@@ -498,16 +502,17 @@ class MatcherRunner:
                 futures = [pool.submit(load, b) for b in batches[:2]]
                 pending = None
                 for bi, batch in enumerate(batches):
-                    items = futures.pop(0).result()
+                    with span("nttt.load_wait"):
+                        items = futures.pop(0).result()
                     if bi + 2 < len(batches):
                         futures.append(pool.submit(load, batches[bi + 2]))
-                    t0 = time.time()
+                    t0 = time.perf_counter()
                     out = run(np.stack([it["target_img"] for it in items]))
                     if pending is not None:
                         finalize(*pending)  # host work overlaps this compute
                     for scores in out["scores"]:
                         scores.cpu()        # completion fence
-                    dt = time.time() - t0
+                    dt = time.perf_counter() - t0
                     pending = (items, len(batch), out, dt, bi * n)
                     if progress and (bi + 1) % 20 == 0:
                         print(f"test {(bi + 1) * n}/{len(indices)}")

@@ -7,6 +7,8 @@ timers and an nvidia-smi poller). Here:
     the reference's FPS harness (run_lightning.py:152-161);
   - `trace`: a context manager around `torch.profiler` that writes a Chrome
     trace (open it in chrome://tracing or Perfetto);
+  - `span`: a named range at a layer boundary of the program, recorded only
+    while a profiler runs (the test step's spans are `nttt.*`);
   - `device_memory_stats`: the caching allocator's counters of one CUDA
     device under the JAX package's keys. They describe this process only;
     `utils/memory_poller.py` reads the whole device.
@@ -18,7 +20,10 @@ import time
 import numpy as np
 import torch
 
-__all__ = ["Timer", "trace", "device_memory_stats"]
+__all__ = ["Timer", "trace", "span", "device_memory_stats"]
+
+_profiler_enabled = torch._C._autograd._profiler_enabled
+_OFF = contextlib.nullcontext()
 
 
 class Timer:
@@ -29,11 +34,11 @@ class Timer:
     def step(self, sync=None):
         """Time one step; `sync` is an optional callable that waits for the
         device (e.g. torch.cuda.synchronize, or lambda: out["scores"].cpu())."""
-        t0 = time.time()
+        t0 = time.perf_counter()
         yield
         if sync is not None:
             sync()
-        self.times.append(time.time() - t0)
+        self.times.append(time.perf_counter() - t0)
 
     def report(self, header="[Validation] Inference Time Benchmark:"):
         t = np.asarray(self.times)
@@ -57,6 +62,17 @@ def trace(logdir="nttt_trace"):
     with torch.profiler.profile(activities=acts) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+def span(name):
+    """A context that records `name` as a `torch.profiler` range (a
+    `user_annotation` event, on the profiler's clock with the kernels and
+    copies it traces) while a profile is recording, and is a shared no-op
+    otherwise: a span costs one flag check while no profiler runs. Spans of
+    one name do not nest on one thread."""
+    if _profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _OFF
 
 
 def device_memory_stats(device=None):

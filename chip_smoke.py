@@ -184,7 +184,18 @@ Run from the root of a checkout. Phases, each of which raises on failure:
      encoder_quant=int8 (fill, postprocess, test) and then decoder_impl=
      factored: exact launches, finite exports, COCOeval, and an unknown
      value raising before anything is built.
+  15. the test step's CUDA graph sites (ops/graph_call.py) on SAM2-L and
+     SAM2-S with DINOv2-L and on SAM2-L under encoder_quant="int8": after
+     a warm-up, DINOv2's features and each decode chunk's mask and IoU on
+     three distinct images bit for bit the eager code's (every site made
+     eager for one request), each request's outputs unchanged by the
+     next, one DINOv2 replay and one replay per token-side decode step
+     and chunk a request and no capture or eager call in a window of 20
+     requests, a write to the W8A8 weights taken by a new capture, and
+     fenced ms and peak allocated and reserved bytes per request graphed
+     and eager in turns.
 `python3 chip_smoke.py --kernels` runs phases 1 to 3 only;
+`python3 chip_smoke.py --graphs` runs phases 1, 2 and 15 only;
 `python3 chip_smoke.py --matcher-options` runs phases 1, 2 and 14 only;
 `python3 chip_smoke.py --int8-plans` runs phases 1 and 2 and times
 quant_rows under every mapping and int8_gemm under every tile width and
@@ -1711,7 +1722,9 @@ def new_shape_rows(rn, results):
 @contextlib.contextmanager
 def k1_shapes():
     """Count the K1 launches inside by (rows, C): the kernel's one call site
-    (models/sam2/common.py `_layer_norm`) is wrapped for the duration."""
+    (models/sam2/common.py `_layer_norm`) is wrapped for the duration. A
+    CUDA graph's replay makes no Python call: the launches inside DINOv2's
+    and the decode's graphs are not seen here."""
     from collections import Counter
     from no_time_to_train_tpu_torch.models.sam2 import common
     from no_time_to_train_tpu_torch.ops import fused_ln as fl
@@ -5634,6 +5647,10 @@ def int8_image_profile(m8, label, readings):
     m8.test(img)
     for h in hooks:
         h.remove()
+    # the next call of the same key captures the CUDA graphs, and a
+    # capturing call runs its site twice on the card (its eager warm-up and
+    # its replay): the profiled call is a replay
+    m8.test(img)
     wall, dev_rows, _ = profiled(lambda: m8.test(img))
     busy = sum(e.self_device_time_total for e in dev_rows) / 1e3
     out = {}
@@ -5861,6 +5878,202 @@ def run_matcher_options(dev, smi):
     return rows, totals, summary
 
 
+# phase 15: the test step's CUDA graph sites (ops/graph_call.py): DINOv2
+# and the grid decode's token-side steps (the image-side kernels K2, K3, K4
+# run between them), on SAM2-L and SAM2-S with DINOv2-L, and on SAM2-L
+# under encoder_quant="int8". Each request is one DINOv2 replay and one
+# replay per decode step and chunk once warm; a replay gives the eager
+# code's bits (the same kernels in the same order).
+GRAPH_CELLS = [("sam2_hiera_l.yaml", "none"), ("sam2_hiera_s.yaml", "none"),
+               ("sam2_hiera_l.yaml", "int8")]
+GRAPH_IMAGES, GRAPH_WINDOW, GRAPH_TIMED = 3, 20, 10
+
+
+def graph_sites(matcher):
+    """DINOv2's site, then the decode steps' sites."""
+    return [matcher.dino._graph, *matcher.sam2._decode_graphs.values()]
+
+
+def graph_totals(matcher):
+    """(captures, replays, eager calls) over the matcher's sites."""
+    stats = (matcher.dino.graph_stats, matcher.sam2.graph_stats)
+    return tuple(sum(sum(st[w].values()) for st in stats)
+                 for w in ("captures", "replays", "eager"))
+
+
+@contextlib.contextmanager
+def graphs_off(matcher):
+    """Every call of every site runs the eager code inside."""
+    sites = graph_sites(matcher)
+    for site in sites:
+        site._capturable = lambda args: False
+    try:
+        yield
+    finally:
+        for site in sites:
+            del site._capturable
+
+
+def graph_request(matcher, img):
+    """`test` on img, with what the two sites returned: (the fetched
+    result, DINOv2's features, [(mask, iou)] of each decode chunk)."""
+    seen = {"decode": []}
+    hook = matcher.dino.register_forward_hook(
+        lambda _m, _a, out: seen.__setitem__("dino", out))
+    inner = matcher.sam2.forward_sam_heads_best
+
+    def decode(*args, **kwargs):
+        out = inner(*args, **kwargs)
+        seen["decode"].append(out)
+        return out
+
+    matcher.sam2.forward_sam_heads_best = decode
+    try:
+        out = matcher.test(img)
+    finally:
+        hook.remove()
+        del matcher.sam2.forward_sam_heads_best
+    return out, seen["dino"], seen["decode"]
+
+
+def graph_cell(dev, smi, sam2_cfg, quant):
+    """Phase 15 on one matcher: warm-up, then GRAPH_IMAGES distinct images
+    graphed against eager bit for bit, a window of GRAPH_WINDOW requests
+    with no capture and no eager call, graphed against eager ms and
+    memory per request in turns, and under int8 a weight write."""
+    import numpy as np
+    import torch
+    from no_time_to_train_tpu_torch.models.matching.pipeline import (
+        MatchingConfig, NoAMGMatcher)
+    label = f"{sam2_cfg} + dinov2_large, encoder_quant={quant}"
+
+    def check(ok, msg):
+        if not ok:
+            fail(msg)
+
+    matcher = NoAMGMatcher(
+        sam2_cfg, "dinov2_large",
+        MatchingConfig(compute_dtype="bfloat16", attention_impl="pallas",
+                       encoder_quant=quant, **MATCHING),
+        n_classes=20, memory_length=10, seed=0, device=dev)
+    rng = np.random.default_rng(0)
+    for cls in range(20):
+        imgs, masks = synthetic_refs(rng, cls, 10)
+        matcher.fill_memory(imgs, masks, [cls] * 10)
+    matcher.postprocess_memory()
+    targets = [synthetic_target(np.random.default_rng(300 + k), TARGET_SIZE)
+               for k in range(GRAPH_IMAGES)]
+    for _ in range(3):                   # the fill's key, then capture
+        matcher.test(targets[0])
+    torch.cuda.synchronize()
+    held = []
+    steps = len(matcher.sam2._decode_graphs)
+    for k, img in enumerate(targets):
+        before = graph_totals(matcher)
+        out, feats, chunks = graph_request(matcher, img)
+        moved = [a - b for a, b in zip(graph_totals(matcher), before)]
+        per_request = 1 + steps * len(chunks)
+        check(moved == [0, per_request, 0],
+              f"{label}, image {k}: (captures, replays, eager) {moved}, "
+              f"expected (0, {per_request}, 0)")
+        tensors = [feats] + [t for pair in chunks for t in pair]
+        for j, (t, copy) in enumerate(held):
+            check(torch.equal(t, copy), f"{label}: request {j}'s output "
+                  f"{tuple(t.shape)} changed after request {k}")
+        held = [(t, t.clone()) for t in tensors]
+        with graphs_off(matcher):
+            e_out, e_feats, e_chunks = graph_request(matcher, img)
+        e_tensors = [e_feats] + [t for pair in e_chunks for t in pair]
+        same = [torch.equal(a, b) for a, b in zip(tensors, e_tensors)]
+        check(all(same) and len(tensors) == len(e_tensors),
+              f"{label}, image {k}: graphed against eager, equal per "
+              f"tensor (features, then mask, iou per chunk) {same}")
+        same_result(f"{label}, image {k}: graphed against eager", out,
+                    e_out, exact=True)
+    before = graph_totals(matcher)
+    for i in range(GRAPH_WINDOW):
+        matcher.test(targets[i % GRAPH_IMAGES])
+    moved = [a - b for a, b in zip(graph_totals(matcher), before)]
+    check(moved == [0, GRAPH_WINDOW * per_request, 0],
+          f"{label}: (captures, replays, eager) {moved} in {GRAPH_WINDOW} "
+          f"requests, expected (0, {GRAPH_WINDOW * per_request}, 0)")
+    ms = {"graphs": [], "eager": []}
+    peak = {"graphs": [0, 0], "eager": [0, 0]}
+    for side in ("graphs", "eager", "eager", "graphs"):
+        ctx = graphs_off(matcher) if side == "eager" \
+            else contextlib.nullcontext()
+        torch.cuda.reset_peak_memory_stats()
+        with ctx:
+            for i in range(GRAPH_TIMED):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                matcher.test(targets[i % GRAPH_IMAGES])
+                ms[side].append((time.perf_counter() - t0) * 1e3)
+        peak[side] = [max(peak[side][0], torch.cuda.max_memory_allocated()),
+                      max(peak[side][1], torch.cuda.max_memory_reserved())]
+    caps = {site.name: (round(site_stat("capture_s", site), 3),
+                        site_stat("pool_bytes", site))
+            for site in graph_sites(matcher)}
+    med = {k: statistics.median(v) for k, v in ms.items()}
+    if quant == "int8":
+        graph_weight_write(matcher, targets[0], label)
+    log(f"  [{label}] {GRAPH_IMAGES} images graphed = eager bit for bit, "
+        f"each request's outputs unchanged by the next; {GRAPH_WINDOW} "
+        f"requests: {per_request} replays each, no capture, no eager call; "
+        f"fenced ms per request in turns, graphs {med['graphs']:.1f} "
+        f"(quartiles {quartiles(ms['graphs'])}), eager {med['eager']:.1f} "
+        f"({quartiles(ms['eager'])}); peak (allocated, reserved) bytes "
+        f"graphs {peak['graphs']}, eager {peak['eager']}; pool bytes "
+        f"{sum(p for _, p in caps.values())} in all; latest capture (s, "
+        f"pool bytes) per site: {caps}; on {smi}")
+    del matcher, held
+    torch.cuda.empty_cache()
+    return f"{label}: graphs {med['graphs']:.1f} ms, eager {med['eager']:.1f}"
+
+
+def site_stat(what, site):
+    """`what` of the latest key of one site (its only live one)."""
+    values = [v for k, v in site.stats[what].items() if k[0] == site.name]
+    return values[-1] if values else None
+
+
+def graph_weight_write(matcher, img, label):
+    """Under encoder_quant="int8": a weight of DINOv2 written in place after
+    the capture (its W8A8 levels are the graph's) gives the eager code's
+    features on the new weight, through a new capture of DINOv2 only."""
+    import torch
+    weight = matcher.dino.encoder.layer[0].mlp.fc1.weight
+    keep = weight.detach().clone()
+    with torch.no_grad():
+        weight.mul_(1.25)
+    try:
+        before = graph_totals(matcher)
+        _, feats, _ = graph_request(matcher, img)
+        moved = [a - b for a, b in zip(graph_totals(matcher), before)]
+        with graphs_off(matcher):
+            _, e_feats, _ = graph_request(matcher, img)
+        if not torch.equal(feats, e_feats) or moved[0] != 1:
+            fail(f"{label}: after a weight write, captures {moved[0]} "
+                 f"(expected 1), features equal to eager "
+                 f"{torch.equal(feats, e_feats)}")
+    finally:
+        with torch.no_grad():
+            weight.copy_(keep)
+    log(f"  [{label}] a W8A8 weight written after the capture: a new "
+        f"capture, features the eager code's bit for bit")
+
+
+def quartiles(values):
+    q = statistics.quantiles(values, n=4)
+    return f"{q[0]:.1f}-{q[2]:.1f}"
+
+
+def run_graphs(dev, smi):
+    """Phase 15. Returns the summary lines."""
+    return [graph_cell(dev, smi, sam2_cfg, quant)
+            for sam2_cfg, quant in GRAPH_CELLS]
+
+
 def kernel_registers():
     """`--registers`: compile every source of csrc/ once more with
     `-Xptxas -v` (all started together) and print, per kernel entry, the
@@ -6001,6 +6214,13 @@ def main():
         phase_done("14")
         print(smi)
         return 0
+    if sys.argv[1:] == ["--graphs"]:
+        log("[15] the test step's CUDA graph sites: DINOv2 and the grid "
+            "decode")
+        run_graphs(dev, smi)
+        phase_done("15")
+        print(smi)
+        return 0
     if sys.argv[1:] == ["--sam2ref"]:
         log("[11] SAM2Ref: fill, test, train, the head, the guard")
         run_sam2ref(dev, smi)
@@ -6098,6 +6318,12 @@ def main():
         totals[k] = totals.get(k, 0) + v
     summary += summary14
     phase_done("14")
+
+    log("[15] the test step's CUDA graph sites: DINOv2 and the grid decode "
+        "on SAM2-L and SAM2-S + DINOv2-L, and SAM2-L under "
+        "encoder_quant=int8")
+    summary += run_graphs(dev, smi)
+    phase_done("15")
 
     kernels = [dict(k, launches=totals[k["name"]], **kres[k["name"]],
                     amg_launches_per_image=per_amg.get(k["name"], 0),

@@ -4,7 +4,9 @@ Parameter names are those of HF `transformers.Dinov2Model`, so its
 state_dict loads unchanged. Input is NHWC; the patch embedding runs on the
 NCHW view. `quant="int8"` builds the layers' query, key, value, output,
 fc1 / fc2 and SwiGLU weights_in / weights_out as W8A8 layers
-(ops/quant.py), as the JAX package's `quant`.
+(ops/quant.py), as the JAX package's `quant`. On the card the forward pass
+replays as one CUDA graph per call (ops/graph_call.py; its counters in
+`graph_stats`).
 """
 import torch
 import torch.nn as nn
@@ -12,6 +14,7 @@ import torch.nn.functional as F
 
 from no_time_to_train_tpu_torch.models.sam2.common import LayerNorm, _gelu_act
 from no_time_to_train_tpu_torch.ops.attention import sdpa_bnhd
+from no_time_to_train_tpu_torch.ops.graph_call import GraphSite, graph_stats
 from no_time_to_train_tpu_torch.ops.quant import linear_cls
 from no_time_to_train_tpu_torch.ops.resize import resize
 
@@ -154,10 +157,26 @@ class DinoV2(nn.Module):
         self.embeddings = _Embeddings(cfg)
         self.encoder = _Encoder(cfg, quant)
         self.layernorm = LayerNorm(cfg.feat_dim, eps=1e-6)
+        self.graph_stats = graph_stats()
+        self._graph = GraphSite("dino", self.graph_stats)
+
+    def _apply(self, fn, recurse=True):
+        self._graph.reset()
+        return super()._apply(fn, recurse)
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        self._graph.reset()
+        super()._load_from_state_dict(*args, **kwargs)
 
     def forward(self, imgs, drop_prefix_tokens=True):
         """imgs: [B, S, S, 3] normalized. Returns patch features
         [B, grid*grid, D] (the CLS token dropped when asked)."""
+        impls = tuple(layer.attention.attention_impl
+                      for layer in self.encoder.layer)
+        return self._graph(lambda x: self._features(x, drop_prefix_tokens),
+                           imgs, key=(drop_prefix_tokens, impls))
+
+    def _features(self, imgs, drop_prefix_tokens):
         c = self.cfg
         emb = self.embeddings
         b, s = imgs.shape[:2]

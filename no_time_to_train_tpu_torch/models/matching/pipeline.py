@@ -20,7 +20,9 @@ boundaries (`utils/profiling.span`): `nttt.enqueue` (the body of
 `test_async` / `test_batch_async`), inside it `nttt.upload` (the host image
 to the device), `nttt.dino`, `nttt.hiera`, one `nttt.decode` per chunk and
 one `nttt.match` per image; then `nttt.fetch` (`fetch_test`) and one
-`nttt.finalize` per image (`finalize_results`, `finalize_records`).
+`nttt.finalize` per image (`finalize_results`, `finalize_records`). On the
+card DINOv2 and the decode's token-side steps replay as CUDA graphs
+(ops/graph_call.py); a capture records `nttt.capture`.
 """
 from dataclasses import dataclass
 from functools import partial

@@ -20,7 +20,8 @@ import torch.nn as nn
 
 from no_time_to_train_tpu_torch.models.sam2.common import (
     LayerNorm2d, MLP, _gelu_act, conv_transpose_2x2_s2)
-from no_time_to_train_tpu_torch.models.sam2.transformer import TwoWayTransformer
+from no_time_to_train_tpu_torch.models.sam2.transformer import (
+    TwoWayTransformer, call_step)
 from no_time_to_train_tpu_torch.ops.upscale_product import (
     fold_skips, fused_post_t1)
 
@@ -201,24 +202,42 @@ class MaskDecoder(nn.Module):
         picks the best of the multimask outputs (channels 1..3) by predicted
         IoU and computes only that mask. Returns (mask [B, 4h, 4w],
         iou [B])."""
-        tokens, s = self._tokens(sparse_prompt_embeddings)
-        bs = tokens.shape[0]
+        tokens = self._tokens(sparse_prompt_embeddings)[0]
+        return self.best_of_multimask_from_tokens(
+            image_embeddings, image_pe, tokens, dense_prompt_embeddings,
+            high_res_features)
+
+    def best_of_multimask_from_tokens(self, image_embeddings, image_pe,
+                                      tokens, dense_prompt_embeddings,
+                                      high_res_features=None,
+                                      step=call_step):
+        """`predict_best_of_multimask` on the output tokens in front of the
+        sparse prompts ([B, N, C], `_tokens`). `step` runs the token-side
+        steps (`transformer.call_step`): the transformer's, then "heads"
+        (the IoU head, the hypernetworks and the best of channels 1..3)."""
         # the image side keeps its own batch: the prompt-independent
         # projections of layer 0 are computed once per image until the keys
         # diverge per prompt
         src = image_embeddings + dense_prompt_embeddings
         h, w = src.shape[1:3]
-        hs, src_out = self.transformer(src, image_pe[None], tokens)
+        hs, src_out = self.transformer(src, image_pe[None], tokens,
+                                       step=step)
+        hyper, iou = step("heads", self._best_heads, hs)
+        return self._upscale_product_unshuffled(
+            src_out, hyper, h, w, high_res_features), iou
+
+    def _best_heads(self, hs):
+        """(the hypernetwork output [B, C / 8] and the IoU [B] of the best
+        of channels 1..3) from the transformer's tokens hs."""
+        s = 1 if self.pred_obj_scores else 0
         iou_pred = self.iou_prediction_head(hs[:, s])
         mask_tokens_out = hs[:, s + 1: s + 1 + self.num_mask_tokens]
         best = torch.argmax(iou_pred[:, 1:], dim=-1) + 1
-        bi = torch.arange(bs, device=best.device)
+        bi = torch.arange(hs.shape[0], device=best.device)
         hyper_all = torch.stack(
             [self.output_hypernetworks_mlps[i](mask_tokens_out[:, i])
              for i in range(self.num_mask_tokens)], dim=1)
-        mask = self._upscale_product_unshuffled(
-            src_out, hyper_all[bi, best], h, w, high_res_features)
-        return mask, iou_pred[bi, best]
+        return hyper_all[bi, best], iou_pred[bi, best]
 
     def _upscale_product_unshuffled(self, src_flat, hyper, h, w,
                                     high_res_features):

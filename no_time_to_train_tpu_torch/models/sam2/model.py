@@ -5,13 +5,16 @@ Holds the image encoder, the prompt encoder, the mask decoder and the
 video-memory modules under the reference's state_dict names:
   - forward_image: Hiera + FPN (+ conv_s0 / conv_s1 on the two
     high-resolution levels);
-  - forward_sam_heads_best: the grid decode of the matching pipeline;
+  - forward_sam_heads_best: the grid decode of the matching pipeline, its
+    token-side steps CUDA graph replays on the card;
   - forward_sam_heads: prompt encoder + mask decoder with the object
     pointer (sam2_base.py:251-455);
   - encode_memory / memory_conditioned_features / no_mem_features: the
     video-memory path (sam2_base.py:539-760).
 Image tensors are NHWC; mask logits [B, M, H, W].
 """
+from functools import partial
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -23,6 +26,7 @@ from no_time_to_train_tpu_torch.models.sam2.memory_attention import (
 from no_time_to_train_tpu_torch.models.sam2.memory_encoder import MemoryEncoder
 from no_time_to_train_tpu_torch.models.sam2.neck import Sam2ImageEncoder
 from no_time_to_train_tpu_torch.models.sam2.prompt_encoder import PromptEncoder
+from no_time_to_train_tpu_torch.ops.graph_call import GraphSite, graph_stats
 from no_time_to_train_tpu_torch.ops.resize import resize_hw
 
 __all__ = ["SAM2", "NO_OBJ_SCORE"]
@@ -73,6 +77,23 @@ class SAM2(nn.Module):
                 if c.use_mlp_for_obj_ptr_proj
                 else nn.Linear(c.hidden_dim, c.hidden_dim))
             self.mask_downsample = nn.Conv2d(1, 1, 4, stride=4)
+        self.graph_stats = graph_stats()
+        steps = ["prompts", "heads"] + [
+            f"{i}.{half}"
+            for i in range(len(self.sam_mask_decoder.transformer.layers))
+            for half in ("attend", "mlp")]
+        self._decode_graphs = {n: GraphSite(f"decode.{n}", self.graph_stats)
+                               for n in steps}
+
+    def _apply(self, fn, recurse=True):
+        for site in self._decode_graphs.values():
+            site.reset()
+        return super()._apply(fn, recurse)
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        for site in self._decode_graphs.values():
+            site.reset()
+        super()._load_from_state_dict(*args, **kwargs)
 
     # ------------------------------------------------------------------ image
     def forward_image(self, imgs):
@@ -94,13 +115,35 @@ class SAM2(nn.Module):
         """Grid decode: point prompts [B, 1, 2] / labels [B, 1] against the
         features [Bi, h, w, C] of Bi images (high_res_features with Bi rows
         too); every image is decoded at every prompt. Returns (mask
-        [Bi * B, 4h, 4w] in the compute dtype, iou [Bi * B]), image-major."""
+        [Bi * B, 4h, 4w] in the compute dtype, iou [Bi * B]), image-major.
+        On the card the token-side steps replay as CUDA graphs
+        (ops/graph_call.py; counters in `graph_stats`): the prompt tokens,
+        each transformer layer's self-attention and MLP halves, and the
+        heads with the best of three; the image-side kernels (K2, K3, K4)
+        run between them."""
         pe = self.sam_prompt_encoder
-        sparse = pe.embed_points(point_coords, point_labels)
-        sparse = sparse.repeat(backbone_features.shape[0], 1, 1)
-        return self.sam_mask_decoder.predict_best_of_multimask(
-            backbone_features, pe.get_dense_pe(), sparse, pe.no_mask_dense(),
-            high_res_features=high_res_features)
+        n_img = backbone_features.shape[0]
+        tokens = self._decode_step(
+            "prompts", partial(self._prompt_tokens, n_img=n_img),
+            point_coords, point_labels, key=(n_img,))
+        return self.sam_mask_decoder.best_of_multimask_from_tokens(
+            backbone_features, pe.get_dense_pe(), tokens, pe.no_mask_dense(),
+            high_res_features=high_res_features, step=self._decode_step)
+
+    def _prompt_tokens(self, point_coords, point_labels, n_img):
+        """The decoder's output tokens in front of the points' embeddings,
+        repeated for each of n_img images: [n_img * B, N, C]."""
+        sparse = self.sam_prompt_encoder.embed_points(point_coords,
+                                                      point_labels)
+        return self.sam_mask_decoder._tokens(sparse.repeat(n_img, 1, 1))[0]
+
+    def _decode_step(self, name, fn, *args, key=()):
+        """One token-side step of the grid decode through its graph site.
+        Its outputs are consumed within the chunk, before the step's next
+        call, so they are the graph's own buffers (scratch), except the
+        IoU that "heads" returns."""
+        return self._decode_graphs[name](
+            fn, *args, key=key, scratch=(0,) if name == "heads" else (0, 1))
 
     def forward_sam_heads(self, backbone_features, point_coords=None,
                           point_labels=None, mask_inputs=None,

@@ -12,11 +12,19 @@ of an image lying together: layer 0 then projects the keys once per image
 and, for an image pair, takes `fused_i2t_norm_pair`; from layer 0's output
 on the keys are per prompt, [Bi * P, n, C].
 
+The token-side work between the image-side passes runs as named steps,
+`step(name, fn, *args, key=())` (`call_step`: a plain call): each layer's
+self-attention half ("<i>.attend") and its MLP half ("<i>.mlp"). The grid
+decode passes its CUDA graph sites as `step` (models/sam2/model.py); the
+image-side passes stay outside the graphs, so that nothing a graph holds
+between calls is as large as the per-prompt image side.
+
 `RoPEAttention` is the attention of the video memory path (self-attention
 and memory cross-attention); under `attention_impl="pallas"` its long
 sequences take `flash_sdpa` and `flash_sdpa_masked` through `sdpa`.
 """
 import math
+from functools import partial
 
 import torch
 import torch.nn as nn
@@ -31,7 +39,17 @@ from no_time_to_train_tpu_torch.ops.decoder_attention import (
 from no_time_to_train_tpu_torch.ops.upscale_product import fusion_disabled
 
 __all__ = ["Attention", "RoPEAttention", "TwoWayAttentionBlock",
-           "TwoWayTransformer"]
+           "TwoWayTransformer", "call_step"]
+
+
+def call_step(name, fn, *args, key=()):
+    """Run one named token-side step of the decoder: fn(*args). `key` names
+    what fn takes besides its tensors (for a graph site in its place)."""
+    return fn(*args)
+
+
+def _prefixed(step, prefix, name, fn, *args, key=()):
+    return step(prefix + name, fn, *args, key=key)
 
 
 def _skip_mask(n_q, n_k, skip_last_n_keys, is_cross_skip, device):
@@ -177,27 +195,20 @@ class TwoWayAttentionBlock(nn.Module):
         self.norm4 = LayerNorm(embedding_dim)
         self.skip_first_layer_pe = skip_first_layer_pe
 
-    def forward(self, queries, keys, query_pe, key_pe, skip_last_n_keys=0):
-        if self.skip_first_layer_pe:
-            queries = self.self_attn(queries, queries, queries,
-                                     skip_last_n_keys=skip_last_n_keys)
-        else:
-            q = queries + query_pe
-            queries = queries + self.self_attn(
-                q, q, queries, skip_last_n_keys=skip_last_n_keys)
-        queries = self.norm1(queries)
+    def forward(self, queries, keys, query_pe, key_pe, skip_last_n_keys=0,
+                step=call_step):
+        queries, q = step(
+            "attend", partial(self._attend, skip_last_n_keys=skip_last_n_keys),
+            queries, query_pe, key=(skip_last_n_keys,))
 
         # token -> image never carries the skip mask (reference)
-        q = queries + query_pe
         t2i = self.cross_attn_token_to_image
         if t2i.i2t_fusible(keys, key_pe, q, 0):
             attn_out = t2i.t2i_fused(keys, key_pe, q)
         else:
             attn_out = t2i(q, keys + key_pe, keys)
-        queries = self.norm2(queries + attn_out)
-        queries = self.norm3(queries + self.mlp(queries))
+        queries, q = step("mlp", self._mlp, queries, attn_out, query_pe)
 
-        q = queries + query_pe
         i2t = self.cross_attn_image_to_token
         if i2t.i2t_fusible(keys, key_pe, q, skip_last_n_keys):
             keys = i2t.i2t_fused_with_norm(keys, key_pe, q, queries,
@@ -208,6 +219,25 @@ class TwoWayAttentionBlock(nn.Module):
                            is_cross_skip=True)
             keys = self.norm4(per_prompt(keys, attn_out.shape[0]) + attn_out)
         return queries, keys
+
+    def _attend(self, queries, query_pe, skip_last_n_keys=0):
+        """The self-attention half: (queries, queries + query_pe)."""
+        if self.skip_first_layer_pe:
+            queries = self.self_attn(queries, queries, queries,
+                                     skip_last_n_keys=skip_last_n_keys)
+        else:
+            q = queries + query_pe
+            queries = queries + self.self_attn(
+                q, q, queries, skip_last_n_keys=skip_last_n_keys)
+        queries = self.norm1(queries)
+        return queries, queries + query_pe
+
+    def _mlp(self, queries, attn_out, query_pe):
+        """The MLP half after the token -> image attention: (queries,
+        queries + query_pe)."""
+        queries = self.norm2(queries + attn_out)
+        queries = self.norm3(queries + self.mlp(queries))
+        return queries, queries + query_pe
 
 
 class TwoWayTransformer(nn.Module):
@@ -224,18 +254,20 @@ class TwoWayTransformer(nn.Module):
         self.norm_final_attn = LayerNorm(embedding_dim)
 
     def forward(self, image_embedding, image_pe, point_embedding,
-                skip_last_n_keys=0):
+                skip_last_n_keys=0, step=call_step):
         """image_embedding [Bi, h, w, C] (Bi images, each shared by P / Bi
         prompts that lie together, or one image per prompt), image_pe
         [1 or Bi, h, w, C]; point_embedding [P, N, C]. Returns
-        (queries [P, N, C], keys [P, hw, C])."""
+        (queries [P, N, C], keys [P, hw, C]). Layer i's token-side steps
+        are named "<i>.attend" and "<i>.mlp"."""
         bi, h, w, c = image_embedding.shape
         keys = image_embedding.reshape(bi, h * w, c)
         key_pe = image_pe.reshape(image_pe.shape[0], h * w, c)
         queries = point_embedding
-        for layer in self.layers:
+        for i, layer in enumerate(self.layers):
             queries, keys = layer(queries, keys, point_embedding, key_pe,
-                                  skip_last_n_keys=skip_last_n_keys)
+                                  skip_last_n_keys=skip_last_n_keys,
+                                  step=partial(_prefixed, step, f"{i}."))
         q = queries + point_embedding
         fa = self.final_attn_token_to_image
         if fa.i2t_fusible(keys, key_pe, q, skip_last_n_keys):

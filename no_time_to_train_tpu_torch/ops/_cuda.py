@@ -7,6 +7,8 @@ linked into one shared library with a plain C interface, bound with
 (listed in .gitignore) under a name that carries a hash of the sources, so an
 edited source never loads a stale build. Nothing here runs at import time.
 """
+import contextlib
+import contextvars
 import ctypes
 import hashlib
 import os
@@ -18,14 +20,19 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["lib", "build_seconds", "check", "count", "dtype_code",
-           "no_grad_operands", "require", "stream_ptr"]
+__all__ = ["lib", "build_seconds", "check", "count", "count_replay",
+           "dtype_code", "no_grad_operands", "recorded_launches", "require",
+           "stream_ptr"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 _LOCK = threading.Lock()
 _COUNT_LOCK = threading.Lock()
 _STATE = {"lib": None, "build_s": None}
+# the list of an open `recorded_launches()` (a contextvar: a capture in one
+# thread does not take another thread's launches)
+_RECORDED = contextvars.ContextVar("nttt_torch_recorded_launches",
+                                   default=None)
 
 _VP, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _SIGNATURES = {
@@ -154,9 +161,34 @@ def check(err, name):
 def count(launches, name):
     """Add one launch of `name` to a wrapper's counter dict. Replicas of a
     model launch from several threads at once (`parallel/mesh.py`), so the
-    add holds a lock."""
+    add holds a lock. Inside `recorded_launches()` the launch is listed
+    instead of counted."""
+    rec = _RECORDED.get()
+    if rec is not None:
+        rec.append((launches, name))
+        return
     with _COUNT_LOCK:
         launches[name] += 1
+
+
+@contextlib.contextmanager
+def recorded_launches():
+    """Yield the list of the launches made inside, which are not counted: a
+    CUDA graph's capture runs no kernel; `count_replay` counts them at each
+    replay."""
+    rec = []
+    tok = _RECORDED.set(rec)
+    try:
+        yield rec
+    finally:
+        _RECORDED.reset(tok)
+
+
+def count_replay(recorded):
+    """Count the launches of `recorded_launches()` once more."""
+    with _COUNT_LOCK:
+        for launches, name in recorded:
+            launches[name] += 1
 
 
 def dtype_code(dtype):

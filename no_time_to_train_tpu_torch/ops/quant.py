@@ -49,6 +49,7 @@ import torch
 import torch.nn as nn
 
 from no_time_to_train_tpu_torch.ops import _cuda
+from no_time_to_train_tpu_torch.ops.graph_inputs import held
 from no_time_to_train_tpu_torch.ops.upscale_product import fusion_disabled
 
 __all__ = ["GemmPlan", "Int8Linear", "gemm_plan", "int8_gemm",
@@ -422,7 +423,8 @@ class Int8Linear(nn.Linear):
     def quantized_weight(self):
         """(levels [F, C16], scales [F]) of the weight, quantized again
         after any write to it; the kernel's and the plain version's are
-        kept apart."""
+        kept apart. A CUDA graph that reads them keeps them, and is
+        dropped after a write to the weight (`held`)."""
         w = self.weight
         plain = _plain(w)
         hit = self._quantized.get(plain)
@@ -431,7 +433,7 @@ class Int8Linear(nn.Linear):
             ref = w.detach()        # holds the storage: its address stays
             hit = (ref, w._version, quant_rows(ref.contiguous()))
             self._quantized[plain] = hit
-        return hit[2]
+        return held(hit[2], source=w)
 
     def forward(self, x):
         return _linear(x, self.quantized_weight(), self.bias, x.dtype)

@@ -1,0 +1,309 @@
+"""The policy of `ops/graph_call.GraphSite` on the CPU, with a stand-in for
+the CUDA graph whose replay runs the captured function on the static
+inputs: capture on a key's second consecutive call, one live graph per
+site, eager calls for alternating keys, returned tensors that never alias
+a static buffer, launch counters that count each call once, a graph
+dropped after a write to a table's source; and the DINOv2 and grid-decode
+sites of the tiny models, which on the CPU run the eager code unchanged,
+and through the stand-in give the same bits, also after their weights
+are written, with no per-prompt image-side tensor in a decode graph."""
+import copy
+
+import pytest
+import torch
+
+from no_time_to_train_tpu_torch.config.presets import (
+    EncoderConfig, Sam2Config)
+from no_time_to_train_tpu_torch.models.dino import DinoV2
+from no_time_to_train_tpu_torch.models.sam2.model import SAM2
+from no_time_to_train_tpu_torch.ops import _cuda
+from no_time_to_train_tpu_torch.ops.graph_call import (
+    GraphSite, _Captured, graph_stats)
+from no_time_to_train_tpu_torch.ops.graph_inputs import held, holding
+from no_time_to_train_tpu_torch.ops.upscale_product import no_fusion
+from no_time_to_train_tpu_torch.utils.init import init_random_
+
+
+class _StandIn:
+    """A captured graph: `replay` runs `fn` on the static inputs and writes
+    its outputs into the static outputs."""
+
+    def __init__(self, fn, static_in, static_out):
+        self.fn, self.static_in, self.static_out = fn, static_in, static_out
+
+    def replay(self):
+        with _cuda.recorded_launches():      # counted by the site
+            outs = self.fn(*self.static_in)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        for o, r in zip(self.static_out, outs):
+            o.copy_(r)
+
+
+class StandInSite(GraphSite):
+    """A site that takes the graph path on the CPU, its capture a stand-in
+    with the real launch recording."""
+
+    def _capturable(self, args):
+        return not torch.is_grad_enabled()
+
+    @staticmethod
+    def _new_graph(fn, args, k):
+        static_in = tuple(a.clone() for a in args)
+        with _cuda.recorded_launches():
+            fn(*static_in)                   # the eager run, dropped
+        with holding() as tables, _cuda.recorded_launches() as launches:
+            static_out = fn(*static_in)
+        live = _Captured(k, None, static_in, static_out, tables, launches)
+        live.graph = _StandIn(fn, static_in, live.static_out)
+        return live, 0
+
+
+LAUNCHES = {"k": 0}
+
+
+def _fn(x, y):
+    _cuda.count(LAUNCHES, "k")
+    return x * 2 + y, (x - y).sum(-1)
+
+
+def _site():
+    return StandInSite("t", graph_stats())
+
+
+def _args(seed, n=4):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(n, 3, generator=g), torch.randn(n, 3, generator=g)
+
+
+def _count(stats, what):
+    return sum(stats[what].values())
+
+
+@torch.no_grad()
+def test_capture_on_second_consecutive_call():
+    site = _site()
+    for i in range(5):
+        a = _args(i)
+        got = site(_fn, *a)
+        want = _fn(*a)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        seen = [_count(site.stats, w) for w in ("eager", "captures",
+                                                "replays")]
+        assert seen == [1, 0, 0] if i == 0 else (
+            [1, 1, 0] if i == 1 else [1, 1, i - 1])
+    assert site._live is not None
+
+
+@torch.no_grad()
+def test_one_graph_per_site_and_a_new_key_drops_it():
+    site = _site()
+    site(_fn, *_args(0))
+    site(_fn, *_args(1))                      # captures key A
+    first = site._live
+    site(_fn, *_args(2, n=6))                 # key B: drops A, eager
+    assert site._live is None
+    site(_fn, *_args(3, n=6))                 # captures B
+    assert site._live is not None and site._live is not first
+    assert site._live.key[0][0] == ((6, 3), torch.float32)
+    assert _count(site.stats, "captures") == 2
+    assert len(site.stats["captures"]) == 2   # one entry per (site, key)
+
+
+@torch.no_grad()
+def test_alternating_keys_stay_eager():
+    site = _site()
+    for i in range(8):
+        site(_fn, *_args(i, n=4 + i % 2))
+    assert _count(site.stats, "captures") == 0
+    assert _count(site.stats, "eager") == 8
+    assert site._live is None
+
+
+@torch.no_grad()
+def test_the_site_key_and_no_fusion_are_part_of_the_key():
+    site = _site()
+    site(_fn, *_args(0), key=("a",))
+    site(_fn, *_args(1), key=("b",))
+    with no_fusion():
+        site(_fn, *_args(2), key=("b",))
+    assert _count(site.stats, "captures") == 0
+
+
+@torch.no_grad()
+def test_outputs_are_fresh_except_scratch():
+    site = _site()
+    for i in range(2):
+        site(_fn, *_args(i))
+    first = site(_fn, *_args(10))
+    kept = [t.clone() for t in first]
+    static = site._live.static_out
+    for t in first:
+        assert all(t.untyped_storage().data_ptr()
+                   != s.untyped_storage().data_ptr() for s in static)
+    site(_fn, *_args(11))
+    assert all(torch.equal(t, k) for t, k in zip(first, kept))
+    # a scratch output is the static buffer, valid until the next call
+    out, _ = site(_fn, *_args(12), scratch=(0,))
+    assert out.data_ptr() == static[0].data_ptr()
+    assert torch.equal(out, _fn(*_args(12))[0])
+
+
+@torch.no_grad()
+def test_a_write_to_a_source_drops_the_graph():
+    w = torch.arange(3.0)
+
+    def fn(x):
+        return x + held(w * 2, source=w)
+
+    site = _site()
+    x = torch.ones(4, 3)
+    for _ in range(3):                        # eager, capture, replay
+        site(fn, x)
+    assert len(site._live.held.sources) == 1
+    with torch.no_grad():
+        w.add_(1)
+    assert torch.equal(site(fn, x), x + w * 2)
+    assert [_count(site.stats, k) for k in ("eager", "captures",
+                                            "replays")] == [1, 2, 1]
+    site(fn, x)
+    assert _count(site.stats, "replays") == 2
+
+
+@torch.no_grad()
+def test_launch_counters_count_each_call_once():
+    site = _site()
+    before = LAUNCHES["k"]
+    for i in range(5):
+        site(_fn, *_args(i))
+    assert LAUNCHES["k"] - before == 5
+
+
+def test_grad_mode_stays_eager():
+    site = _site()
+    for i in range(3):
+        site(_fn, *_args(i))
+    assert _count(site.stats, "eager") == 0 and site._live is None
+
+
+def test_a_copied_module_starts_without_a_graph():
+    site = _site()
+    with torch.no_grad():
+        for i in range(2):
+            site(_fn, *_args(i))
+    owner = {"stats": site.stats, "site": site}
+    twin = copy.deepcopy(owner)
+    assert twin["site"]._live is None and twin["site"]._last is None
+    assert twin["site"].stats is twin["stats"]
+    assert twin["stats"] == site.stats and twin["stats"] is not site.stats
+
+
+SAM_CFG = Sam2Config(
+    embed_dim=32, num_heads=1, stages=(1, 1, 1, 1), global_att_blocks=(2,),
+    window_pos_embed_bkg_spatial_size=(2, 2), window_spec=(4, 2, 4, 2),
+    backbone_channel_list=(256, 128, 64, 32), image_size=128)
+DINO_CFG = EncoderConfig("tiny", 28, 14, 32, 2, 2, "local")
+
+
+@pytest.fixture(scope="module")
+def models():
+    sam2, dino = SAM2(SAM_CFG), DinoV2(DINO_CFG)
+    init_random_(sam2, torch.Generator().manual_seed(0))
+    init_random_(dino, torch.Generator().manual_seed(1))
+    return sam2.eval(), dino.eval()
+
+
+def _decode_inputs(seed, n=16):
+    g = torch.Generator().manual_seed(seed)
+    feats = torch.randn(1, 8, 8, 256, generator=g)
+    hr = [torch.randn(1, 32, 32, 32, generator=g),
+          torch.randn(1, 16, 16, 64, generator=g)]
+    pts = torch.rand(n, 1, 2, generator=g) * 128
+    return feats, pts, torch.ones(n, 1, dtype=torch.long), hr
+
+
+def _decode_before(sam2, feats, pts, labels, hr):
+    """The grid decode as one `predict_best_of_multimask` call."""
+    pe = sam2.sam_prompt_encoder
+    sparse = pe.embed_points(pts, labels).repeat(feats.shape[0], 1, 1)
+    return sam2.sam_mask_decoder.predict_best_of_multimask(
+        feats, pe.get_dense_pe(), sparse, pe.no_mask_dense(),
+        high_res_features=hr)
+
+
+@pytest.mark.parametrize("site", ["cpu", "stand-in"])
+@torch.no_grad()
+def test_sites_equal_the_eager_path(models, site):
+    """Four calls on distinct inputs: through the real site (eager on the
+    CPU, no counter moves) or the stand-in (eager, capture, two replays),
+    each bit for bit the eager code, and each result unchanged by the
+    calls after it."""
+    sam2, dino = models
+    if site == "stand-in":
+        sam2, dino = _stand_in(sam2, dino)
+    kept = []
+    for i in range(4):
+        imgs = torch.randn(1, 28, 28, 3,
+                           generator=torch.Generator().manual_seed(i))
+        feats = dino(imgs)
+        assert torch.equal(feats, dino._features(imgs, True))
+        args = _decode_inputs(i)
+        mask, iou = sam2.forward_sam_heads_best(*args)
+        want = _decode_before(sam2, *args)
+        assert torch.equal(mask, want[0]) and torch.equal(iou, want[1])
+        kept.append([(t, t.clone()) for t in (feats, mask, iou)])
+    # another key: the CLS token kept
+    assert torch.equal(dino(imgs, drop_prefix_tokens=False),
+                       dino._features(imgs, False))
+    for held in kept:
+        assert all(torch.equal(t, c) for t, c in held)
+    if site == "cpu":
+        assert all(not v for v in sam2.graph_stats.values())
+        assert all(not v for v in dino.graph_stats.values())
+    else:
+        steps = len(sam2._decode_graphs)
+        for st, eager, n in ((dino.graph_stats, 2, 1),
+                             (sam2.graph_stats, 1, steps)):
+            assert [_count(st, w) for w in ("eager", "captures",
+                                            "replays")] == [
+                eager * n, n, 2 * n]
+        # each decode graph holds token-side tensors only: none is as large
+        # as the tokens of every prompt ([B, N, C])
+        tokens = sam2._decode_graphs["prompts"]._live.static_out[0]
+        for site in sam2._decode_graphs.values():
+            for t in site._live.static_in + site._live.static_out:
+                assert t.numel() <= tokens.numel()
+
+
+def _stand_in(sam2, dino):
+    sam2, dino = copy.deepcopy(sam2), copy.deepcopy(dino)
+    sam2._decode_graphs = {n: StandInSite(f"decode.{n}", sam2.graph_stats)
+                           for n in sam2._decode_graphs}
+    dino._graph = StandInSite("dino", dino.graph_stats)
+    return sam2, dino
+
+
+@torch.no_grad()
+def test_weights_written_after_a_capture_give_fresh_results():
+    """W8A8 DINOv2 through the stand-in: after a capture, weights written in
+    place (the levels' source) and then loaded from a state dict each give
+    the eager code's result on the new weights, through a new capture."""
+    dino = DinoV2(DINO_CFG, quant="int8")
+    init_random_(dino, torch.Generator().manual_seed(2))
+    dino.eval()
+    dino._graph = StandInSite("dino", dino.graph_stats)
+    imgs = torch.randn(1, 28, 28, 3,
+                       generator=torch.Generator().manual_seed(3))
+    for _ in range(3):
+        dino(imgs)
+    assert _count(dino.graph_stats, "captures") == 1
+    assert len(dino._graph._live.held.sources) > 0
+    fc1 = dino.encoder.layer[0].mlp.fc1.weight
+    fc1.mul_(1.5)
+    assert torch.equal(dino(imgs), dino._features(imgs, True))
+    assert _count(dino.graph_stats, "captures") == 2
+    state = {k: v * 0.5 for k, v in dino.state_dict().items()}
+    dino.load_state_dict(state)
+    assert dino._graph._live is None
+    for _ in range(2):
+        assert torch.equal(dino(imgs), dino._features(imgs, True))
+    assert _count(dino.graph_stats, "captures") == 3

@@ -15,6 +15,12 @@ Derivation per image, for a configuration's topology `t`:
   - DINOv2 at S x S with patch p, N = (S/p)^2 + 1 tokens, width D:
     patch projection 2 (N-1) 3 p^2 D; per layer q, k, v, o 8 N D^2,
     MLP (ratio r) 4 r N D^2, attention 4 N^2 D.
+  - DINOv3 (`family` "dinov3") at S x S with patch p, g = S/p: N = g^2 + 1
+    + R tokens (CLS and R registers, no position embedding), width D, MLP
+    width H: patch projection 2 g^2 3 p^2 D; per layer q, k, v, o 8 N D^2,
+    attention 4 N^2 D, MLP 4 N D H (up, down), or 6 N D H when gated
+    (gate, up, down); RoPE, LayerScale and the gate's product are
+    elementwise and not counted.
   - Hiera at S x S: the 7x7 stride-4 patch projection 2 (S/4)^2 147 C0;
     per block with input grid h x h, width d -> d_out, w x w windows
     (w = 0: global): dimension-change projection 2 h^2 d d_out, qkv
@@ -50,9 +56,14 @@ __all__ = ["dino_flops", "hiera_blocks", "hiera_block_flops", "hiera_flops",
 def dino_flops(dino):
     s, p, d = dino["img_size"], dino["patch_size"], dino["dim"]
     g = s // p
-    n = g * g + 1
-    per_layer = 8 * n * d * d + 4 * dino["mlp_ratio"] * n * d * d \
-        + 4 * n * n * d
+    if dino.get("family", "dinov2") == "dinov3":
+        n = g * g + 1 + dino["registers"]
+        mlp = (6 if dino["gated"] else 4) * n * d * dino["mlp_hidden"]
+        per_layer = 8 * n * d * d + 4 * n * n * d + mlp
+    else:
+        n = g * g + 1
+        per_layer = 8 * n * d * d + 4 * dino["mlp_ratio"] * n * d * d \
+            + 4 * n * n * d
     return 2 * g * g * 3 * p * p * d + dino["depth"] * per_layer
 
 

@@ -9,7 +9,7 @@ the most valid outputs, run through the plain float32 reference
 prototypes computed again from the same reference images. Each request's
 own outputs are judged against the reference:
 
-  dino_cos     DINOv2's patch features of the request against the
+  dino_cos     the DINO encoder's patch features of the request against the
                reference's: the mean over patches of 1 - their cosine (the
                matcher reads these features only through cosines);
   fpn_cos      the image encoder's coarsest FPN level (the decoder's image
@@ -34,7 +34,7 @@ own outputs are judged against the reference:
   tail_gap     the outputs that the program's list and the reference's
                do not share, the reference's scoring, NMS, IoS and top-K
                run on the program's own decode (every prompt's mask > 0
-               and predicted IoU, captured) and DINOv2 features, so that
+               and predicted IoU, captured) and DINO features, so that
                the two lists can differ only where a decision sits within
                rounding of its threshold. Per output in one list and not
                the other, how clearly the reference decides it: the least
@@ -104,8 +104,8 @@ def sample_keys(kept, planned):
 
 class Capture:
     """Keeps, for the planned inputs, what the program's timed path
-    produced inside the latest request on each: DINOv2's patch features
-    and the image encoder's coarsest FPN level (forward hooks on the
+    produced inside the latest request on each: the DINO encoder's patch
+    features and the image encoder's coarsest FPN level (forward hooks on the
     matcher's `dino` and `sam2.image_encoder`), and from the grid decode
     (a wrapper on `sam2.forward_sam_heads_best`) every prompt's predicted
     IoU, every prompt's mask > 0 packed 8 pixels a byte, and the mask

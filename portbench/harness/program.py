@@ -7,8 +7,11 @@ bfloat16, the type the configurations serve in, then set leaf by leaf by
 the rule of the program's own seeded init (norm scales and layer scales 1,
 biases 0, embeddings and the random-Fourier matrix standard normal, other
 weights normal / sqrt(fan_in)). The names and shapes are those of the
-reference checkpoints (SAM2's `.pt`, HF `Dinov2Model`), read from the
-program's modules built on the meta device. The host keeps float32 copies:
+reference checkpoints (SAM2's `.pt`, HF `Dinov2Model` or `DINOv3ViTModel`),
+read from the modules that the program's own `NoAMGMatcher` builds on the
+meta device: its choice of encoder module by the preset's family (and, for
+DINOv3, its gating rule) is the one the weights follow, so a new preset
+reaches the benchmark through the program. The host keeps float32 copies:
 the matcher loads them, and the reference reads the same values after the
 measured window.
 """
@@ -54,12 +57,34 @@ def _leaf_rules(model):
     return out
 
 
+def _matching(config, overrides=None):
+    from no_time_to_train_tpu_torch.models.matching.pipeline import (
+        MatchingConfig)
+    fields = {f.name for f in dataclasses.fields(MatchingConfig)}
+    opts = {k: v for k, v in config["matching"].items() if k in fields}
+    opts.update(overrides or {})
+    return MatchingConfig(**opts)
+
+
 def _spec(config):
-    from no_time_to_train_tpu_torch.models.dino import DinoV2
-    from no_time_to_train_tpu_torch.models.sam2.model import SAM2
+    """(SAM2's, the encoder's) leaf rules in state-dict order, from the
+    modules that `NoAMGMatcher` builds for the configuration, on the meta
+    device and in the reference's layout (`encoder_quant` "none")."""
+    from no_time_to_train_tpu_torch.models.matching.pipeline import (
+        NoAMGMatcher)
+
+    class MetaMatcher(NoAMGMatcher):
+        def _build(self, cls, cfg, state_dict, seed):
+            with torch.device("meta"):
+                return cls(cfg)
+
     sam2_cfg, enc_cfg = program_configs(config)
-    with torch.device("meta"):
-        return _leaf_rules(SAM2(sam2_cfg)), _leaf_rules(DinoV2(enc_cfg))
+    bank = config["bank"]
+    m = MetaMatcher(sam2_cfg, enc_cfg,
+                    _matching(config, {"encoder_quant": "none"}),
+                    n_classes=bank["classes"], memory_length=bank["shots"],
+                    device="meta")
+    return _leaf_rules(m.sam2), _leaf_rules(m.dino)
 
 
 @torch.no_grad()
@@ -101,13 +126,10 @@ def build_matcher(config, sam2_sd, dino_sd, device, overrides=None):
     """`NoAMGMatcher` with the configuration's matching options (and
     `overrides` of them: the control's `encoder_quant`)."""
     from no_time_to_train_tpu_torch.models.matching.pipeline import (
-        MatchingConfig, NoAMGMatcher)
+        NoAMGMatcher)
     sam2_cfg, enc_cfg = program_configs(config)
-    fields = {f.name for f in dataclasses.fields(MatchingConfig)}
-    opts = {k: v for k, v in config["matching"].items() if k in fields}
-    opts.update(overrides or {})
     bank = config["bank"]
-    return NoAMGMatcher(sam2_cfg, enc_cfg, MatchingConfig(**opts),
+    return NoAMGMatcher(sam2_cfg, enc_cfg, _matching(config, overrides),
                         n_classes=bank["classes"], memory_length=bank["shots"],
                         sam2_state_dict=sam2_sd, dino_state_dict=dino_sd,
                         device=device)

@@ -18,9 +18,9 @@ import torch.nn.functional as F
 
 from portbench.reference import models
 
-__all__ = ["float32_exact", "normalize", "prototypes", "Step", "match",
-           "mask_boxes", "box_iou", "analysis_masks", "semantic_ios",
-           "upsample"]
+__all__ = ["float32_exact", "normalize", "ref_block", "prototypes", "Step",
+           "match", "mask_boxes", "box_iou", "analysis_masks",
+           "semantic_ios", "upsample"]
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -58,13 +58,34 @@ def _l2n(x):
     return x / x.norm(dim=-1, keepdim=True).clamp(min=1e-12)
 
 
+# a block of references in `prototypes`: at most 8, and its encoder's
+# largest float32 intermediates within 4 GiB
+REF_BLOCK, REF_BLOCK_BYTES = 8, 4 * 2 ** 30
+
+
+def ref_block(dino_cfg):
+    """References a block of `prototypes`: `REF_BLOCK`, fewer where three
+    copies of a block's attention logits, or of its MLP's hidden rows, in
+    float32 pass `REF_BLOCK_BYTES`, so that a wide encoder's blocks fit
+    beside its weights."""
+    g = dino_cfg["img_size"] // dino_cfg["patch_size"]
+    n = g * g + 1 + dino_cfg.get("registers", 0)
+    hidden = dino_cfg.get("mlp_hidden",
+                          dino_cfg.get("mlp_ratio", 4) * dino_cfg["dim"])
+    per_image = 3 * 4 * max(dino_cfg["heads"] * n * n, 2 * n * hidden)
+    return max(1, min(REF_BLOCK, REF_BLOCK_BYTES // per_image))
+
+
 @torch.no_grad()
 def prototypes(dino_sd, dino_cfg, ref_imgs, ref_masks, cat_inds, n_classes,
-               block=8):
+               block=None):
     """Class prototypes [C, D]: per reference the mask-weighted mean of its
-    DINOv2 patch features (the mask resized to the patch grid by nearest),
-    per class the L2-normalized mean of its references' means.
+    DINO patch features (the mask resized to the patch grid by nearest),
+    per class the L2-normalized mean of its references' means, the
+    references run through the encoder in blocks of `block` (`ref_block`
+    where None).
     ref_imgs [R, S, S, 3] in [0, 1]; ref_masks [R, Hm, Wm]."""
+    block = block or ref_block(dino_cfg)
     e, p = dino_cfg["img_size"], dino_cfg["patch_size"]
     gs = e // p
     sums = None
@@ -203,7 +224,7 @@ class Step:
 @torch.no_grad()
 def match(tar_feat, masks, iou, protos, dino_cfg, m, lr=None):
     """Scoring, class-aware box NMS, the semantic-IoS decay and the top-K
-    of one image: tar_feat [gs * gs, D] DINOv2 patch features, masks
+    of one image: tar_feat [gs * gs, D] DINO patch features, masks
     [P, r, r] bool (the decoded masks > 0), iou [P] predicted IoUs, protos
     [C, D]. `lr` (the logits) is read only where `analysis_res` differs
     from r. Returns per prompt `sim` [P, C], `feats` [P, D], `boxes`

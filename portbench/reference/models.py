@@ -1,18 +1,26 @@
-"""Plain float32 forward passes of DINOv2, the SAM2 image encoder (Hiera +
-FPN) and the SAM2 prompt encoder and mask decoder, written over
+"""Plain float32 forward passes of DINOv2 and DINOv3, the SAM2 image encoder
+(Hiera + FPN) and the SAM2 prompt encoder and mask decoder, written over
 reference-named state dicts.
 
-Each function follows the published architecture (HF `Dinov2Model`,
-`sam2/modeling/backbones/hieradet.py`, `image_encoder.py`,
-`sam/prompt_encoder.py`, `sam/mask_decoder.py`, `sam/transformer.py`) in
-NHWC layout, with no fused kernel, no cache and no batching trick: every
-product is an explicit float32 `torch` operation. Callers turn TF32 off
-(`reference.check.float32_exact`). Departures from the published code,
-each the configured program's as well:
+Each function follows the published architecture (HF `Dinov2Model`; HF
+`DINOv3ViTModel` and the DINOv3 repository's `vision_transformer.py`,
+`RopePositionEmbedding`, `SwiGLUFFN`; `sam2/modeling/backbones/hieradet.py`,
+`image_encoder.py`, `sam/prompt_encoder.py`, `sam/mask_decoder.py`,
+`sam/transformer.py`) in NHWC layout, with no fused kernel, no cache and no
+batching trick: every product is an explicit float32 `torch` operation.
+Callers turn TF32 off (`reference.matcher.float32_exact`). The encoder is
+chosen by the topology's `family` ("dinov2" where the key is absent).
+Departures from the published code, each the configured program's as well:
   - the grid decode keeps, per prompt, the best of the three multimask
     outputs by predicted IoU (NTTT's `predict_best_of_multimask`);
   - prompt points get +0.5 twice: once as grid pixel centres, once in the
-    prompt encoder, as the matcher feeds SAM2's `_embed_points`.
+    prompt encoder, as the matcher feeds SAM2's `_embed_points`;
+  - DINOv3 runs at the topology's `img_size` on the patch grid alone: the
+    RoPE periods and angles are computed here in float32 for that grid (the
+    published model builds the same ones per forward), with no RoPE
+    augmentation (jitter, rescale: training only), and a q, k, v or o
+    projection without a bias in the state dict takes none (HF's `key_bias`
+    False), which equals the program's zero bias.
 Nothing here imports the program or JAX.
 """
 import math
@@ -47,8 +55,19 @@ def _mlp(sd, name, x, n_layers, act):
     return x
 
 
-# ------------------------------------------------------------------ DINOv2
+# ------------------------------------------------------------ DINOv2 / v3
 def dino_features(sd, cfg, imgs):
+    """imgs [B, S, S, 3] ImageNet-normalized, S = cfg["img_size"] ->
+    patch features [B, grid^2, D], by the encoder's `family`."""
+    family = cfg.get("family", "dinov2")
+    if family == "dinov2":
+        return _dinov2_features(sd, cfg, imgs)
+    if family == "dinov3":
+        return _dinov3_features(sd, cfg, imgs)
+    raise ValueError(f"no reference for the encoder family {family!r}")
+
+
+def _dinov2_features(sd, cfg, imgs):
     """imgs [B, S, S, 3] ImageNet-normalized, S = cfg["img_size"] ->
     patch features [B, grid^2, D] (HF Dinov2Model's last_hidden_state
     after the final norm, the CLS token dropped)."""
@@ -81,6 +100,79 @@ def dino_features(sd, cfg, imgs):
         x = x + h * sd[f"{pre}.layer_scale2.lambda1"]
     x = _ln(sd, "layernorm", x, 1e-6)
     return x[:, 1:]
+
+
+_ACT = {"gelu": F.gelu, "silu": F.silu}
+
+
+def rope_tables(grid, head_dim, theta, device):
+    """cos, sin [grid^2, head_dim] of DINOv3's 2-D RoPE: each patch centre
+    per axis mapped to [-1, 1], periods theta^(4k / head_dim) for
+    k < head_dim / 4, angles 2 pi coord / period laid out [h..., w...] and
+    tiled twice to head_dim (HF `DINOv3ViTRopePositionEmbedding`)."""
+    centres = (torch.arange(grid, dtype=torch.float32, device=device)
+               + 0.5) / grid
+    hh, ww = torch.meshgrid(centres, centres, indexing="ij")
+    coords = 2.0 * torch.stack([hh.flatten(), ww.flatten()], -1) - 1.0
+    k = torch.arange(head_dim // 4, dtype=torch.float32, device=device)
+    periods = theta ** (4.0 * k / head_dim)
+    angles = 2.0 * math.pi * coords[:, :, None] / periods
+    angles = angles.flatten(1).tile(2)
+    return torch.cos(angles), torch.sin(angles)
+
+
+def _rotate_half(x):
+    x1, x2 = x.chunk(2, dim=-1)
+    return torch.cat([-x2, x1], dim=-1)
+
+
+def _dinov3_features(sd, cfg, imgs):
+    """HF DINOv3ViTModel's last_hidden_state after the final norm, the CLS
+    and register tokens dropped: [B, grid^2, D]."""
+    p, d, heads = cfg["patch_size"], cfg["dim"], cfg["heads"]
+    eps, n_prefix = cfg["eps"], 1 + cfg["registers"]
+    act = _ACT[cfg["act"]]
+    b = imgs.shape[0]
+    x = F.conv2d(imgs.permute(0, 3, 1, 2),
+                 sd["embeddings.patch_embeddings.weight"],
+                 sd["embeddings.patch_embeddings.bias"], stride=p)
+    grid = x.shape[-1]
+    x = x.flatten(2).transpose(1, 2)
+    prefix = torch.cat([sd["embeddings.cls_token"],
+                        sd["embeddings.register_tokens"]], dim=1)
+    x = torch.cat([prefix.expand(b, -1, -1), x], dim=1)
+    cos, sin = rope_tables(grid, d // heads, cfg["rope_theta"], x.device)
+
+    def rope(t):
+        """RoPE on the patch rows of [B, heads, N, d_head]."""
+        pre, patches = t[:, :, :n_prefix], t[:, :, n_prefix:]
+        patches = patches * cos + _rotate_half(patches) * sin
+        return torch.cat([pre, patches], dim=2)
+
+    for i in range(cfg["depth"]):
+        pre = f"layer.{i}"
+        h = _ln(sd, f"{pre}.norm1", x, eps)
+        n = h.shape[1]
+
+        def heads_of(t):
+            return t.reshape(b, n, heads, -1).transpose(1, 2)
+
+        a = f"{pre}.attention"
+        o = _attend(rope(heads_of(_linear(sd, f"{a}.q_proj", h))),
+                    rope(heads_of(_linear(sd, f"{a}.k_proj", h))),
+                    heads_of(_linear(sd, f"{a}.v_proj", h)))
+        o = _linear(sd, f"{a}.o_proj", o.transpose(1, 2).reshape(b, n, d))
+        x = x + o * sd[f"{pre}.layer_scale1.lambda1"]
+        h = _ln(sd, f"{pre}.norm2", x, eps)
+        up = _linear(sd, f"{pre}.mlp.up_proj", h)
+        if cfg["gated"]:
+            h = act(_linear(sd, f"{pre}.mlp.gate_proj", h)) * up
+        else:
+            h = act(up)
+        h = _linear(sd, f"{pre}.mlp.down_proj", h)
+        x = x + h * sd[f"{pre}.layer_scale2.lambda1"]
+    x = _ln(sd, "norm", x, eps)
+    return x[:, n_prefix:]
 
 
 # ------------------------------------------------------------- Hiera + FPN

@@ -224,12 +224,18 @@ class Traffic:
 def run_check(cell, seed, record, traffic, sam2_sd, dino_sd, device,
               planned, captured):
     """The reference on the sampled requests. Returns (numbers, per-key
-    numbers, seconds)."""
+    numbers, seconds). Logs the prototypes' time a reference image, the
+    step's time a checked request and the check's memory peaks."""
+    import resource
     import torch
     from portbench.harness import check, inputs
     from portbench.reference import matcher as ref
     t0 = time.perf_counter()
     cfg = cell.config
+    dino = cfg["topology"]["dino"]
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
     keys = check.sample_keys(record.kept, planned)
     per_key = {}
     with ref.float32_exact(), torch.no_grad():
@@ -238,15 +244,29 @@ def run_check(cell, seed, record, traffic, sam2_sd, dino_sd, device,
                if k.startswith(used)}
         sdd = {k: v.to(device) for k, v in dino_sd.items()}
         imgs, masks, cats = inputs.reference_set(cfg["bank"], seed, device)
-        protos = ref.prototypes(sdd, cfg["topology"]["dino"], imgs, masks,
-                                cats, cfg["bank"]["classes"])
+        t1 = time.perf_counter()
+        protos = ref.prototypes(sdd, dino, imgs, masks, cats,
+                                cfg["bank"]["classes"])
+        n_refs = len(cats)
         del imgs, masks
+        if cuda:
+            torch.cuda.synchronize(device)
+        t2 = time.perf_counter()
         step = ref.Step(cfg, sd2, sdd, protos, device)
         for k in keys:
             out = step(traffic.reference_image(k))
             per_key[k] = check.compare(record.kept[k], out, cfg,
                                        captured.get(k))
             del out
+    t3 = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated(device) if cuda else 0
+    rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    _log(f"check: weights and references {t1 - t0:.2f} s; prototypes of "
+         f"{n_refs} references in blocks of {ref.ref_block(dino)} "
+         f"{t2 - t1:.2f} s "
+         f"({(t2 - t1) / n_refs:.4f} s a reference); {len(keys)} requests "
+         f"{t3 - t2:.2f} s ({(t3 - t2) / max(1, len(keys)):.3f} s a "
+         f"request); device peak {peak} bytes; host peak {rss} bytes")
     numbers = {n: max(v[n] for v in per_key.values()) for n in check.NUMBERS}
     return numbers, per_key, time.perf_counter() - t0
 
@@ -375,6 +395,8 @@ def main(argv=None, root=ROOT, bench=BENCH, device=None, overrides=None):
     clocks_before = card_line(CLOCKS) if cuda else ""
     probes = [host_probe(device, sync)]
     if cuda:
+        _log(f"set-up device peak {torch.cuda.max_memory_allocated(device)} "
+             "bytes")
         torch.cuda.reset_peak_memory_stats(device)
     record = Record()
     planned = check.planned_keys(traffic.n_inputs,

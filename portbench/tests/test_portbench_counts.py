@@ -8,6 +8,7 @@ import pytest
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
+from conftest import dinov3_block
 from portbench.counts import common
 from portbench.reference import models
 
@@ -92,6 +93,37 @@ def test_encoders_against_flop_counter(name):
     got = _meta_sd(models.image_encoder, sam2_sd, t["hiera"],
                    torch.empty(1, s, s, 3, device="meta"))
     assert got == common.hiera_flops(t["hiera"])
+
+
+@pytest.mark.parametrize("preset,block", [
+    ("dinov3_large", dinov3_block(1024, 24, 16, 4096, False)),
+    ("dinov3_huge", dinov3_block(1280, 32, 20, 5120, True, "silu"))])
+def test_dinov3_against_flop_counter(preset, block):
+    """DINOv3 at its published widths and 592^2: the count against torch's
+    FLOP counter over the reference, on the weights that the program's
+    matcher would hold for the preset."""
+    cfg = _cfg("sam2l_dinov2l")
+    cfg["program"]["encoder_cfg"] = preset
+    cfg["topology"]["dino"] = block
+    _, dino_sd = _meta_weights(cfg)
+    got = _meta_sd(models.dino_features, dino_sd, block,
+                   torch.empty(1, 592, 592, 3, device="meta"))
+    assert got == common.dino_flops(block)
+
+
+def test_dinov3_7b_by_hand():
+    """DINOv3 ViT-7B/16 at 592^2: 37^2 patches + CLS + 4 registers = 1374
+    tokens, D 4096, 32 heads, SwiGLU of width 8192, 40 layers: per layer
+    8 n D^2 = 184.4 G, 4 n^2 D = 30.9 G, 6 n D H = 276.6 G; 19.69 T an
+    image with the patch projection."""
+    b = dinov3_block(4096, 40, 32, 8192, True, "silu")
+    n, d, h = 1374, 4096, 8192
+    layer = 8 * n * d * d + 4 * n * n * d + 6 * n * d * h
+    assert round(8 * n * d * d / 1e9, 1) == 184.4
+    assert round(4 * n * n * d / 1e9, 1) == 30.9
+    assert round(6 * n * d * h / 1e9, 1) == 276.6
+    assert common.dino_flops(b) == 40 * layer + 2 * 37 ** 2 * 3 * 16 ** 2 * d
+    assert round(common.dino_flops(b) / 1e12, 2) == 19.69
 
 
 def test_decoder_against_flop_counter():

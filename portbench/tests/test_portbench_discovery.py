@@ -5,7 +5,10 @@ import hashlib
 import json
 import os
 
-from conftest import ROOT, add_tiny, copy_bench, run_tiny
+import pytest
+
+from conftest import (ROOT, TINY_DINOV3, add_cell, add_tiny, copy_bench,
+                      run_tiny, tiny_dinov3_config)
 
 NEW_METRIC = '''"""Host seconds of the window, a made-up metric for the test."""
 LAYER = "test layer"
@@ -58,6 +61,25 @@ def test_added_files_are_found(tmp_path, torch_threads):
     assert set(res["metrics"]) == {"image_ms_p50", "peak_mem_gib",
                                    "setup_s"}
     assert res["correct"]
+
+
+@pytest.mark.parametrize("kind", sorted(TINY_DINOV3))
+def test_dinov3_cell_is_added_by_files(tmp_path, torch_threads, kind):
+    """A configuration that names a DINOv3 encoder (its `topology.dino`
+    with `family`, `registers`, `mlp_hidden`, `gated`, `act`, `rope_theta`,
+    `eps`) is added by files and manifest entries alone, and its cell runs
+    the whole check with `correct` true."""
+    root = str(tmp_path)
+    copy_bench(root)
+    before = _digests(root)
+    cfg = tiny_dinov3_config(kind)
+    add_cell(root, cfg)
+    after = _digests(root)
+    assert all(after[k] == v for k, v in before.items())
+    res = run_tiny(root, cfg["name"] + ".single", seed=25)
+    assert res["correct"], res["check"]
+    for n in ("dino_cos", "score_gap", "tail_gap"):
+        assert res["check"][n]["value"] < 1e-4, n
 
 
 def test_repo_manifest_is_untouched():

@@ -116,9 +116,33 @@ def test_metric_files_agree(manifest):
             assert m["unit"] == "%" and m["better"] == "higher"
 
 
+def encoder_agrees(cfg):
+    """The configuration's `topology.dino` against the preset it names
+    (with its overrides) and against the encoder module that the program's
+    matcher builds for it on the meta device: the shapes, the family and,
+    for DINOv3, the registers, the MLP's width and whether it is gated."""
+    from portbench.harness.program import _spec, program_configs
+    _, enc = program_configs(cfg)
+    dino = cfg["topology"]["dino"]
+    assert (enc.img_size, enc.patch_size, enc.feat_dim, enc.depth,
+            enc.num_heads) == (dino["img_size"], dino["patch_size"],
+                               dino["dim"], dino["depth"], dino["heads"])
+    family = dino.get("family", "dinov2")
+    assert enc.family == family, (enc.family, family)
+    leaves = {n: s for n, s, _ in _spec(cfg)[1]}
+    if family == "dinov3":
+        assert enc.num_register_tokens == dino["registers"]
+        assert leaves["embeddings.register_tokens"][1] == dino["registers"]
+        assert leaves["layer.0.mlp.up_proj.weight"][0] == dino["mlp_hidden"]
+        assert ("layer.0.mlp.gate_proj.weight" in leaves) == dino["gated"]
+        assert dino["act"] in ("gelu", "silu")
+    else:
+        assert leaves["encoder.layer.0.mlp.fc1.weight"][0] == \
+            dino["mlp_ratio"] * dino["dim"]
+
+
 def test_config_files_agree(manifest):
-    from no_time_to_train_tpu_torch.config.presets import (
-        ENCODER_PRESETS, SAM2_PRESETS)
+    from no_time_to_train_tpu_torch.config.presets import SAM2_PRESETS
     for entry in manifest["configs"]:
         with open(os.path.join(ROOT, entry["file"])) as f:
             cfg = json.load(f)
@@ -136,13 +160,51 @@ def test_config_files_agree(manifest):
             got = getattr(sam2, key)
             assert list(got) == hiera[key] if isinstance(got, tuple) \
                 else got == hiera[key], key
-        enc = ENCODER_PRESETS[cfg["program"]["encoder_cfg"]]
-        dino = cfg["topology"]["dino"]
-        assert (enc.img_size, enc.patch_size, enc.feat_dim, enc.depth,
-                enc.num_heads) == (dino["img_size"], dino["patch_size"],
-                                   dino["dim"], dino["depth"], dino["heads"])
+        encoder_agrees(cfg)
         assert not cfg["program"].get("sam2_overrides")
         assert not cfg["program"].get("encoder_overrides")
+
+
+def _dinov3_file(preset, block, kind=None):
+    from conftest import tiny_dinov3_config
+    if kind:
+        return tiny_dinov3_config(kind)
+    with open(os.path.join(ROOT, "portbench", "configs",
+                           "sam2l_dinov2l.json")) as f:
+        cfg = json.load(f)
+    cfg["program"]["encoder_cfg"] = preset
+    cfg["topology"]["dino"] = block
+    return cfg
+
+
+def _published(preset):
+    from conftest import dinov3_block
+    return {"dinov3_large": dinov3_block(1024, 24, 16, 4096, False),
+            "dinov3_huge": dinov3_block(1280, 32, 20, 5120, True,
+                                        "silu")}[preset]
+
+
+@pytest.mark.parametrize("preset,kind", [
+    ("dinov3_large", None), ("dinov3_huge", None), (None, "plain"),
+    (None, "gated")])
+def test_dinov3_topology_agrees(preset, kind):
+    encoder_agrees(_dinov3_file(preset, preset and _published(preset),
+                                kind))
+
+
+@pytest.mark.parametrize("key,value", [
+    ("gated", True), ("mlp_hidden", 8192), ("registers", 0),
+    ("family", None), ("dim", 4096)])
+def test_misstated_dinov3_topology_fails(key, value):
+    """A file whose DINOv3 block misstates the preset it names fails on
+    the CPU."""
+    block = dict(_published("dinov3_large"))
+    if value is None:
+        del block[key]
+    else:
+        block[key] = value
+    with pytest.raises(AssertionError):
+        encoder_agrees(_dinov3_file("dinov3_large", block))
 
 
 def test_cells_resolve(manifest):

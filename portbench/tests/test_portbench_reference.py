@@ -1,12 +1,14 @@
 """The plain float32 reference against the port's own CPU path (its plain
 versions of every kernel) at the tiny preset, Hiera-T + DINOv2-S in
-float32, on the same seeded weights: layer by layer, then the whole step
-through the benchmark's comparison."""
+float32, and at tiny DINOv3 encoders, plain and gated, on the same seeded
+weights: layer by layer, then the whole step through the benchmark's
+comparison."""
 import numpy as np
 import pytest
 import torch
 
-from conftest import run_tiny, tiny_config
+from conftest import (TINY_DINOV3, run_tiny, tiny_config,
+                      tiny_dinov3_config)
 from portbench.harness import inputs
 from portbench.harness.program import build_matcher, make_weights
 from portbench.reference import matcher as ref
@@ -34,6 +36,37 @@ def test_dino_features(tiny):
         want = models.dino_features(dino_sd, cfg["topology"]["dino"],
                                     ref.normalize(img))
     assert _rel(got, want) < 1e-5
+
+
+@pytest.mark.parametrize("kind", sorted(TINY_DINOV3))
+def test_dinov3_features(torch_threads, kind):
+    """The reference's DINOv3 (RoPE on the patch rows, registers, LayerScale,
+    the plain or gated MLP) against the encoder that the program's matcher
+    builds for the preset."""
+    cfg = tiny_dinov3_config(kind)
+    topo = cfg["topology"]["dino"]
+    sam2_sd, dino_sd = make_weights(cfg, 13, torch.device("cpu"))
+    matcher = build_matcher(cfg, sam2_sd, dino_sd, "cpu")
+    assert type(matcher.dino).__name__ == "DinoV3"
+    assert ("layer.0.mlp.gate_proj.weight" in dino_sd) == topo["gated"]
+    e = topo["img_size"]
+    img = torch.rand(2, e, e, 3, generator=torch.Generator().manual_seed(4))
+    with torch.no_grad():
+        got = matcher.dino(matcher._normalize(img))
+        want = models.dino_features(dino_sd, topo, ref.normalize(img))
+    assert got.shape == want.shape == (2, (e // 16) ** 2, topo["dim"])
+    assert _rel(got, want) < 1e-5
+
+
+def test_dinov3_rope_tables():
+    """The RoPE angles of one patch worked by hand: a 2 x 2 grid, head dim
+    8, theta 100: the patch at row 0, column 1 sits at (-0.5, 0.5); periods
+    1 and 10; angles [h / 1, h / 10, w / 1, w / 10] x 2 pi, tiled twice."""
+    cos, sin = models.rope_tables(2, 8, 100.0, torch.device("cpu"))
+    h, w = -0.5, 0.5
+    want = 2 * np.pi * np.array([h, h / 10, w, w / 10] * 2)
+    assert np.allclose(cos[1].numpy(), np.cos(want), atol=1e-6)
+    assert np.allclose(sin[1].numpy(), np.sin(want), atol=1e-6)
 
 
 def test_image_encoder(tiny):
@@ -88,6 +121,27 @@ def test_whole_step_agrees(tiny_root, torch_threads, seed):
     for n in ("dino_cos", "fpn_cos", "score_gap", "tail_gap",
               "finalize_err"):
         assert res["check"][n]["value"] < 1e-4, n
+
+
+def test_gate_activation_is_seen(tiny_root, torch_threads):
+    """A configuration file that states SiLU for the gated MLP that the
+    program computes with GELU: the reference follows the file, and
+    `dino_cos` reads over its limit."""
+    res = run_tiny(tiny_root, "tiny_v3gated_silu.single", seed=24)
+    d = res["check"]["dino_cos"]
+    assert d["value"] > d["limit"], res["check"]
+    assert not res["correct"]
+
+
+def test_ref_block():
+    """Blocks of 8 references for DINOv2-L at 518^2 (3 x 16 heads x 1370^2
+    float32 logits, 360 MB an image); 5 for DINOv3-7B at 592^2 (3 x 32 x
+    1374^2, 725 MB), within 4 GiB."""
+    assert ref.ref_block({"img_size": 518, "patch_size": 14, "dim": 1024,
+                          "heads": 16, "mlp_ratio": 4}) == 8
+    assert ref.ref_block({"family": "dinov3", "img_size": 592,
+                          "patch_size": 16, "dim": 4096, "heads": 32,
+                          "registers": 4, "mlp_hidden": 8192}) == 5
 
 
 def test_finalize_reference():

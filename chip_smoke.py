@@ -372,7 +372,8 @@ MEMORY_FEAT_REL_BAND = 0.02
 # first bodies that remain as float32 paths and check routes, the WMMA and
 # FMA tiles, are not held to it)
 NO_SPILL = ("attn_mma::", "<unnamed>::i2t_mma_kernel",
-            "<unnamed>::ln_slab_kernel", "<unnamed>::t2i_mma_kernel",
+            "<unnamed>::ln_slab_kernel", "<unnamed>::ln_wide_kernel",
+            "<unnamed>::t2i_mma_kernel",
             "<unnamed>::post_t1_mma_kernel", "<unnamed>::int8_wgmma_kernel",
             "<unnamed>::quant_rows_kernel")
 
@@ -581,8 +582,10 @@ NEW_K1_SHAPES = [("hiera_s stage 1", 65536, 96),
                  ("hiera_s stage 4", 1024, 768),
                  ("dinov2_g", 1370, 1536),
                  ("amg upscaling norm, 256 prompts", 256 * 128 * 128, 64),
-                 ("m2m mask prompt norm, 256 prompts", 256 * 64 * 64, 16)]
-NEW_ONEPASS_SHAPES = ONEPASS_EDGE[-3:]
+                 ("m2m mask prompt norm, 256 prompts", 256 * 64 * 64, 16),
+                 ("dinov3_7b (wide-row kernel)", 1374, 4096)]
+NEW_ONEPASS_SHAPES = ONEPASS_EDGE[-3:] + [
+    ("dinov3_7b test", 1, 1374, 1374, 32, 128, False)]
 NEW_WINDOW_SHAPES = [("hiera_s stage 1", 1, 1, 96, 64, 1024),
                      ("hiera_s stage 2", 1, 2, 96, 16, 1024),
                      ("hiera_s stage 3, padded grid", 1, 4, 96, 196, 25),

@@ -3,7 +3,10 @@
 the JAX package; tests/test_torch_convert.py holds the two equal).
 
 `SAM2_PRESETS` is keyed by the reference's YAML names; `ENCODER_PRESETS`
-holds the DINOv2 and DINOv3 encoders.
+holds the DINOv2 and DINOv3 encoders. The port's `EncoderConfig` adds three
+fields of the DINOv3 MLP (its width, activation and gating) with defaults
+that build what the JAX package builds for its presets; `dinov3_7b` is the
+port's alone.
 """
 from dataclasses import dataclass
 from typing import Optional, Tuple
@@ -122,6 +125,12 @@ class EncoderConfig:
     num_register_tokens: int = 0
     ffn_layer: str = "mlp"
     family: str = "dinov2"
+    # DINOv3's MLP: its width (None: 4 x feat_dim), its activation ("gelu":
+    # the tanh form in bf16, erf in float32; "silu") and whether it is gated,
+    # down(act(gate x) * up x)
+    mlp_hidden: Optional[int] = None
+    mlp_act: str = "gelu"
+    gated_mlp: bool = False
 
     @property
     def grid_size(self):
@@ -148,5 +157,13 @@ ENCODER_PRESETS = {
                                   num_register_tokens=4, family="dinov3"),
     "dinov3_huge": EncoderConfig("dinov3_huge", 592, 16, 1280, 32, 20,
                                  "facebook/dinov3-vith16plus-pretrain-lvd1689m",
-                                 num_register_tokens=4, family="dinov3"),
+                                 num_register_tokens=4, family="dinov3",
+                                 gated_mlp=True),
+    # ViT-7B/16: SwiGLU of width 8192 (the checkpoint's intermediate_size,
+    # hidden_act "silu")
+    "dinov3_7b": EncoderConfig("dinov3_7b", 592, 16, 4096, 40, 32,
+                               "facebook/dinov3-vit7b16-pretrain-lvd1689m",
+                               num_register_tokens=4, family="dinov3",
+                               mlp_hidden=8192, mlp_act="silu",
+                               gated_mlp=True),
 }

@@ -3,15 +3,17 @@
 // Replaces the Pallas kernel `layer_norm_pallas` / `_ln_kernel`
 // (no_time_to_train_tpu/ops/fused_ln.py). Gate, applied by the caller
 // (models/sam2/common.py `_layer_norm`): bf16 compute, at least 1024 rows,
-// 16 <= C, and not inside `no_fusion()`; this kernel takes C <= 2048 and
-// float32 or bf16. The TPU's rows % 8 sublane rule does not apply here.
+// 16 <= C <= 8192, and not inside `no_fusion()`; this kernel takes C <= 2048
+// in float32 and C <= 8192 in bf16. The TPU's rows % 8 sublane rule does not
+// apply here.
 //
 // Numerics: float32 mean and two-pass variance, then the compute-dtype
 // normalize and affine with the reference's cast points (`ln_affine`).
 //
 // Bound on this card: device-memory bandwidth, each element read once and
 // written once (C on the path: 144 / 288 / 576 / 1152 for Hiera-L's stages,
-// 1024 for DINO-L, 256 for the decoder tokens and memory attention).
+// 1024 for DINO-L, 4096 for DINOv3-7B, 256 for the decoder tokens and memory
+// attention).
 //
 // bf16: `ln_slab_kernel`. Rows are contiguous, so a block owns a slab of R
 // consecutive rows (at most 16 KB; fewer rows where that leaves under four
@@ -22,6 +24,15 @@
 // shuffles inside the group, then the normalized row goes back into the slab
 // before the block stores it. Where C % 8 != 0 or a pointer is not 16-byte
 // aligned the same kernel moves single elements.
+//
+// bf16 rows wider than 2048 (DINOv3-7B's 4096), up to 8192: `ln_wide_kernel`,
+// one block of 128 threads a row, the row held in registers as packed bf16
+// (P pieces of 8 values a thread, P = 4 up to C 4096, else 8) and moved with
+// 16-byte loads and stores; one block a row puts every row of a 1374-row call
+// in flight in one wave, where the slab kernel would stage them through 16 KB
+// of shared memory two at a time. Where C % 8 != 0 or a pointer is not
+// 16-byte aligned, the slab kernel's single-element path with one row a
+// block. Rows of C <= 2048 take the slab kernel as before.
 //
 // float32, and the `nttt_layer_norm_warp` check route for either dtype:
 // `ln_rows_kernel`, the first port's body (one warp a row, the row in
@@ -233,18 +244,130 @@ int launch_slab(const void* x, const void* w, const void* b, void* y,
   return (int)cudaGetLastError();
 }
 
+constexpr int kWideThreads = 128;
+constexpr int kMaxWideCols = 8192;  // 128 threads x 8 pieces of 8 values
+static_assert(kMaxWideCols == kWideThreads * 8 * 8, "ln_wide_kernel<8>");
+
+// The sum over the block's threads, returned to every thread; `red` holds
+// one partial a warp.
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  v = warp_sum(v);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float t = 0.f;
+#pragma unroll
+  for (int i = 0; i < kWideThreads / 32; ++i) t += red[i];
+  __syncthreads();  // every thread has read red before it is written again
+  return t;
+}
+
+// 8 values of a piece held in registers
+__device__ __forceinline__ void unpack8(const uint4 u, float (&v)[8]) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    v[2 * k] = __uint_as_float(w[k] << 16);
+    v[2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
+  }
+}
+
+// Row blockIdx.x; thread t holds pieces t, t + 128, ... (P of them, those
+// below cols / 8 live) as packed bf16 and unpacks them in each pass.
+template <int P>
+__global__ void __launch_bounds__(kWideThreads)
+ln_wide_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+               const bf16* __restrict__ b, bf16* __restrict__ y, int cols,
+               float eps) {
+  __shared__ float red[kWideThreads / 32];
+  const long long base = (long long)blockIdx.x * cols;
+  const int per = cols / 8;
+  uint4 raw[P];
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+    const int u = threadIdx.x + k * kWideThreads;
+    if (u < per) raw[k] = *(const uint4*)(x + base + 8 * u);
+  }
+  float s = 0.f;
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+    if (threadIdx.x + k * kWideThreads < per) {
+      float v[8];
+      unpack8(raw[k], v);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s += v[j];
+    }
+  }
+  const float mu = block_sum(s, red) / cols;
+  float q = 0.f;
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+    if (threadIdx.x + k * kWideThreads < per) {
+      float v[8];
+      unpack8(raw[k], v);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) q += (v[j] - mu) * (v[j] - mu);
+    }
+  }
+  const float inv = rsqrtf(block_sum(q, red) / cols + eps);
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+    const int u = threadIdx.x + k * kWideThreads;
+    if (u < per) {
+      float v[8], wv[8], bv[8];
+      unpack8(raw[k], v);
+      unpack8(w + 8 * u, wv);
+      unpack8(b + 8 * u, bv);
+      uint4 o;
+      uint32_t* op = (uint32_t*)&o;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        op[j] = mma::pack_bf16(
+            ln_affine<bf16>(v[2 * j], mu, inv, wv[2 * j], bv[2 * j]),
+            ln_affine<bf16>(v[2 * j + 1], mu, inv, wv[2 * j + 1],
+                            bv[2 * j + 1]));
+      *(uint4*)(y + base + 8 * u) = o;
+    }
+  }
+}
+
+int launch_wide(const void* x, const void* w, const void* b, void* y,
+                int rows, int cols, float eps, cudaStream_t stream) {
+  const bool vec = cols % 8 == 0 &&
+                   (((uintptr_t)x | (uintptr_t)w | (uintptr_t)b |
+                     (uintptr_t)y) & 15) == 0;
+  if (!vec) {
+    // one row a block through shared memory: 2 (C + 2 C) bytes <= 48 KB
+    const size_t smem = sizeof(bf16) * 3 * (size_t)cols;
+    ln_slab_kernel<false><<<rows, 32, smem, stream>>>(
+        (const bf16*)x, (const bf16*)w, (const bf16*)b, (bf16*)y, rows, cols,
+        1, 32, eps);
+  } else if (cols <= kWideThreads * 8 * 4) {
+    ln_wide_kernel<4><<<rows, kWideThreads, 0, stream>>>(
+        (const bf16*)x, (const bf16*)w, (const bf16*)b, (bf16*)y, cols, eps);
+  } else {
+    ln_wide_kernel<8><<<rows, kWideThreads, 0, stream>>>(
+        (const bf16*)x, (const bf16*)w, (const bf16*)b, (bf16*)y, cols, eps);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// x, y: [rows, cols] contiguous; w, b: [cols]; 1 <= cols <= 2048. bf16
-// takes the row-slab kernel, float32 the first port's body.
+// x, y: [rows, cols] contiguous; w, b: [cols]; 1 <= cols <= 2048, and in
+// bf16 up to 8192. bf16 takes the row-slab kernel up to 2048 and the
+// wide-row kernel above, float32 the first port's body.
 extern "C" int nttt_layer_norm(const void* x, const void* w, const void* b,
                                void* y, int rows, int cols, float eps,
                                int dtype, void* stream) {
-  if (cols > 32 * kMaxPerLane || cols < 1 || rows < 1)
+  const int max_cols =
+      dtype == NTTT_DTYPE_BF16 ? kMaxWideCols : 32 * kMaxPerLane;
+  if (cols > max_cols || cols < 1 || rows < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == NTTT_DTYPE_BF16)
-    return launch_slab(x, w, b, y, rows, cols, eps, s);
+    return cols > 32 * kMaxPerLane
+               ? launch_wide(x, w, b, y, rows, cols, eps, s)
+               : launch_slab(x, w, b, y, rows, cols, eps, s);
   return launch<float>(x, w, b, y, rows, cols, eps, s);
 }
 

@@ -5,9 +5,16 @@ state_dict loads unchanged; a q/k/v/o projection saved without a bias loads
 with a zero bias, as the JAX converter does. CLS + register tokens + patches
 with no learned position embedding; 2-D RoPE over the patch-centre
 coordinates in [-1, 1] (half-split rotation, prefix tokens not rotated) in
-q's dtype; LayerScale on both branches; a plain or gated MLP. Input is NHWC.
-`quant="int8"` builds the q / k / v / o projections and the MLP's gate / up
-/ down as W8A8 layers (ops/quant.py), as the JAX package's `quant`.
+q's dtype; LayerScale on both branches; a plain or gated MLP of the
+configuration's width and activation (`EncoderConfig.mlp_hidden`, `mlp_act`,
+`gated_mlp`; a configuration without those fields, as the JAX package's,
+builds a GELU MLP of 4 x D, gated by the JAX matcher's name rule). Input is
+NHWC. `quant="int8"` builds the q / k / v / o projections and the MLP's gate
+/ up / down as W8A8 layers (ops/quant.py), as the JAX package's `quant`.
+
+The LayerNorms, the rotation of q's and k's patch rows and the MLP's body
+run through the module-level `encoder_norm`, `rope_patches` and
+`mlp_block`, looked up at each call, so a profiler can range them.
 """
 from functools import lru_cache
 
@@ -16,16 +23,53 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from no_time_to_train_tpu_torch.models.sam2.common import LayerNorm, _gelu_act
+from no_time_to_train_tpu_torch.models.sam2.common import (
+    LayerNorm, _gelu_act, _layer_norm)
 from no_time_to_train_tpu_torch.ops.attention import sdpa_bnhd
 from no_time_to_train_tpu_torch.ops.quant import linear_cls
 
-__all__ = ["DinoV3", "uses_gated_mlp"]
+__all__ = ["DinoV3", "uses_gated_mlp", "mlp_width", "encoder_norm",
+           "rope_patches", "mlp_block"]
+
+_ACT = {"gelu": _gelu_act, "silu": F.silu}
 
 
 def uses_gated_mlp(cfg):
-    """The JAX matcher's rule for the gated MLP (the '+' and huge models)."""
-    return "plus" in cfg.hf_model_name or "huge" in cfg.name
+    """Whether the configuration's MLP is gated: as its preset states it, or
+    for a configuration without the field (the JAX package's) by the JAX
+    matcher's rule (the '+' and huge models)."""
+    gated = getattr(cfg, "gated_mlp", None)
+    if gated is None:
+        return "plus" in cfg.hf_model_name or "huge" in cfg.name
+    return gated
+
+
+def mlp_width(cfg):
+    """The MLP's hidden width: the configuration's, or 4 x its width."""
+    return getattr(cfg, "mlp_hidden", None) or 4 * cfg.feat_dim
+
+
+def encoder_norm(norm, x):
+    """One of the encoder's LayerNorms (`norm`, a `LayerNorm`) over x's last
+    axis: K1 on large bf16 inputs."""
+    return _layer_norm(x, norm.weight, norm.bias, norm.eps)
+
+
+def rope_patches(t, cos, sin, n_prefix):
+    """RoPE on the patch rows of t [B, N, heads, D] (rows from `n_prefix`
+    on; cos, sin [1, N - n_prefix, 1, D] in t's dtype); the prefix rows
+    pass unrotated."""
+    patches = t[:, n_prefix:]
+    patches = patches * cos + _rotate_half(patches) * sin
+    return torch.cat([t[:, :n_prefix], patches], dim=1)
+
+
+def mlp_block(mlp, x):
+    """The MLP's body (`mlp` an `_MLP`): down(act(gate x) * up x) when gated,
+    else down(act(up x))."""
+    if mlp.gated:
+        return mlp.down_proj(mlp.act(mlp.gate_proj(x)) * mlp.up_proj(x))
+    return mlp.down_proj(mlp.act(mlp.up_proj(x)))
 
 
 @lru_cache(maxsize=None)
@@ -83,13 +127,10 @@ class _Attention(nn.Module):
         b, n, c = x.shape
         head_dim = c // self.heads
         cos, sin = self._rope(grid_hw, head_dim, x)
-        npf = self.n_prefix
 
         def split_rope(t):
-            t = t.reshape(b, n, self.heads, head_dim)
-            patches = t[:, npf:]
-            patches = patches * cos + _rotate_half(patches) * sin
-            return torch.cat([t[:, :npf], patches], dim=1)
+            return rope_patches(t.reshape(b, n, self.heads, head_dim), cos,
+                                sin, self.n_prefix)
 
         out = sdpa_bnhd(split_rope(self.q_proj(x)), split_rope(self.k_proj(x)),
                         self.v_proj(x).reshape(b, n, self.heads, head_dim),
@@ -104,36 +145,34 @@ class _LayerScale(nn.Module):
 
 
 class _MLP(nn.Module):
-    def __init__(self, d, hidden, gated, quant):
+    def __init__(self, d, hidden, gated, act, quant):
         super().__init__()
         lin = linear_cls(quant)
         if gated:
             self.gate_proj = lin(d, hidden)
         self.up_proj = lin(d, hidden)
         self.down_proj = lin(hidden, d)
-        self.gated = gated
+        self.gated, self.hidden, self.act = gated, hidden, _ACT[act]
 
     def forward(self, x):
-        if self.gated:
-            return self.down_proj(_gelu_act(self.gate_proj(x)) * self.up_proj(x))
-        return self.down_proj(_gelu_act(self.up_proj(x)))
+        return mlp_block(self, x)
 
 
 class _Layer(nn.Module):
-    def __init__(self, d, heads, n_prefix, gated, rope_theta, mlp_ratio=4,
-                 quant="none"):
+    def __init__(self, d, heads, n_prefix, gated, rope_theta, hidden,
+                 act="gelu", quant="none"):
         super().__init__()
         self.norm1 = LayerNorm(d, eps=1e-5)
         self.attention = _Attention(d, heads, n_prefix, rope_theta, quant)
         self.layer_scale1 = _LayerScale(d)
         self.norm2 = LayerNorm(d, eps=1e-5)
-        self.mlp = _MLP(d, mlp_ratio * d, gated, quant)
+        self.mlp = _MLP(d, hidden, gated, act, quant)
         self.layer_scale2 = _LayerScale(d)
 
     def forward(self, x, grid_hw):
-        h = self.attention(self.norm1(x), grid_hw)
+        h = self.attention(encoder_norm(self.norm1, x), grid_hw)
         x = x + h * self.layer_scale1.lambda1.to(h.dtype)
-        h = self.mlp(self.norm2(x))
+        h = self.mlp(encoder_norm(self.norm2, x))
         return x + h * self.layer_scale2.lambda1.to(h.dtype)
 
 
@@ -150,19 +189,24 @@ class _Embeddings(nn.Module):
 
 
 class DinoV3(nn.Module):
-    """DINOv3 ViT (small to huge); `use_gated_mlp` as `uses_gated_mlp`."""
+    """DINOv3 ViT (small to 7B); `use_gated_mlp` None takes
+    `uses_gated_mlp(cfg)`, the MLP's width and activation the
+    configuration's (`mlp_width`, `mlp_act`)."""
 
-    def __init__(self, cfg, use_gated_mlp=False, rope_theta=100.0,
+    def __init__(self, cfg, use_gated_mlp=None, rope_theta=100.0,
                  quant="none"):
         super().__init__()
         if cfg.family != "dinov3":
             raise ValueError(f"{cfg.name} is not a DINOv3 configuration")
         self.cfg = cfg
+        if use_gated_mlp is None:
+            use_gated_mlp = uses_gated_mlp(cfg)
         n_prefix = 1 + cfg.num_register_tokens
         self.embeddings = _Embeddings(cfg)
         self.layer = nn.ModuleList(
             _Layer(cfg.feat_dim, cfg.num_heads, n_prefix, use_gated_mlp,
-                   rope_theta, quant=quant) for _ in range(cfg.depth))
+                   rope_theta, mlp_width(cfg), getattr(cfg, "mlp_act", "gelu"),
+                   quant=quant) for _ in range(cfg.depth))
         self.norm = LayerNorm(cfg.feat_dim, eps=1e-5)
 
     def forward(self, imgs, drop_prefix_tokens=True):
@@ -180,5 +224,5 @@ class DinoV3(nn.Module):
         x = torch.cat([prefix.expand(b, -1, -1).to(x.dtype), x], dim=1)
         for layer in self.layer:
             x = layer(x, (grid, grid))
-        x = self.norm(x)
+        x = encoder_norm(self.norm, x)
         return x[:, 1 + c.num_register_tokens:] if drop_prefix_tokens else x

@@ -33,7 +33,7 @@ import torch
 from no_time_to_train_tpu_torch.config.hydra_yaml import resolve_sam2_cfg
 from no_time_to_train_tpu_torch.config.presets import ENCODER_PRESETS
 from no_time_to_train_tpu_torch.models.dino import DinoV2
-from no_time_to_train_tpu_torch.models.dino_v3 import DinoV3, uses_gated_mlp
+from no_time_to_train_tpu_torch.models.dino_v3 import DinoV3
 from no_time_to_train_tpu_torch.models.matching import memory_bank as mb
 from no_time_to_train_tpu_torch.models.matching import scoring
 from no_time_to_train_tpu_torch.models.sam2.factored_decode import (
@@ -122,10 +122,8 @@ class NoAMGMatcher:
         quant = matching.encoder_quant
         self.sam2 = self._build(partial(SAM2, encoder_quant=quant),
                                 self.sam2_cfg, sam2_state_dict, seed)
-        dino_cls = (partial(DinoV3, use_gated_mlp=uses_gated_mlp(self.enc_cfg),
-                            quant=quant)
-                    if self.enc_cfg.family == "dinov3"
-                    else partial(DinoV2, quant=quant))
+        dino_cls = partial(DinoV3 if self.enc_cfg.family == "dinov3"
+                           else DinoV2, quant=quant)
         self.dino = self._build(dino_cls, self.enc_cfg, dino_state_dict,
                                 seed + 1)
         for model in (self.sam2, self.dino):

@@ -81,12 +81,26 @@ def test_dino_round_trip_is_identity():
 
 
 def test_presets_equal_the_jax_package():
+    """Every preset of the JAX package is the port's, field for field; the
+    port's MLP fields (`mlp_hidden`, `mlp_act`, `gated_mlp`), which the JAX
+    package's config lacks, state what the JAX package builds for it (a
+    GELU MLP of 4 x D, gated by its matcher's name rule). `dinov3_7b` is
+    the port's alone."""
+    from no_time_to_train_tpu_torch.models.dino_v3 import uses_gated_mlp
     for name, cfg in tpresets.SAM2_PRESETS.items():
         assert dataclasses.asdict(cfg) == dataclasses.asdict(
             jpresets.SAM2_PRESETS[name]), name
-    for name, cfg in tpresets.ENCODER_PRESETS.items():
-        assert dataclasses.asdict(cfg) == dataclasses.asdict(
-            jpresets.ENCODER_PRESETS[name]), name
+    extra = {"mlp_hidden", "mlp_act", "gated_mlp"}
+    assert set(tpresets.ENCODER_PRESETS) - set(jpresets.ENCODER_PRESETS) == {
+        "dinov3_7b"}
+    for name, jcfg in jpresets.ENCODER_PRESETS.items():
+        cfg = dataclasses.asdict(tpresets.ENCODER_PRESETS[name])
+        assert set(cfg) - set(dataclasses.asdict(jcfg)) == extra, name
+        assert {k: v for k, v in cfg.items() if k not in extra} == \
+            dataclasses.asdict(jcfg), name
+        assert (cfg["mlp_hidden"], cfg["mlp_act"]) == (None, "gelu"), name
+        assert cfg["gated_mlp"] == (jcfg.family == "dinov3"
+                                    and uses_gated_mlp(jcfg)), name
 
 
 def test_attention_impl_pallas_refused_on_cuda_only():

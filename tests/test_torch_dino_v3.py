@@ -102,4 +102,4 @@ def test_rope_tables_and_gated_rule():
     from no_time_to_train_tpu_torch.config.presets import ENCODER_PRESETS
     gated = {n for n, c in ENCODER_PRESETS.items()
              if c.family == "dinov3" and uses_gated_mlp(c)}
-    assert gated == {"dinov3_huge"}
+    assert gated == {"dinov3_huge", "dinov3_7b"}

@@ -45,12 +45,29 @@ Derivation per image, for a configuration's topology `t`:
     layer 0's shared projections 6 hw C Ci.
   - Scoring: the masked average of the target's features over every mask,
     2 P R^2 D at the mask resolution R, and the class similarity 2 P D K.
+
+The calls of one request that a kernel roofline reads (`window_calls`,
+`upscale_calls`; `counts/sam2l_dinov3_7b.py` for kernel 9 and K1) follow
+the program's routing, as `hiera_attention` sets it out for Hiera: a block
+whose route changes in the program changes these lists too, in a
+`benchmark` change, and `tests/test_portbench_kernel_share.py` holds them
+to the calls that the program's functions see.
 """
 import math
 
 __all__ = ["dino_flops", "hiera_blocks", "hiera_block_flops", "hiera_flops",
            "decoder_flops",
-           "scoring_flops", "image_flops", "upscale_call", "window_call"]
+           "scoring_flops", "image_flops", "upscale_call", "window_call",
+           "elem_bytes", "bnhd_gate", "hiera_attention", "window_calls",
+           "upscale_calls"]
+
+# the program's attention gates (`ops/attention.py`): `window_sdpa_qkv`
+# takes a block of several windows of at least this many tokens in all;
+# `sdpa_bnhd` sends to kernel 9 queries and keys of at least
+# FLASH_MIN_TOKENS each, the keys padded to 128 rows within ONEPASS_MAX_NK
+WINDOW_MIN_TOKENS = 4096
+FLASH_MIN_TOKENS = 512
+ONEPASS_MAX_NK = 4608
 
 
 def dino_flops(dino):
@@ -184,3 +201,70 @@ def window_call(tokens, width, window, elem=2):
     windows of `window` tokens) of total width `width`: both products, the
     packed q, k, v read once and the output written once."""
     return 4 * tokens * window * width, elem * 4 * tokens * width
+
+
+def elem_bytes(config):
+    """Bytes of a value in the configuration's compute dtype."""
+    return 2 if config["matching"]["compute_dtype"] in (
+        "bfloat16", "float16") else 4
+
+
+def bnhd_gate(config, nq, nk):
+    """Whether `sdpa_bnhd` sends nq queries against nk keys to kernel 9."""
+    return (config["matching"]["attention_impl"] == "pallas"
+            and nq >= FLASH_MIN_TOKENS and nk >= FLASH_MIN_TOKENS
+            and -(-nk // 128) * 128 <= ONEPASS_MAX_NK)
+
+
+def hiera_attention(config):
+    """Each Hiera block's attention in block order, as the program routes
+    it for one image (`models/sam2/hiera.py` MultiScaleAttention): a
+    windowed block without q-pool over several windows of WINDOW_MIN_TOKENS
+    or more in all to kernel 10, ("window", (tokens, width, window tokens))
+    over the padded windows; otherwise the windows (or the one global
+    window) as the batch of `sdpa_bnhd`, ("bnhd", (windows, queries, keys,
+    heads, head dim)) where its gate opens, else (None, None). The heads
+    double, and the width with them, at each stage's first block."""
+    hiera = config["topology"]["hiera"]
+    window_gate = config["matching"]["attention_impl"] == "pallas"
+    h, heads, out = hiera["image_size"] // 4, hiera["num_heads"], []
+    for dim, dim_out, window, q_pool, _ in hiera_blocks(hiera):
+        if dim_out != dim:
+            heads *= 2
+        if window:
+            nw, side = math.ceil(h / window) ** 2, window
+        else:
+            nw, side = 1, h
+        keys = side * side
+        queries = (side // 2) ** 2 if q_pool else keys
+        if (window_gate and not q_pool and nw > 1
+                and nw * keys >= WINDOW_MIN_TOKENS):
+            out.append(("window", (nw * keys, dim_out, keys)))
+        elif bnhd_gate(config, queries, keys):
+            out.append(("bnhd", (nw, queries, keys, heads,
+                                 dim_out // heads)))
+        else:
+            out.append((None, None))
+        if q_pool:
+            h //= 2
+    return out
+
+
+def window_calls(config):
+    """Kernel 10's calls of one request, (operations, bytes) each."""
+    elem = elem_bytes(config)
+    return [window_call(*shape, elem)
+            for kernel, shape in hiera_attention(config)
+            if kernel == "window"]
+
+
+def upscale_calls(config):
+    """K4's calls of one request under `decoder_impl` "dense": the grid's
+    prompts in chunks of `testing_point_bs` (`_decode_grid_batch`), one call
+    a chunk on the image embedding of (S / 16)^2 tokens."""
+    m, t = config["matching"], config["topology"]
+    prompts = m["points_per_side"] ** 2
+    chunk = min(m["testing_point_bs"], prompts)
+    hw = (t["hiera"]["image_size"] // 16) ** 2
+    return [upscale_call(chunk, hw, t["decoder"]["dim"], elem_bytes(config))
+            ] * (prompts // chunk)

@@ -26,6 +26,14 @@ every operand read once and every result written once.
   - `norm_call(rows, cols)`: K1 on [rows, cols]: no products; x read and y
     written once, weight and bias read once: 2 rows cols + 2 cols values.
 
+One request's calls, (operations, bytes) each, from the configuration:
+  - `attn_calls`: kernel 9's, DINOv3's `depth` calls on its N tokens
+    where `sdpa_bnhd`'s gate opens (`common.bnhd_gate`), then the Hiera
+    blocks that the program sends to kernel 9 (`common.hiera_attention`:
+    Hiera-L's 3 global blocks), in the order a request makes them;
+  - `norm_calls`: K1's, DINOv3's `encoder_norm` on [N, D]: norm1 and norm2
+    of each layer and the final norm, 2 depth + 1.
+
 `present(ranges)` keeps the ranges whose program function exists, so that a
 reader of this configuration reads nothing, and raises nothing, on a
 program without it.
@@ -35,7 +43,7 @@ import importlib
 from portbench.counts import common
 
 __all__ = ["image_flops", "mlp_call", "rope_call", "attn_call", "norm_call",
-           "present"]
+           "attn_calls", "norm_calls", "present"]
 
 
 def image_flops(config):
@@ -60,6 +68,29 @@ def attn_call(b, nq, nk, heads, d, elem=2):
 
 def norm_call(rows, cols, elem=2):
     return 0, elem * (2 * rows * cols + 2 * cols)
+
+
+def _tokens(dino):
+    g = dino["img_size"] // dino["patch_size"]
+    return g * g + 1 + dino["registers"]
+
+
+def attn_calls(config):
+    dino, elem = config["topology"]["dino"], common.elem_bytes(config)
+    n, heads = _tokens(dino), dino["heads"]
+    out = []
+    if common.bnhd_gate(config, n, n):
+        out = [attn_call(1, n, n, heads, dino["dim"] // heads, elem)
+               ] * dino["depth"]
+    return out + [attn_call(*shape, elem)
+                  for kernel, shape in common.hiera_attention(config)
+                  if kernel == "bnhd"]
+
+
+def norm_calls(config):
+    dino = config["topology"]["dino"]
+    return [norm_call(_tokens(dino), dino["dim"], common.elem_bytes(config))
+            ] * (2 * dino["depth"] + 1)
 
 
 def present(ranges):

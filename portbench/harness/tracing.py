@@ -14,10 +14,13 @@ calls' counts are kept under the range's name.
 
 A kernel belongs to every range whose host interval encloses the launch
 (the CUDA runtime or driver call with the kernel's correlation id) on the
-launching thread. The traced segment runs under `torch.profiler`, opened
-with spin kernels first because the profiler can lose the first kernels
-after it starts; its Chrome trace is written to $TMPDIR, read and
-deleted.
+launching thread. The kernels of a CUDA graph replay carry the correlation
+id of their `cudaGraphLaunch`, so they belong to the ranges around the
+replay. A kernel is told apart by its demangled name with its template
+arguments (`template_args`) and by its launch grid. The traced segment
+runs under `torch.profiler`, opened with spin kernels first because the
+profiler can lose the first kernels after it starts; its Chrome trace is
+written to $TMPDIR, read and deleted.
 """
 import bisect
 import contextlib
@@ -29,7 +32,7 @@ import tempfile
 import numpy as np
 import torch
 
-__all__ = ["Ranges", "Trace", "profiled"]
+__all__ = ["Ranges", "Trace", "profiled", "template_args"]
 
 GPU_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
@@ -97,6 +100,33 @@ class Ranges:
             self._undo.pop()()
 
 
+def template_args(name):
+    """(qualified name, top-level template arguments) of a kernel's
+    demangled name: `void attn_mma::attn_kernel<80, false, 2, 2, 2>(...)`
+    gives ("attn_mma::attn_kernel", ("80", "false", "2", "2", "2")); a
+    kernel that is no template gives its name and ()."""
+    if name.startswith("void "):
+        name = name[5:]
+    name = name.replace("(anonymous namespace)", "{anonymous}")
+    lt, paren = name.find("<"), name.find("(")
+    if lt < 0 or 0 <= paren < lt:
+        return (name if paren < 0 else name[:paren]).strip(), ()
+    args, depth, start = [], 0, lt + 1
+    for i in range(lt, len(name)):
+        c = name[i]
+        if c in "<(":
+            depth += 1
+        elif c in ">)":
+            depth -= 1
+            if depth == 0:
+                args.append(name[start:i].strip())
+                break
+        elif c == "," and depth == 1:
+            args.append(name[start:i].strip())
+            start = i + 1
+    return name[:lt].strip(), tuple(args)
+
+
 def _spin(device):
     x = torch.ones(1 << 20, device=device)
     for _ in range(64):
@@ -151,12 +181,17 @@ class Trace:
                     (e["ts"], e["ts"] + e["dur"], e["tid"]))
             elif cat == "cpu_op":
                 cpu.append((e["ts"], e["ts"] + e["dur"], e["name"], e["tid"]))
-        self.kernels = []   # (name, start, dur, launch ts, launch tid)
+        rows = []
         for e in gpu:
-            ts, tid = launches.get(e.get("args", {}).get("correlation"),
-                                   (None, None))
-            self.kernels.append((e["name"], e["ts"], e["dur"], ts, tid))
-        self.kernels.sort(key=lambda k: k[1])
+            args = e.get("args", {})
+            ts, tid = launches.get(args.get("correlation"), (None, None))
+            rows.append(((e["name"], e["ts"], e["dur"], ts, tid),
+                         tuple(args.get("grid", ()))))
+        rows.sort(key=lambda r: r[0][1])
+        # (name, start, dur, launch ts, launch tid), and by index the launch
+        # grid (x, y, z)
+        self.kernels = [k for k, _ in rows]
+        self.grids = {i: g for i, (_, g) in enumerate(rows)}
         self.ranges = {k: sorted(v) for k, v in ann.items()}
         self.cpu = cpu
         self._by_tid = {}
@@ -180,16 +215,21 @@ class Trace:
         i = bisect.bisect_right(starts, ts) - 1
         return i >= 0 and ends[i] >= ts
 
-    def device_us(self, name, patterns=None):
-        """Summed device time of the kernels launched inside range `name`
-        (whose names contain one of `patterns`, where given)."""
+    def device_us(self, names, select=None):
+        """Summed device time of the kernels launched inside the range
+        `names` (a name, or a list of names: inside any of them), where
+        given only those that `select(name, grid)` takes, with the launch
+        grid (x, y, z), () where the trace gives none."""
+        if isinstance(names, str):
+            names = [names]
         total = 0.0
-        for kname, _, dur, ts, tid in self.kernels:
+        for i, (kname, _, dur, ts, tid) in enumerate(self.kernels):
             if ts is None:
                 continue
-            if patterns is not None and not any(p in kname for p in patterns):
+            if select is not None and not select(kname,
+                                                 self.grids.get(i, ())):
                 continue
-            if self._inside(name, ts, tid):
+            if any(self._inside(n, ts, tid) for n in names):
                 total += dur
         return total
 

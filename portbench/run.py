@@ -131,24 +131,68 @@ class RunView:
         us = self.trace.device_us(name)
         return us * 1e-3 / self.segment.finished if us > 0 else None
 
+    def _least(self, calls):
+        """(least seconds, operations' seconds, bytes' seconds) of
+        `calls`, each (operations, bytes): a call's least time is the
+        larger of its operations over the compute dtype's peak and its
+        bytes over the memory bandwidth."""
+        flops = self.peak[self.cell.config["matching"]["compute_dtype"]]
+        bw = self.peak["bytes_per_s"]
+        return (sum(max(o / flops, b / bw) for o, b in calls),
+                sum(o for o, _ in calls) / flops,
+                sum(b for _, b in calls) / bw)
+
+    def _share(self, name, calls, measured):
+        least, t_ops, t_bytes = self._least(calls)
+        self.notes.append(
+            f"{name}: {len(calls)} calls, least {least * 1e3:.4f} ms (bound "
+            f"by {'operations' if t_ops >= t_bytes else 'bytes'}: operations "
+            f"{t_ops * 1e3:.4f} ms, bytes {t_bytes * 1e3:.4f} ms), measured "
+            f"{measured * 1e3:.4f} ms")
+        return 100.0 * least / measured
+
     def roofline(self, name, kernels):
+        """The share of the calls that the wrapper of range `name` counted,
+        over the device time of the kernels launched inside those calls
+        (those that `kernels(name, grid)` takes; None: every kernel)."""
         calls = self.calls.get(name)
         if self.trace is None or not calls or self.peak is None:
             return None
         measured = self.trace.device_us(name, kernels) * 1e-6
         if measured <= 0:
             return None
-        dtype = self.cell.config["matching"]["compute_dtype"]
-        t_ops = sum(o for o, _ in calls) / self.peak[dtype]
-        t_bytes = sum(b for _, b in calls) / self.peak["bytes_per_s"]
-        least = sum(max(o / self.peak[dtype], b / self.peak["bytes_per_s"])
-                    for o, b in calls)
-        self.notes.append(
-            f"{name}: {len(calls)} calls, least {least * 1e3:.4f} ms (bound by "
-            f"{'operations' if t_ops >= t_bytes else 'bytes'}: operations "
-            f"{t_ops * 1e3:.4f} ms, bytes {t_bytes * 1e3:.4f} ms), measured "
-            f"{measured * 1e3:.4f} ms")
-        return 100.0 * least / measured
+        return self._share(name, calls, measured)
+
+    def kernel_share(self, name, ranges, kernels, calls_per_request, seen):
+        """A kernel's share of its roofline: the least time of one
+        request's calls from the configuration (`calls_per_request(config)`,
+        each (operations, bytes)) times the requests of the traced segment,
+        over the device time of the launches that `kernels(name, grid)`
+        takes among those inside any of the ranges `ranges`. The notes set
+        the calls that the wrapper of range `seen` counted (eager code)
+        beside the configuration's, with the share that they give over the
+        same kernels inside those calls; they never decide the reading."""
+        if self.trace is None or self.peak is None \
+                or not self.segment.finished:
+            return None
+        measured = self.trace.device_us(ranges, kernels) * 1e-6
+        if measured <= 0:
+            return None
+        per_request = list(calls_per_request(self.cell.config))
+        n = self.segment.finished
+        share = self._share(name, per_request * n, measured)
+        calls = self.calls.get(seen, [])
+        by_calls = self.trace.device_us(seen, kernels) * 1e-6
+        note = (f"{name}: {len(calls)} calls seen against the "
+                f"configuration's {len(per_request)} x {n} requests: "
+                + ("equal" if calls == per_request * n else "unequal"))
+        if calls and by_calls > 0:
+            old = 100.0 * self._least(calls)[0] / by_calls
+            note += (f"; from the calls seen {old:.4f} %, from the "
+                     f"configuration {share:.4f} % "
+                     f"({100.0 * (share / old - 1.0):+.3f} %)")
+        self.notes.append(note)
+        return share
 
     def idle_pct(self):
         if self.trace is None:

@@ -169,16 +169,19 @@ def test_readers_without_their_ranges_read_nothing(name):
 
 
 def test_layer_norm_roofline_reads_its_kernels():
-    """Two calls of 22.5 MB each (6.72 us at 3.35 TB/s) whose K1 kernels
-    took 10 us each: 67.2 %; a kernel of another name in the range is not
-    K1's."""
+    """The configuration's 81 calls a request of 22.5 MB each (6.72 us at
+    3.35 TB/s); over two requests whose K1 kernels took 10 us a call
+    inside the encoder's forward: 67.2 %. A kernel of another name in the
+    range is not K1's, nor a K1 kernel launched outside it."""
     peak = {"bfloat16": 989e12, "bytes_per_s": 3.35e12}
     call = counts.norm_call(1374, 4096)
-    ranges = {"pb.k.dinov3_norm": [(0.0, 5.0, 1), (20.0, 25.0, 1)]}
-    kernels = [("void ln_wide_kernel<4>(...)", 30.0, 10.0, 1.0, 1),
-               ("void ln_wide_kernel<4>(...)", 50.0, 10.0, 21.0, 1),
-               ("elementwise_kernel", 70.0, 50.0, 22.0, 1)]
-    run = _run(ranges, kernels, {"pb.k.dinov3_norm": [call, call]}, peak)
+    ranges = {"pb.dinov3": [(0.0, 500.0, 1), (1000.0, 1500.0, 1)]}
+    kernels = [("void ln_wide_kernel<4>(...)", 2000.0 + i, 10.0,
+                1.0 + i + 1000.0 * (i >= 81), 1) for i in range(162)]
+    kernels += [("elementwise_kernel", 3000.0, 50.0, 22.0, 1),
+                ("void ln_wide_kernel<4>(...)", 3100.0, 10.0, 600.0, 1)]
+    run = _run(ranges, kernels, peak=peak)
+    run.cell.config = _cfg()
     share = _reader("dinov3.layer_norm_roofline").read(run)
-    assert share == pytest.approx(100 * 2 * call[1] / 3.35e12 / 20e-6)
+    assert share == pytest.approx(100 * call[1] / 3.35e12 / 10e-6)
     assert round(share, 1) == 67.2

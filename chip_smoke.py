@@ -1727,7 +1727,8 @@ def k1_shapes():
     """Count the K1 launches inside by (rows, C): the kernel's one call site
     (models/sam2/common.py `_layer_norm`) is wrapped for the duration. A
     CUDA graph's replay makes no Python call: the launches inside DINOv2's
-    and the decode's graphs are not seen here."""
+    and the decode's graphs are not seen here; the breakdowns switch the
+    image encoder's site off, so that Hiera's shapes are counted."""
     from collections import Counter
     from no_time_to_train_tpu_torch.models.sam2 import common
     from no_time_to_train_tpu_torch.ops import fused_ln as fl
@@ -1959,8 +1960,9 @@ def run_path(dev, label, encoder, impl, n_test, matcher=None,
     log(f"  encoders, fenced, median of 5: "
         + ", ".join(f"{k} {v:.2f} ms" for k, v in layer_ms.items()))
     if label == "dinov2_l pallas":
-        # K1's launches on one more test image, by shape
-        with k1_shapes() as seen:
+        # K1's launches on one more test image, by shape, Hiera eager
+        with sites_off([matcher.sam2.image_encoder._graph]), \
+                k1_shapes() as seen:
             matcher.test(targets[0])
         k1_by_shape("per test image", seen, 1)
 
@@ -2417,9 +2419,9 @@ def run_video(dev, profile=False):
         fail(f"no_fusion() tracking captured {len(plain_keys)} graphs of "
              "its own, expected 1")
     mask_gap("kernels vs no_fusion(), scan path", scan_masks, plain_masks)
-    # K1's launches over one more run of the clip, by shape (per-frame path:
-    # a replay calls no wrapper)
-    with k1_shapes() as seen:
+    # K1's launches over one more run of the clip, by shape (per-frame path,
+    # Hiera eager: a replay calls no wrapper)
+    with sites_off([pred.model.image_encoder._graph]), k1_shapes() as seen:
         track_clip(pred, frames, points, 0, fenced=False)
     k1_by_shape(f"per frame (over the {VIDEO_FRAMES} frames)", seen,
                 VIDEO_FRAMES)
@@ -5881,20 +5883,22 @@ def run_matcher_options(dev, smi):
     return rows, totals, summary
 
 
-# phase 15: the test step's CUDA graph sites (ops/graph_call.py): DINOv2
-# and the grid decode's token-side steps (the image-side kernels K2, K3, K4
-# run between them), on SAM2-L and SAM2-S with DINOv2-L, and on SAM2-L
-# under encoder_quant="int8". Each request is one DINOv2 replay and one
-# replay per decode step and chunk once warm; a replay gives the eager
-# code's bits (the same kernels in the same order).
+# phase 15: the test step's CUDA graph sites (ops/graph_call.py): DINOv2,
+# the image encoder (Hiera, the FPN neck, conv_s0 / conv_s1) and the grid
+# decode's token-side steps (the image-side kernels K2, K3, K4 run between
+# them), on SAM2-L and SAM2-S with DINOv2-L, and on SAM2-L under
+# encoder_quant="int8". Each request is one DINOv2 replay, one image
+# encoder replay and one replay per decode step and chunk once warm; a
+# replay gives the eager code's bits (the same kernels in the same order).
 GRAPH_CELLS = [("sam2_hiera_l.yaml", "none"), ("sam2_hiera_s.yaml", "none"),
                ("sam2_hiera_l.yaml", "int8")]
 GRAPH_IMAGES, GRAPH_WINDOW, GRAPH_TIMED = 3, 20, 10
 
 
 def graph_sites(matcher):
-    """DINOv2's site, then the decode steps' sites."""
-    return [matcher.dino._graph, *matcher.sam2._decode_graphs.values()]
+    """DINOv2's site, the image encoder's, then the decode steps' sites."""
+    return [matcher.dino._graph, matcher.sam2.image_encoder._graph,
+            *matcher.sam2._decode_graphs.values()]
 
 
 def graph_totals(matcher):
@@ -5904,10 +5908,14 @@ def graph_totals(matcher):
                  for w in ("captures", "replays", "eager"))
 
 
-@contextlib.contextmanager
 def graphs_off(matcher):
     """Every call of every site runs the eager code inside."""
-    sites = graph_sites(matcher)
+    return sites_off(graph_sites(matcher))
+
+
+@contextlib.contextmanager
+def sites_off(sites):
+    """Every call of these sites runs the eager code inside."""
     for site in sites:
         site._capturable = lambda args: False
     try:
@@ -5918,11 +5926,14 @@ def graphs_off(matcher):
 
 
 def graph_request(matcher, img):
-    """`test` on img, with what the two sites returned: (the fetched
-    result, DINOv2's features, [(mask, iou)] of each decode chunk)."""
+    """`test` on img, with what the sites returned: (the fetched result,
+    DINOv2's features and the image encoder's FPN levels, [(mask, iou)] of
+    each decode chunk)."""
     seen = {"decode": []}
-    hook = matcher.dino.register_forward_hook(
-        lambda _m, _a, out: seen.__setitem__("dino", out))
+    hooks = [matcher.dino.register_forward_hook(
+        lambda _m, _a, out: seen.__setitem__("dino", out)),
+        matcher.sam2.image_encoder.register_forward_hook(
+            lambda _m, _a, out: seen.__setitem__("fpn", out["backbone_fpn"]))]
     inner = matcher.sam2.forward_sam_heads_best
 
     def decode(*args, **kwargs):
@@ -5934,9 +5945,10 @@ def graph_request(matcher, img):
     try:
         out = matcher.test(img)
     finally:
-        hook.remove()
+        for hook in hooks:
+            hook.remove()
         del matcher.sam2.forward_sam_heads_best
-    return out, seen["dino"], seen["decode"]
+    return out, [seen["dino"], *seen["fpn"]], seen["decode"]
 
 
 def graph_cell(dev, smi, sam2_cfg, quant):
@@ -5975,22 +5987,23 @@ def graph_cell(dev, smi, sam2_cfg, quant):
         before = graph_totals(matcher)
         out, feats, chunks = graph_request(matcher, img)
         moved = [a - b for a, b in zip(graph_totals(matcher), before)]
-        per_request = 1 + steps * len(chunks)
+        per_request = 2 + steps * len(chunks)
         check(moved == [0, per_request, 0],
               f"{label}, image {k}: (captures, replays, eager) {moved}, "
               f"expected (0, {per_request}, 0)")
-        tensors = [feats] + [t for pair in chunks for t in pair]
+        tensors = feats + [t for pair in chunks for t in pair]
         for j, (t, copy) in enumerate(held):
             check(torch.equal(t, copy), f"{label}: request {j}'s output "
                   f"{tuple(t.shape)} changed after request {k}")
         held = [(t, t.clone()) for t in tensors]
         with graphs_off(matcher):
             e_out, e_feats, e_chunks = graph_request(matcher, img)
-        e_tensors = [e_feats] + [t for pair in e_chunks for t in pair]
+        e_tensors = e_feats + [t for pair in e_chunks for t in pair]
         same = [torch.equal(a, b) for a, b in zip(tensors, e_tensors)]
         check(all(same) and len(tensors) == len(e_tensors),
               f"{label}, image {k}: graphed against eager, equal per "
-              f"tensor (features, then mask, iou per chunk) {same}")
+              f"tensor (DINOv2's features, the FPN levels, then mask, iou "
+              f"per chunk) {same}")
         same_result(f"{label}, image {k}: graphed against eager", out,
                     e_out, exact=True)
     before = graph_totals(matcher)
@@ -6041,29 +6054,39 @@ def site_stat(what, site):
 
 
 def graph_weight_write(matcher, img, label):
-    """Under encoder_quant="int8": a weight of DINOv2 written in place after
-    the capture (its W8A8 levels are the graph's) gives the eager code's
-    features on the new weight, through a new capture of DINOv2 only."""
+    """Under encoder_quant="int8": a weight of DINOv2, then one of Hiera's
+    trunk, written in place after the capture (its W8A8 levels are the
+    graph's) gives the eager code's features on the new weight, through a
+    new capture of that encoder's site only (features: DINOv2's, then the
+    FPN levels)."""
     import torch
-    weight = matcher.dino.encoder.layer[0].mlp.fc1.weight
-    keep = weight.detach().clone()
-    with torch.no_grad():
-        weight.mul_(1.25)
-    try:
-        before = graph_totals(matcher)
-        _, feats, _ = graph_request(matcher, img)
-        moved = [a - b for a, b in zip(graph_totals(matcher), before)]
-        with graphs_off(matcher):
-            _, e_feats, _ = graph_request(matcher, img)
-        if not torch.equal(feats, e_feats) or moved[0] != 1:
-            fail(f"{label}: after a weight write, captures {moved[0]} "
-                 f"(expected 1), features equal to eager "
-                 f"{torch.equal(feats, e_feats)}")
-    finally:
+    writes = (("DINOv2", matcher.dino.encoder.layer[0].mlp.fc1.weight,
+               slice(0, 1)),
+              ("Hiera", matcher.sam2.image_encoder.trunk.blocks[0].mlp
+               .layers[0].weight, slice(1, None)))
+    for name, weight, part in writes:
+        keep = weight.detach().clone()
         with torch.no_grad():
-            weight.copy_(keep)
-    log(f"  [{label}] a W8A8 weight written after the capture: a new "
-        f"capture, features the eager code's bit for bit")
+            weight.mul_(1.25)
+        try:
+            before = graph_totals(matcher)
+            _, feats, _ = graph_request(matcher, img)
+            moved = [a - b for a, b in zip(graph_totals(matcher), before)]
+            with graphs_off(matcher):
+                _, e_feats, _ = graph_request(matcher, img)
+            same = all(torch.equal(a, b)
+                       for a, b in zip(feats[part], e_feats[part]))
+            if not same or moved[0] != 1:
+                fail(f"{label}: after a {name} weight write, captures "
+                     f"{moved[0]} (expected 1), features equal to eager "
+                     f"{same}")
+        finally:
+            with torch.no_grad():
+                weight.copy_(keep)
+        matcher.test(img)        # the restored weight's capture
+    log(f"  [{label}] a W8A8 weight of DINOv2, then of Hiera, written after "
+        f"the capture: a new capture each, features the eager code's bit "
+        f"for bit")
 
 
 def quartiles(values):

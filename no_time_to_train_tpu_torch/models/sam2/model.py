@@ -4,7 +4,7 @@ reference sam2/modeling/sam2_base.py).
 Holds the image encoder, the prompt encoder, the mask decoder and the
 video-memory modules under the reference's state_dict names:
   - forward_image: Hiera + FPN (+ conv_s0 / conv_s1 on the two
-    high-resolution levels);
+    high-resolution levels), one CUDA graph replay on the card;
   - forward_sam_heads_best: the grid decode of the matching pipeline, its
     token-side steps CUDA graph replays on the card;
   - forward_sam_heads: prompt encoder + mask decoder with the object
@@ -19,14 +19,14 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from no_time_to_train_tpu_torch.models.sam2.common import MLP, conv1x1
+from no_time_to_train_tpu_torch.models.sam2.common import MLP
 from no_time_to_train_tpu_torch.models.sam2.mask_decoder import MaskDecoder
 from no_time_to_train_tpu_torch.models.sam2.memory_attention import (
     MemoryAttention)
 from no_time_to_train_tpu_torch.models.sam2.memory_encoder import MemoryEncoder
 from no_time_to_train_tpu_torch.models.sam2.neck import Sam2ImageEncoder
 from no_time_to_train_tpu_torch.models.sam2.prompt_encoder import PromptEncoder
-from no_time_to_train_tpu_torch.ops.graph_call import GraphSite, graph_stats
+from no_time_to_train_tpu_torch.ops.graph_call import GraphSite
 from no_time_to_train_tpu_torch.ops.resize import resize_hw
 
 __all__ = ["SAM2", "NO_OBJ_SCORE"]
@@ -77,7 +77,8 @@ class SAM2(nn.Module):
                 if c.use_mlp_for_obj_ptr_proj
                 else nn.Linear(c.hidden_dim, c.hidden_dim))
             self.mask_downsample = nn.Conv2d(1, 1, 4, stride=4)
-        self.graph_stats = graph_stats()
+        # one dict for the image encoder's site and the decode's sites
+        self.graph_stats = self.image_encoder.graph_stats
         steps = ["prompts", "heads"] + [
             f"{i}.{half}"
             for i in range(len(self.sam_mask_decoder.transformer.layers))
@@ -99,15 +100,12 @@ class SAM2(nn.Module):
     def forward_image(self, imgs):
         """imgs [B, S, S, 3] normalized -> dict with `backbone_fpn` (levels
         highest resolution first, conv_s0 / conv_s1 applied to levels 0 and
-        1 when the decoder uses high-resolution features)."""
-        out = self.image_encoder(imgs)
-        if self.cfg.use_high_res_features_in_sam:
-            fpn = list(out["backbone_fpn"])
-            dec = self.sam_mask_decoder
-            fpn[0] = conv1x1(dec.conv_s0, fpn[0])
-            fpn[1] = conv1x1(dec.conv_s1, fpn[1])
-            out["backbone_fpn"] = fpn
-        return out
+        1 when the decoder uses high-resolution features), inside the image
+        encoder's call: on the card its one graph replays them too."""
+        dec = self.sam_mask_decoder
+        high_res = ((dec.conv_s0, dec.conv_s1)
+                    if self.cfg.use_high_res_features_in_sam else None)
+        return self.image_encoder(imgs, high_res=high_res)
 
     # ------------------------------------------------------------------ heads
     def forward_sam_heads_best(self, backbone_features, point_coords,

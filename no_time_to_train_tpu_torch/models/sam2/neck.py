@@ -4,11 +4,16 @@ reference sam2/modeling/backbones/image_encoder.py), NHWC.
 
 The slice reads only the feature maps, so the neck's sine position
 encodings (`vision_pos_enc`) are not computed.
+
+On the card `Sam2ImageEncoder` replays Hiera, the neck and the decoder's two
+high-resolution 1x1 convolutions as one CUDA graph a call
+(`ops/graph_call.py`; counters in `graph_stats` under the site "image").
 """
 import torch.nn as nn
 
 from no_time_to_train_tpu_torch.models.sam2.common import conv1x1
 from no_time_to_train_tpu_torch.models.sam2.hiera import Hiera
+from no_time_to_train_tpu_torch.ops.graph_call import GraphSite, graph_stats
 from no_time_to_train_tpu_torch.ops.resize import resize
 
 __all__ = ["FpnNeck", "Sam2ImageEncoder"]
@@ -63,12 +68,39 @@ class Sam2ImageEncoder(nn.Module):
             window_spec=cfg.window_spec, quant=quant)
         self.neck = FpnNeck(cfg.d_model, cfg.backbone_channel_list,
                             cfg.fpn_top_down_levels, cfg.fpn_interp_model)
+        self.graph_stats = graph_stats()
+        self._graph = GraphSite("image", self.graph_stats)
 
-    def forward(self, sample):
+    def _apply(self, fn, recurse=True):
+        self._graph.reset()
+        return super()._apply(fn, recurse)
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        self._graph.reset()
+        super()._load_from_state_dict(*args, **kwargs)
+
+    def forward(self, sample, high_res=None):
         """sample [B, S, S, 3] normalized -> dict(vision_features,
         backbone_fpn: levels highest resolution first, the lowest
-        `scalp` dropped)."""
+        `scalp` dropped). `high_res`: the two 1x1 convolutions that the
+        mask decoder applies to levels 0 and 1 (its `conv_s0`, `conv_s1`),
+        applied here, so that the graph returns the convolved levels and
+        holds no 256-channel high-resolution level. `vision_features` is
+        the last level itself. The site's key holds the addresses of the two
+        convolutions' parameters, which this module does not own: a move of
+        the decoder alone drops the graph."""
+        impls = tuple(blk.attn.attention_impl for blk in self.trunk.blocks)
+        convs = (() if high_res is None else
+                 tuple(p.data_ptr() for c in high_res for p in c.parameters()))
+        levels = self._graph(lambda x: self._levels(x, high_res), sample,
+                             key=(high_res is not None, impls, convs))
+        return {"vision_features": levels[-1], "backbone_fpn": list(levels)}
+
+    def _levels(self, sample, high_res):
         features = self.neck(self.trunk(sample))
         if self.scalp > 0:
             features = features[:-self.scalp]
-        return {"vision_features": features[-1], "backbone_fpn": features}
+        if high_res is not None:
+            features[0] = conv1x1(high_res[0], features[0])
+            features[1] = conv1x1(high_res[1], features[1])
+        return tuple(features)

@@ -1,5 +1,6 @@
 """Parameter conversion, presets and the port's import boundary."""
 import dataclasses
+import importlib.util
 import subprocess
 import sys
 
@@ -80,21 +81,34 @@ def test_dino_round_trip_is_identity():
     _assert_tree_equal(convert_hf_dinov2(back, ENC), params)
 
 
+def _fresh_copy(module):
+    """A new copy of `module`, run from its file under a private name and
+    kept out of `sys.modules`: the tables as the source defines them."""
+    spec = importlib.util.spec_from_file_location(
+        "_fresh_" + module.__name__.replace(".", "_"), module.__file__)
+    copy = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(copy)
+    return copy
+
+
 def test_presets_equal_the_jax_package():
     """Every preset of the JAX package is the port's, field for field; the
     port's MLP fields (`mlp_hidden`, `mlp_act`, `gated_mlp`), which the JAX
     package's config lacks, state what the JAX package builds for it (a
     GELU MLP of 4 x D, gated by its matcher's name rule). `dinov3_7b` is
-    the port's alone."""
+    the port's alone. Both tables are read from fresh copies of their
+    modules, so presets that other tests register at run time (the JAX
+    package's `dino_tiny_test`) are left out."""
     from no_time_to_train_tpu_torch.models.dino_v3 import uses_gated_mlp
-    for name, cfg in tpresets.SAM2_PRESETS.items():
+    jp, tp = _fresh_copy(jpresets), _fresh_copy(tpresets)
+    for name, cfg in tp.SAM2_PRESETS.items():
         assert dataclasses.asdict(cfg) == dataclasses.asdict(
-            jpresets.SAM2_PRESETS[name]), name
+            jp.SAM2_PRESETS[name]), name
     extra = {"mlp_hidden", "mlp_act", "gated_mlp"}
-    assert set(tpresets.ENCODER_PRESETS) - set(jpresets.ENCODER_PRESETS) == {
+    assert set(tp.ENCODER_PRESETS) - set(jp.ENCODER_PRESETS) == {
         "dinov3_7b"}
-    for name, jcfg in jpresets.ENCODER_PRESETS.items():
-        cfg = dataclasses.asdict(tpresets.ENCODER_PRESETS[name])
+    for name, jcfg in jp.ENCODER_PRESETS.items():
+        cfg = dataclasses.asdict(tp.ENCODER_PRESETS[name])
         assert set(cfg) - set(dataclasses.asdict(jcfg)) == extra, name
         assert {k: v for k, v in cfg.items() if k not in extra} == \
             dataclasses.asdict(jcfg), name

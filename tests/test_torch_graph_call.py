@@ -3,10 +3,12 @@ the CUDA graph whose replay runs the captured function on the static
 inputs: capture on a key's second consecutive call, one live graph per
 site, eager calls for alternating keys, returned tensors that never alias
 a static buffer, launch counters that count each call once, a graph
-dropped after a write to a table's source; and the DINOv2 and grid-decode
-sites of the tiny models, which on the CPU run the eager code unchanged,
-and through the stand-in give the same bits, also after their weights
-are written, with no per-prompt image-side tensor in a decode graph."""
+dropped after a write to a table's source; and the DINOv2, grid-decode
+and image-encoder sites of the tiny models, which on the CPU run the eager
+code unchanged, and through the stand-in give the same bits, also after
+their weights are written, with no per-prompt image-side tensor in a
+decode graph and no 256-channel high-resolution level in the image
+encoder's."""
 import copy
 
 import pytest
@@ -15,6 +17,7 @@ import torch
 from no_time_to_train_tpu_torch.config.presets import (
     EncoderConfig, Sam2Config)
 from no_time_to_train_tpu_torch.models.dino import DinoV2
+from no_time_to_train_tpu_torch.models.sam2.common import conv1x1
 from no_time_to_train_tpu_torch.models.sam2.model import SAM2
 from no_time_to_train_tpu_torch.ops import _cuda
 from no_time_to_train_tpu_torch.ops.graph_call import (
@@ -307,3 +310,117 @@ def test_weights_written_after_a_capture_give_fresh_results():
     for _ in range(2):
         assert torch.equal(dino(imgs), dino._features(imgs, True))
     assert _count(dino.graph_stats, "captures") == 3
+
+
+def _images(seed):
+    return torch.randn(1, 128, 128, 3,
+                       generator=torch.Generator().manual_seed(seed))
+
+
+def _image_before(sam2, imgs):
+    """`forward_image`'s levels as the eager trunk, neck and the decoder's
+    conv_s0 / conv_s1 compute them."""
+    enc, dec = sam2.image_encoder, sam2.sam_mask_decoder
+    levels = enc.neck(enc.trunk(imgs))[:-enc.scalp]
+    return [conv1x1(dec.conv_s0, levels[0]), conv1x1(dec.conv_s1, levels[1]),
+            *levels[2:]]
+
+
+def _image_stand_in(sam2):
+    sam2.image_encoder._graph = StandInSite("image", sam2.graph_stats)
+    return sam2
+
+
+def _same_levels(sam2, imgs):
+    out = sam2.forward_image(imgs)
+    fpn = out["backbone_fpn"]
+    assert out["vision_features"] is fpn[-1]
+    want = _image_before(sam2, imgs)
+    assert len(fpn) == len(want)
+    assert all(torch.equal(g, w) for g, w in zip(fpn, want))
+    return fpn
+
+
+@pytest.mark.parametrize("site", ["cpu", "stand-in"])
+@torch.no_grad()
+def test_image_site_equals_the_eager_path(models, site):
+    """`forward_image` on four distinct inputs: through the real site (eager
+    on the CPU, no counter moves) or the stand-in (one eager call, one
+    capture, two replays), each bit for bit the eager trunk, neck and
+    convolutions, each result unchanged by the calls after it and sharing
+    no storage with the graph's buffers, and a forward pre-hook on the image
+    encoder fired on every call. The graph's static outputs are the three
+    levels the callers read: no 256-channel level 0 or 1 is held."""
+    sam2 = models[0]
+    if site == "stand-in":
+        sam2 = _image_stand_in(copy.deepcopy(sam2))
+    calls = []
+    hook = sam2.image_encoder.register_forward_pre_hook(
+        lambda _mod, _args: calls.append(len(calls)))
+    kept = []
+    try:
+        for i in range(4):
+            kept += [(t, t.clone()) for t in _same_levels(sam2, _images(i))]
+    finally:
+        hook.remove()
+    assert len(calls) == 4
+    assert all(torch.equal(t, c) for t, c in kept)
+    stats = sam2.graph_stats
+    if site == "cpu":
+        assert all(not v for v in stats.values())
+        return
+    assert [_count(stats, w) for w in ("eager", "captures", "replays")] \
+        == [1, 1, 2]
+    assert {k[0] for w in ("eager", "captures", "replays")
+            for k in stats[w]} == {"image"}
+    live = sam2.image_encoder._graph._live
+    assert [tuple(t.shape) for t in live.static_out] == [
+        (1, 32, 32, 32), (1, 16, 16, 64), (1, 8, 8, 256)]
+    static = {t.untyped_storage().data_ptr()
+              for t in live.static_in + live.static_out}
+    assert all(t.untyped_storage().data_ptr() not in static for t, _ in kept)
+
+
+@pytest.mark.parametrize("write", ["conv_s0", "load_state_dict", "int8",
+                                   "decoder.to"])
+@torch.no_grad()
+def test_image_site_after_a_weight_write(write):
+    """After a capture through the stand-in, each gives the eager code's
+    levels on the new weights: conv_s0's weight written in place is read
+    by the next replay at its address (no new capture); `load_state_dict`
+    on SAM2 drops the graph, so the next two calls run eagerly and capture
+    anew; under W8A8 a trunk weight written in place is the source of
+    levels the graph holds, so the next call captures anew; the mask
+    decoder moved alone gives conv_s0 / conv_s1 new addresses, which the
+    key holds, so the next call runs eagerly and the one after captures."""
+    sam2 = SAM2(SAM_CFG, encoder_quant="int8" if write == "int8" else "none")
+    init_random_(sam2, torch.Generator().manual_seed(4))
+    sam2 = _image_stand_in(sam2.eval())
+    imgs = _images(5)
+    for _ in range(3):                        # eager, capture, replay
+        _same_levels(sam2, imgs)
+    site = sam2.image_encoder._graph
+    if write == "conv_s0":
+        sam2.sam_mask_decoder.conv_s0.weight.mul_(1.5)
+        want = (1, 1, 2)
+    elif write == "load_state_dict":
+        sam2.load_state_dict({k: v * 0.5
+                              for k, v in sam2.state_dict().items()})
+        assert site._live is None
+        _same_levels(sam2, imgs)
+        want = (2, 2, 1)
+    elif write == "decoder.to":
+        dec = sam2.sam_mask_decoder
+        # the old parameters kept alive, so no new one takes their address
+        old = [p.detach() for p in dec.parameters()]
+        dec.to(torch.float64).to(torch.float32)
+        assert site._live is not None and len(old) > 0
+        _same_levels(sam2, imgs)
+        want = (2, 2, 1)
+    else:
+        assert len(site._live.held.sources) > 0
+        sam2.image_encoder.trunk.blocks[0].mlp.layers[0].weight.mul_(1.5)
+        want = (1, 2, 1)
+    _same_levels(sam2, imgs)
+    assert tuple(_count(sam2.graph_stats, w)
+                 for w in ("eager", "captures", "replays")) == want

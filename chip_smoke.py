@@ -2258,11 +2258,34 @@ def profile_propagation(pred, frames, points, chunk, label):
 
 
 def scan_graphs(pred):
-    """The scan graphs captured so far: {key: (captures, seconds of the
-    capture, bytes of its memory pool)}."""
-    st = pred.scan_stats
-    return {k: (n, st["capture_s"][k], st["pool_bytes"][k])
-            for k, n in st["captures"].items()}
+    """The scan graphs captured so far (site "scan" of the model's
+    `graph_stats`): {key: (captures, seconds of the capture, bytes of its
+    memory pool)}."""
+    st = pred.model.graph_stats
+    return {k[1]: (n, st["capture_s"][k], st["pool_bytes"][k])
+            for k, n in st["captures"].items() if k[0] == "scan"}
+
+
+def scan_captures(pred):
+    """{key: captures} of the scan graphs so far."""
+    return {k: n for k, (n, _, _) in scan_graphs(pred).items()}
+
+
+def scan_replays(pred):
+    """The scan graphs' replays so far."""
+    return sum(n for k, n in pred.model.graph_stats["replays"].items()
+               if k[0] == "scan")
+
+
+def same_launches(what, got, want):
+    """A scanned run's kernel launches must be the per-frame path's: a
+    replay counts its capture's launches, the warm-up and the capture
+    none."""
+    log(f"  {what}: kernel launches {got}")
+    diff = {k: (want.get(k, 0), got.get(k, 0)) for k in set(got) | set(want)
+            if got.get(k, 0) != want.get(k, 0)}
+    if diff:
+        fail(f"{what}: launches (per-frame path, scan path) differ: {diff}")
 
 
 def run_video(dev, profile=False):
@@ -2323,9 +2346,10 @@ def run_video(dev, profile=False):
         f"the capture)")
     check_masks("scan path", scan_masks, n_obj, side)
     same_masks("scan path vs per-frame path, forward", scan_masks, masks)
-    if pred.scan_stats["replays"] != tracked:
-        fail(f"{pred.scan_stats['replays']} graph replays for {tracked} "
-             "tracked frames")
+    same_launches("scan path, forward", scan_counts, counts)
+    if scan_replays(pred) != tracked:
+        fail(f"{scan_replays(pred)} graph replays for {tracked} tracked "
+             "frames")
     kept = len(scan_state["output_dict_per_obj"][0]["non_cond"])
     log(f"  tracked frames kept in the state: {kept} (history window "
         f"{pred.history_window}); the per-frame path kept "
@@ -2334,21 +2358,27 @@ def run_video(dev, profile=False):
     if not profile:
         memory_features_check(pred, scan_state, n_obj)
 
-    # in reverse from the last frame, on both paths (frame 0 is prompted)
+    # in reverse from the last frame, on both paths (frame 0 is prompted);
+    # the per-frame path from a cold feature cache, as the scan step always
+    # is, so that both encode the same frames
     pred.scan_chunk = 0
+    state["feat_cache"] = {}
+    reset_counts()
     rev, _, _ = propagate(pred, state, start_frame_idx=VIDEO_FRAMES - 1,
                           reverse=True)
+    frame_rev_counts = launch_counts()
     pred.scan_chunk = chunk
-    replays = pred.scan_stats["replays"]
+    replays = scan_replays(pred)
     reset_counts()
     scan_rev, _, _ = propagate(pred, scan_state,
                                start_frame_idx=VIDEO_FRAMES - 1, reverse=True)
     rev_counts = launch_counts()
     same_masks("scan path vs per-frame path, reverse from frame "
                f"{VIDEO_FRAMES - 1}", scan_rev, rev)
-    if pred.scan_stats["replays"] - replays != tracked:
-        fail(f"{pred.scan_stats['replays'] - replays} graph replays for "
-             f"{tracked} frames tracked in reverse")
+    same_launches("scan path, reverse", rev_counts, frame_rev_counts)
+    if scan_replays(pred) - replays != tracked:
+        fail(f"{scan_replays(pred) - replays} graph replays for {tracked} "
+             "frames tracked in reverse")
     for k, v in rev_counts.items():
         scan_counts[k] += v
     graphs = scan_graphs(pred)
@@ -2357,31 +2387,19 @@ def run_video(dev, profile=False):
         "chunk, fusion off): " + "; ".join(
             f"{k}: captured {n} x in {s:.2f} s, pool {b / 2**20:.0f} MiB"
             for k, (n, s, b) in graphs.items())
-        + f"; {pred.scan_stats['replays']} replays")
+        + f"; {scan_replays(pred)} replays")
     if len(graphs) != 2 or any(n != 1 for n, _, _ in graphs.values()):
         fail("the forward and the reverse scan must each capture one graph "
              "once")
-    # launches counted on the scan runs: the eager warm-up step and the
-    # capture of each key (a replay calls no wrapper), and frame 0's
-    # features and prompted decodes
-    log(f"  scan runs' kernel launches (frame 0, then a warm-up step and a "
-        f"capture per key): {scan_counts}")
-    for k, per in {**VIDEO_PER_FRAME, **VIDEO_PER_TRACKED}.items():
-        want = 2 * len(graphs) * per + (
-            per if k in VIDEO_PER_FRAME else
-            per * n_obj if k in ("fused_t2i_attn", "fused_i2t_norm") else 0)
-        if scan_counts[k] != want:
-            fail(f"{k}: {scan_counts[k]} launches on the scan runs, "
-                 f"expected {want}")
 
     # the same propagation once more on each path under torch.profiler:
     # the port's kernels by name must be the per-frame path's
-    captures = dict(pred.scan_stats["captures"])
+    captures = scan_captures(pred)
     pf_rows, pf_ours = profile_propagation(pred, frames, points, 0,
                                            "per-frame path")
     sc_rows, sc_ours = profile_propagation(pred, frames, points, chunk,
                                            "scan path, graph replays")
-    if pred.scan_stats["captures"] != captures:
+    if scan_captures(pred) != captures:
         fail("the profiled scan run captured a graph")
     if sc_ours != pf_ours or not pf_ours:
         diff = {k: (pf_ours.get(k, 0), sc_ours.get(k, 0))
@@ -2395,7 +2413,7 @@ def run_video(dev, profile=False):
     for k, v in scan_counts.items():
         counts[k] += v
     scan_warm, warm = timed_turns(pred, frames, points, chunk)
-    if pred.scan_stats["captures"] != captures:
+    if scan_captures(pred) != captures:
         fail("a warm scan run captured a graph")
 
     if profile:
@@ -2414,7 +2432,7 @@ def run_video(dev, profile=False):
         plain_masks, _, _ = track_clip(pred, frames, points, chunk)
     if launch_counts() != counts_after:
         fail("a kernel was launched inside no_fusion()")
-    plain_keys = [k for k in pred.scan_stats["captures"] if k[-1]]
+    plain_keys = [k for k in scan_captures(pred) if k[-1]]
     if len(plain_keys) != 1:
         fail(f"no_fusion() tracking captured {len(plain_keys)} graphs of "
              "its own, expected 1")

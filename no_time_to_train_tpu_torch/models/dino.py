@@ -14,7 +14,8 @@ import torch.nn.functional as F
 
 from no_time_to_train_tpu_torch.models.sam2.common import LayerNorm, _gelu_act
 from no_time_to_train_tpu_torch.ops.attention import sdpa_bnhd
-from no_time_to_train_tpu_torch.ops.graph_call import GraphSite, graph_stats
+from no_time_to_train_tpu_torch.ops.graph_call import (
+    GraphOwner, GraphSite, graph_stats)
 from no_time_to_train_tpu_torch.ops.quant import linear_cls
 from no_time_to_train_tpu_torch.ops.resize import resize
 
@@ -143,7 +144,7 @@ class _Encoder(nn.Module):
             for _ in range(cfg.depth))
 
 
-class DinoV2(nn.Module):
+class DinoV2(GraphOwner):
     """DINOv2: the MLP feed-forward (small to large) or the SwiGLU one
     (giant), with layer scale, or without it where init_values is None."""
 
@@ -159,14 +160,6 @@ class DinoV2(nn.Module):
         self.layernorm = LayerNorm(cfg.feat_dim, eps=1e-6)
         self.graph_stats = graph_stats()
         self._graph = GraphSite("dino", self.graph_stats)
-
-    def _apply(self, fn, recurse=True):
-        self._graph.reset()
-        return super()._apply(fn, recurse)
-
-    def _load_from_state_dict(self, *args, **kwargs):
-        self._graph.reset()
-        super()._load_from_state_dict(*args, **kwargs)
 
     def forward(self, imgs, drop_prefix_tokens=True):
         """imgs: [B, S, S, 3] normalized. Returns patch features

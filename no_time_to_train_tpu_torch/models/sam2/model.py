@@ -26,7 +26,7 @@ from no_time_to_train_tpu_torch.models.sam2.memory_attention import (
 from no_time_to_train_tpu_torch.models.sam2.memory_encoder import MemoryEncoder
 from no_time_to_train_tpu_torch.models.sam2.neck import Sam2ImageEncoder
 from no_time_to_train_tpu_torch.models.sam2.prompt_encoder import PromptEncoder
-from no_time_to_train_tpu_torch.ops.graph_call import GraphSite
+from no_time_to_train_tpu_torch.ops.graph_call import GraphOwner, GraphSite
 from no_time_to_train_tpu_torch.ops.resize import resize_hw
 
 __all__ = ["SAM2", "NO_OBJ_SCORE"]
@@ -34,7 +34,7 @@ __all__ = ["SAM2", "NO_OBJ_SCORE"]
 NO_OBJ_SCORE = -1024.0
 
 
-class SAM2(nn.Module):
+class SAM2(GraphOwner):
     def __init__(self, cfg, encoder_quant="none"):
         """`encoder_quant="int8"`: W8A8 GEMMs in the image encoder's trunk
         only (ops/quant.py); the neck, the prompt and mask towers stay in the
@@ -77,7 +77,7 @@ class SAM2(nn.Module):
                 if c.use_mlp_for_obj_ptr_proj
                 else nn.Linear(c.hidden_dim, c.hidden_dim))
             self.mask_downsample = nn.Conv2d(1, 1, 4, stride=4)
-        # one dict for the image encoder's site and the decode's sites
+        # one dict for the image encoder's, the decode's and the scan's graphs
         self.graph_stats = self.image_encoder.graph_stats
         steps = ["prompts", "heads"] + [
             f"{i}.{half}"
@@ -85,16 +85,6 @@ class SAM2(nn.Module):
             for half in ("attend", "mlp")]
         self._decode_graphs = {n: GraphSite(f"decode.{n}", self.graph_stats)
                                for n in steps}
-
-    def _apply(self, fn, recurse=True):
-        for site in self._decode_graphs.values():
-            site.reset()
-        return super()._apply(fn, recurse)
-
-    def _load_from_state_dict(self, *args, **kwargs):
-        for site in self._decode_graphs.values():
-            site.reset()
-        super()._load_from_state_dict(*args, **kwargs)
 
     # ------------------------------------------------------------------ image
     def forward_image(self, imgs):

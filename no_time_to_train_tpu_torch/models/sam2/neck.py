@@ -13,7 +13,8 @@ import torch.nn as nn
 
 from no_time_to_train_tpu_torch.models.sam2.common import conv1x1
 from no_time_to_train_tpu_torch.models.sam2.hiera import Hiera
-from no_time_to_train_tpu_torch.ops.graph_call import GraphSite, graph_stats
+from no_time_to_train_tpu_torch.ops.graph_call import (
+    GraphOwner, GraphSite, graph_stats)
 from no_time_to_train_tpu_torch.ops.resize import resize
 
 __all__ = ["FpnNeck", "Sam2ImageEncoder"]
@@ -57,7 +58,7 @@ class FpnNeck(nn.Module):
         return out
 
 
-class Sam2ImageEncoder(nn.Module):
+class Sam2ImageEncoder(GraphOwner):
     def __init__(self, cfg, quant="none"):
         super().__init__()
         self.scalp = cfg.scalp
@@ -70,14 +71,6 @@ class Sam2ImageEncoder(nn.Module):
                             cfg.fpn_top_down_levels, cfg.fpn_interp_model)
         self.graph_stats = graph_stats()
         self._graph = GraphSite("image", self.graph_stats)
-
-    def _apply(self, fn, recurse=True):
-        self._graph.reset()
-        return super()._apply(fn, recurse)
-
-    def _load_from_state_dict(self, *args, **kwargs):
-        self._graph.reset()
-        super()._load_from_state_dict(*args, **kwargs)
 
     def forward(self, sample, high_res=None):
         """sample [B, S, S, 3] normalized -> dict(vision_features,

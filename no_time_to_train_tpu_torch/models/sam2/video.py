@@ -25,10 +25,12 @@ step is captured once in a CUDA graph per shape and branch (objects,
 conditioning rows and pointers, direction, ...) and each frame is one
 replay, so the host issues a frame copy and a graph launch a frame instead
 of some 1500 launches; on the CPU the same step runs eagerly. A failed
-capture raises. The JAX package's own conditions (a clip on the host, more
-conditioning frames than `max_cond_frames_in_attn`, one-frame runs,
-`history_window = 0`) send a run down the per-frame path.
+capture raises; it is `ops/graph_call.py`'s, counted in the model's
+`graph_stats` (site "scan"). The JAX package's own conditions (a clip on the
+host, more conditioning frames than `max_cond_frames_in_attn`, one-frame
+runs, `history_window = 0`) send a run down the per-frame path.
 """
+import copy
 import time
 import warnings
 from collections import OrderedDict
@@ -43,7 +45,7 @@ from no_time_to_train_tpu_torch.models.sam2.model import NO_OBJ_SCORE
 from no_time_to_train_tpu_torch.models.sam2.pos_enc import sine_pos_embed_2d
 from no_time_to_train_tpu_torch.ops.connected_components import (
     fill_holes_in_mask_scores)
-from no_time_to_train_tpu_torch.ops.graph_inputs import holding
+from no_time_to_train_tpu_torch.ops import graph_call
 from no_time_to_train_tpu_torch.ops.resize import resize_hw
 from no_time_to_train_tpu_torch.ops.upscale_product import fusion_disabled
 
@@ -129,9 +131,6 @@ class SAM2VideoPredictor:
         self._ring_W = max((c.num_maskmem - 2) * r + 2, 2)
         # scan steps by key (`_scan_key`), least recently used first
         self._scan_steps = OrderedDict()
-        # captures by key, replays, and each capture's seconds and pool bytes
-        self.scan_stats = {"captures": {}, "replays": 0, "capture_s": {},
-                           "pool_bytes": {}}
         dev, f32 = self.device, torch.float32
         self._mean = torch.as_tensor(IMAGENET_MEAN, dtype=f32, device=dev)
         self._std = torch.as_tensor(IMAGENET_STD, dtype=f32, device=dev)
@@ -772,55 +771,50 @@ class SAM2VideoPredictor:
             steps.move_to_end(key)
         else:
             steps[key] = SimpleNamespace(bufs=self._scan_buffers(key),
-                                         graph=None, held=(), owner=None)
+                                         live=None, owner=None)
             while len(steps) > _SCAN_GRAPHS:
                 steps.popitem(last=False)
         return steps[key]
 
-    def _capture_scan_step(self, entry, key, args):
-        """Capture the key's step in a CUDA graph. First one eager step on a
-        copy of the buffers, on the stream that captures, does the work of
-        a first use (the kernels' build and attributes, the cached tables,
-        the library handles) without writing a live ring; the tables the
-        step reads stay held beside the graph. Raises if the capture fails:
-        a scanned run is never tracked eagerly on the card."""
-        dev = self.device
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            scratch = SimpleNamespace(**{
-                k: (tuple(x.clone() for x in v) if k == "outs" else v.clone())
-                for k, v in vars(entry.bufs).items()})
-            self._scan_step(scratch, *args)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        del scratch
-        torch.cuda.synchronize(dev)
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(dev)
-        graph = torch.cuda.CUDAGraph()
-        t0 = time.perf_counter()
-        with holding() as held, torch.cuda.graph(graph, stream=side):
-            self._scan_step(entry.bufs, *args)
-        torch.cuda.synchronize(dev)
-        entry.graph, entry.held = graph, held
-        stats = self.scan_stats
-        stats["captures"][key] = stats["captures"].get(key, 0) + 1
-        stats["capture_s"][key] = time.perf_counter() - t0
-        stats["pool_bytes"][key] = torch.cuda.memory_reserved(dev) - reserved
+    def _graphed(self):
+        """Whether the scan replays its step as a CUDA graph: on the card
+        (on the CPU the step runs eagerly)."""
+        return self.device.type == "cuda"
 
-    def _scan_chunk(self, entry, images, n, args):
+    def _scan_graph(self, entry, key, args):
+        """The key's graph (its key: the model's `graph_generation` at the
+        capture), captured anew where there is none, where a table it reads
+        was written since, or where the model's weights were moved or loaded
+        since. The warm-up step runs on a copy of the live buffers."""
+        gen, live = self.model.graph_generation, entry.live
+        if live is not None and live.key == gen and not live.held.stale():
+            return live
+        entry.live = None                    # its pool goes first
+        t0 = time.perf_counter()
+        entry.live, pool = graph_call.capture(
+            lambda s: self._scan_step(s, *args), (entry.bufs,),
+            (copy.deepcopy(entry.bufs),), self.device, gen)
+        graph_call.record_capture(self.model.graph_stats, ("scan", key), t0,
+                                  pool)
+        return entry.live
+
+    def _scan_chunk(self, entry, key, images, n, args):
         """Track the next `n` frames of a run: a frame copy and a graph
         replay each (the step itself on the CPU); returns copies of the
         chunk's outputs (lr, obj_ptr, mem_feat, mem_pos, filled), [n, ...]
         each."""
         s = entry.bufs
+        live = self._scan_graph(entry, key, args) if self._graphed() \
+            else None
         for _ in range(n):
             torch.index_select(images, 0, s.t, out=s.frame)
-            if entry.graph is None:
+            if live is None:
                 self._scan_step(s, *args)
             else:
-                entry.graph.replay()
-                self.scan_stats["replays"] += 1
+                live.replay()
+        if live is not None:
+            replays = self.model.graph_stats["replays"]
+            replays["scan", key] = replays.get(("scan", key), 0) + n
         return tuple(o[:n].clone() for o in s.outs)
 
     def _scan_plan(self, state, run, reverse, video_res=False):
@@ -871,8 +865,6 @@ class SAM2VideoPredictor:
             token = entry.owner = object()
             self._fill_scan_buffers(entry.bufs, state, conds, pools, start,
                                     reverse)
-            if self.device.type == "cuda" and entry.graph is None:
-                self._capture_scan_step(entry, key, args)
             recent, pend, wrote_back = [], None, False
             try:
                 for k in range(0, len(run), ch):
@@ -882,7 +874,7 @@ class SAM2VideoPredictor:
                             "drain one propagate_in_video before starting "
                             "another with the same objects and prompts")
                     chunk = run[k:k + ch]
-                    outs = self._scan_chunk(entry, state["images"],
+                    outs = self._scan_chunk(entry, key, state["images"],
                                             len(chunk), args)
                     recent.append((chunk, outs))
                     del recent[:-keep]

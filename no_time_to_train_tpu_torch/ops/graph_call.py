@@ -40,9 +40,9 @@ capturing call's eager run and capture as none.
 `captures`, `replays` and `eager` calls, and of the latest capture the
 seconds of the capturing call (`capture_s`) and the growth of the device's
 reserved memory (`pool_bytes`). A capture runs inside the span
-`nttt.capture`. The graph replays the weights at the addresses it saw: a
-module that moves or loads its weights (`_apply`, `_load_from_state_dict`)
-calls `reset`.
+`nttt.capture`. The video scan (`models/sam2/video.py`) captures through
+`capture` too. A graph replays the weights at the addresses it saw: a
+`GraphOwner` that moves or loads its weights resets its sites.
 """
 import threading
 import time
@@ -54,7 +54,8 @@ from no_time_to_train_tpu_torch.ops.graph_inputs import holding
 from no_time_to_train_tpu_torch.ops.upscale_product import fusion_disabled
 from no_time_to_train_tpu_torch.utils.profiling import span
 
-__all__ = ["GraphSite", "graph_stats"]
+__all__ = ["GraphOwner", "GraphSite", "capture", "graph_stats",
+           "record_capture"]
 
 
 def graph_stats():
@@ -67,6 +68,13 @@ def _bump(table, key):
     table[key] = table.get(key, 0) + 1
 
 
+def record_capture(stats, tag, t0, pool):
+    """Count a capture of (site, key) `tag` begun at perf_counter `t0`."""
+    _bump(stats["captures"], tag)
+    stats["capture_s"][tag] = time.perf_counter() - t0
+    stats["pool_bytes"][tag] = pool
+
+
 class _Captured:
     """A live graph: its key, static inputs and outputs (`one`: fn returns
     one tensor), the tables it reads (a `graph_inputs.Held`, kept alive
@@ -77,6 +85,41 @@ class _Captured:
         self.one = not isinstance(static_out, tuple)
         self.static_out = (static_out,) if self.one else static_out
         self.held, self.launches = held, launches
+
+    def replay(self):
+        """Replay the graph; its capture's launches count once more."""
+        self.graph.replay()
+        _cuda.count_replay(self.launches)
+
+
+def capture(fn, static_in, warm, device, key=None):
+    """Run fn(*warm) once eagerly on a side stream of `device` (its first
+    use: library handles, kernel builds, cached tables), drop its result,
+    then capture fn(*static_in) there. Neither counts a launch. Returns (the
+    _Captured graph, its pool: the growth of the reserved memory)."""
+    with torch.cuda.device(device):
+        cur = torch.cuda.current_stream(device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side), _cuda.recorded_launches():
+            fn(*warm)
+        cur.wait_stream(side)
+        torch.cuda.synchronize(device)
+        # the capture takes a cuBLAS workspace of its own from the graph's
+        # pool, as torch's graph trees do: the side stream's eager one
+        # (32 MiB on Hopper) is not kept
+        torch._C._cuda_clearCublasWorkspaces()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(device)
+        graph = torch.cuda.CUDAGraph()
+        with holding() as held, _cuda.recorded_launches() as launches, \
+                torch.cuda.graph(graph, stream=side,
+                                 capture_error_mode="thread_local"):
+            static_out = fn(*static_in)
+        torch.cuda.synchronize(device)
+        torch._C._cuda_clearCublasWorkspaces()
+        pool = torch.cuda.memory_reserved(device) - reserved
+    return _Captured(key, graph, static_in, static_out, held, launches), pool
 
 
 class GraphSite:
@@ -128,8 +171,7 @@ class GraphSite:
     def _replay(live, args, scratch):
         for s, a in zip(live.static_in, args):
             s.copy_(a)
-        live.graph.replay()
-        _cuda.count_replay(live.launches)
+        live.replay()
         outs = tuple(o if i in scratch else o.clone()
                      for i, o in enumerate(live.static_out))
         return outs[0] if live.one else outs
@@ -137,44 +179,34 @@ class GraphSite:
     def _capture(self, fn, args, k, tag, scratch):
         t0 = time.perf_counter()
         with span("nttt.capture"):
-            self._live, pool = self._new_graph(fn, args, k)
-            outs = self._replay(self._live, args, scratch)
-        stats = self.stats
-        _bump(stats["captures"], tag)
-        stats["capture_s"][tag] = time.perf_counter() - t0
-        stats["pool_bytes"][tag] = pool
-        return outs
-
-    @staticmethod
-    def _new_graph(fn, args, k):
-        """Run fn once eagerly on a side stream and drop its result, then
-        capture it there on static copies of the inputs. Returns (the
-        _Captured graph, the growth of the reserved memory)."""
-        dev = args[0].device
-        with torch.cuda.device(dev):
-            cur = torch.cuda.current_stream(dev)
             # allocated on the caller's stream: a dropped graph's inputs go
             # back to it, and its later work runs after the last replay
             static_in = tuple(torch.empty_like(a).copy_(a) for a in args)
-            side = torch.cuda.Stream(dev)
-            side.wait_stream(cur)
-            with torch.cuda.stream(side), _cuda.recorded_launches():
-                fn(*static_in)
-            cur.wait_stream(side)
-            torch.cuda.synchronize(dev)
-            # the capture takes a cuBLAS workspace of its own from the
-            # graph's pool, as torch's graph trees do: the side stream's
-            # eager one (32 MiB on Hopper) is not kept
-            torch._C._cuda_clearCublasWorkspaces()
-            torch.cuda.empty_cache()
-            reserved = torch.cuda.memory_reserved(dev)
-            graph = torch.cuda.CUDAGraph()
-            with holding() as held, _cuda.recorded_launches() as launches, \
-                    torch.cuda.graph(graph, stream=side,
-                                     capture_error_mode="thread_local"):
-                static_out = fn(*static_in)
-            torch.cuda.synchronize(dev)
-            torch._C._cuda_clearCublasWorkspaces()
-            pool = torch.cuda.memory_reserved(dev) - reserved
-        return _Captured(k, graph, static_in, static_out, held,
-                         launches), pool
+            self._live, pool = capture(fn, static_in, static_in,
+                                       args[0].device, k)
+            outs = self._replay(self._live, args, scratch)
+        record_capture(self.stats, tag, t0, pool)
+        return outs
+
+
+class GraphOwner(torch.nn.Module):
+    """A module whose graphs replay its weights: moving or loading them resets
+    every GraphSite it holds (an attribute, or a dict's value) and bumps
+    `graph_generation`, which the video scan's graphs compare."""
+
+    graph_generation = 0
+
+    def _reset_graphs(self):
+        for v in vars(self).values():
+            for site in v.values() if isinstance(v, dict) else (v,):
+                if isinstance(site, GraphSite):
+                    site.reset()
+        self.graph_generation += 1
+
+    def _apply(self, fn, recurse=True):
+        self._reset_graphs()
+        return super()._apply(fn, recurse)
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        self._reset_graphs()
+        super()._load_from_state_dict(*args, **kwargs)

@@ -8,9 +8,13 @@ and image-encoder sites of the tiny models, which on the CPU run the eager
 code unchanged, and through the stand-in give the same bits, also after
 their weights are written, with no per-prompt image-side tensor in a
 decode graph and no 256-channel high-resolution level in the image
-encoder's."""
+encoder's; and the video predictor's chunked scan, whose graph goes through
+the same capture: the scanned run through the stand-in gives the eager
+scan's bits and counts its launches, and after a weight write, a load or a
+move of the model the scan captures anew."""
 import copy
 
+import numpy as np
 import pytest
 import torch
 
@@ -19,7 +23,8 @@ from no_time_to_train_tpu_torch.config.presets import (
 from no_time_to_train_tpu_torch.models.dino import DinoV2
 from no_time_to_train_tpu_torch.models.sam2.common import conv1x1
 from no_time_to_train_tpu_torch.models.sam2.model import SAM2
-from no_time_to_train_tpu_torch.ops import _cuda
+from no_time_to_train_tpu_torch.models.sam2.video import SAM2VideoPredictor
+from no_time_to_train_tpu_torch.ops import _cuda, graph_call
 from no_time_to_train_tpu_torch.ops.graph_call import (
     GraphSite, _Captured, graph_stats)
 from no_time_to_train_tpu_torch.ops.graph_inputs import held, holding
@@ -35,30 +40,39 @@ class _StandIn:
         self.fn, self.static_in, self.static_out = fn, static_in, static_out
 
     def replay(self):
-        with _cuda.recorded_launches():      # counted by the site
+        with _cuda.recorded_launches():      # counted by _Captured.replay
             outs = self.fn(*self.static_in)
         outs = outs if isinstance(outs, tuple) else (outs,)
         for o, r in zip(self.static_out, outs):
-            o.copy_(r)
+            if o is not None:                # None: fn writes in place
+                o.copy_(r)
+
+
+def _stand_in_capture(fn, static_in, warm, device, key=None):
+    """`graph_call.capture` on the CPU, with the real launch recording: the
+    eager run on `warm`, dropped, then a stand-in graph of fn on
+    `static_in`. A capture runs no kernel, so the stand-in's runs on a copy
+    of `static_in`, which fn may write (the scan step moves its rings)."""
+    with _cuda.recorded_launches():
+        fn(*warm)
+    with holding() as tables, _cuda.recorded_launches() as launches:
+        static_out = fn(*copy.deepcopy(static_in))
+    live = _Captured(key, None, static_in, static_out, tables, launches)
+    live.graph = _StandIn(fn, static_in, live.static_out)
+    return live, 0
+
+
+@pytest.fixture(autouse=True)
+def stand_in_capture(monkeypatch):
+    """Every capture of this module is the stand-in's."""
+    monkeypatch.setattr(graph_call, "capture", _stand_in_capture)
 
 
 class StandInSite(GraphSite):
-    """A site that takes the graph path on the CPU, its capture a stand-in
-    with the real launch recording."""
+    """A site that takes the graph path on the CPU."""
 
     def _capturable(self, args):
         return not torch.is_grad_enabled()
-
-    @staticmethod
-    def _new_graph(fn, args, k):
-        static_in = tuple(a.clone() for a in args)
-        with _cuda.recorded_launches():
-            fn(*static_in)                   # the eager run, dropped
-        with holding() as tables, _cuda.recorded_launches() as launches:
-            static_out = fn(*static_in)
-        live = _Captured(k, None, static_in, static_out, tables, launches)
-        live.graph = _StandIn(fn, static_in, live.static_out)
-        return live, 0
 
 
 LAUNCHES = {"k": 0}
@@ -424,3 +438,126 @@ def test_image_site_after_a_weight_write(write):
     _same_levels(sam2, imgs)
     assert tuple(_count(sam2.graph_stats, w)
                  for w in ("eager", "captures", "replays")) == want
+
+
+def _clip(n=9, seed=3):
+    """n frames of 128^2 noise with a bright block moving to the right."""
+    rng = np.random.default_rng(seed)
+    frames = rng.random((n, 128, 128, 3)).astype(np.float32)
+    for t in range(n):
+        frames[t, 40:90, 10 + 3 * t:50 + 3 * t] = 0.9
+    return frames
+
+
+def _predictor(quant="none"):
+    sam2 = SAM2(SAM_CFG, encoder_quant=quant)
+    init_random_(sam2, torch.Generator().manual_seed(6))
+    pred = SAM2VideoPredictor(sam2, device="cpu")
+    pred.scan_chunk = 4
+    return pred
+
+
+def _scanned(pred, frames, graphed):
+    """Frame 0 prompted, frames 1.. tracked by the chunked scan, through the
+    stand-in graph or eagerly: the masks by frame."""
+    pred._graphed = lambda: graphed
+    try:
+        state = pred.init_state(frames)
+        pred.add_new_points_or_box(
+            state, 0, 1, points=np.array([[30.0, 60.0]], np.float32),
+            labels=np.array([1], np.int32))
+        return {t: m.clone() for t, _, m in pred.propagate_in_video(state)}
+    finally:
+        del pred._graphed
+
+
+def _same_masks(got, want):
+    assert list(got) == list(want)
+    assert all(torch.equal(got[t], want[t]) for t in want)
+
+
+def _scan_counts(pred):
+    stats = pred.model.graph_stats
+    assert {k[0] for w in ("captures", "replays", "eager")
+            for k in stats[w]} <= {"scan"}
+    return tuple(_count(stats, w) for w in ("eager", "captures", "replays"))
+
+
+@torch.no_grad()
+def test_scan_graph_equals_the_eager_scan():
+    """A scanned run through the stand-in gives the eager scan's masks bit
+    for bit (its warm-up step wrote no live ring), one capture and one
+    replay per tracked frame under the site "scan" of the model's
+    `graph_stats`, and the eager run's launch counts: the warm-up and the
+    capture count none, each replay its capture's."""
+    pred = _predictor()
+    launches = {"track": 0}
+    track_core = pred._track_core
+    pred._track_core = lambda *a: (_cuda.count(launches, "track"),
+                                   track_core(*a))[1]
+    frames = _clip()
+    want = _scanned(pred, frames, False)
+    eager = launches["track"]
+    assert _scan_counts(pred) == (0, 0, 0) and eager >= len(frames) - 1
+    got = _scanned(pred, frames, True)
+    _same_masks(got, want)
+    assert _scan_counts(pred) == (0, 1, len(frames) - 1)
+    assert launches["track"] == 2 * eager
+    assert all(k[1][0] == 1 for k in pred.model.graph_stats["replays"])
+
+
+@pytest.mark.parametrize("write", ["int8", "load_state_dict", "to"])
+@torch.no_grad()
+def test_scan_graph_after_a_weight_write(write):
+    """After a scanned run through the stand-in, each makes the next
+    scanned run capture anew and give the eager scan's masks on the new
+    weights: under W8A8 a trunk weight written in place (the source of
+    levels the graph holds); `load_state_dict` and a move (`to`) of the
+    predictor's model (its `graph_generation` moves on)."""
+    pred = _predictor("int8" if write == "int8" else "none")
+    frames = _clip()
+    _scanned(pred, frames, True)
+    live = next(iter(pred._scan_steps.values())).live
+    model = pred.model
+    if write == "int8":
+        assert len(live.held.sources) > 0
+        model.image_encoder.trunk.blocks[0].mlp.layers[0].weight.mul_(1.5)
+        assert live.held.stale()
+    elif write == "load_state_dict":
+        model.load_state_dict({k: v * 0.5
+                               for k, v in model.state_dict().items()})
+    else:
+        # the old parameters kept alive, so no new one takes their address
+        old = [p.detach() for p in model.parameters()]
+        model.to(torch.float64).to(torch.float32)
+        assert old[0].data_ptr() != model.no_mem_embed.data_ptr()
+    got = _scanned(pred, frames, True)
+    assert _scan_counts(pred) == (0, 2, 2 * (len(frames) - 1))
+    assert next(iter(pred._scan_steps.values())).live is not live
+    _same_masks(got, _scanned(pred, frames, False))
+
+
+@pytest.mark.parametrize("owner", ["dino", "image_encoder", "sam2"])
+@torch.no_grad()
+def test_owners_reset_their_sites_through_the_base(models, owner):
+    """DinoV2, the image encoder and SAM2 define no reset of their own: the
+    base's `_apply` and `_load_from_state_dict` drop every site's graph and
+    key and move `graph_generation` on, once per move and once per load."""
+    sam2, dino = _stand_in(*models)
+    _image_stand_in(sam2)
+    mod = {"dino": dino, "image_encoder": sam2.image_encoder,
+           "sam2": sam2}[owner]
+    assert isinstance(mod, graph_call.GraphOwner)
+    assert not {"_apply", "_load_from_state_dict"} & set(vars(type(mod)))
+    sites = ([mod._graph] if owner != "sam2"
+             else list(mod._decode_graphs.values()))
+    for i in range(2):
+        for site in sites:
+            site._last = site._live = object()
+        gen = mod.graph_generation
+        if i == 0:
+            mod.to(torch.float32)
+        else:
+            mod.load_state_dict(mod.state_dict())
+        assert mod.graph_generation == gen + 1
+        assert all(s._live is None and s._last is None for s in sites)
